@@ -1,0 +1,18 @@
+from .convert import init_random, load_reference_state_dict, variables_from_jax
+from .orienmask_yolo_fpnplus import OrienMaskYOLOFPNPlus
+
+
+def build_model(model_cfg, **overrides):
+    """Model from a config's ``model`` dict.  ``pretrained`` is not read:
+    weights come from ``init_random`` or the weight bridge."""
+    kw = {k: v for k, v in model_cfg.items()
+          if k not in ("type", "pretrained", "freeze_backbone",
+                       "backbone_batchnorm_eval")}
+    kw.update(overrides)
+    if model_cfg["type"] != "OrienMaskYOLOFPNPlus":
+        raise ValueError(f"model {model_cfg['type']!r} is not ported yet")
+    return OrienMaskYOLOFPNPlus(**kw)
+
+
+__all__ = ["OrienMaskYOLOFPNPlus", "build_model", "init_random",
+           "load_reference_state_dict", "variables_from_jax"]

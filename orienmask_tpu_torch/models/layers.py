@@ -1,0 +1,140 @@
+"""Conv/BN/leaky building blocks (counterpart of ``orienmask_tpu/models/layers.py``).
+
+Modules keep the reference state-dict keys: ``{prefix}.conv_block.0.weight``
+and ``conv_block.1.{weight,bias,running_mean,running_var}`` for
+``ConvBNLeaky``, ``{prefix}.weight``/``.bias`` for ``Conv``.
+
+Inference runs on BN-folded weights: ``fold()`` returns a nested structure of
+``{"weight", "bias"}`` tensors (``{"weight", "bias_f32"}`` for ``Conv``)
+mirroring the module tree (the JAX ``fold`` pytree), and
+``apply_folded(folded, x, dtype)`` runs it.  Activations are NCHW
+(channels_last in memory on the card); convolutions run in ``dtype`` and the
+prediction heads (``Conv``) emit f32, as in JAX.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-5
+LEAKY_SLOPE = 0.1
+
+
+def leaky_relu(x):
+    return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+class Sequential(nn.Sequential):
+    """``nn.Sequential`` whose children fold and run folded in order."""
+
+    def fold(self):
+        return [m.fold() for m in self]
+
+    def apply_folded(self, folded, x, dtype):
+        for m, f in zip(self, folded):
+            x = m.apply_folded(f, x, dtype)
+        return x
+
+
+class ConvBNLeaky(nn.Module):
+    """conv (no bias) + BatchNorm + LeakyReLU(0.1)."""
+
+    def __init__(self, cin, cout, ksize, stride=1, padding=0, activation="leaky"):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.activation = activation
+        self.conv_block = nn.Sequential(
+            nn.Conv2d(cin, cout, ksize, stride, padding, bias=False),
+            nn.BatchNorm2d(cout, eps=BN_EPS),
+        )
+
+    def fold(self):
+        """BN folded into the conv (JAX ``ConvBNLeaky.fold``), f32."""
+        conv, bn = self.conv_block
+        inv = bn.weight.detach() * torch.rsqrt(bn.running_var + BN_EPS)
+        weight = conv.weight.detach() * inv[:, None, None, None]
+        bias = bn.bias.detach() - bn.running_mean * inv
+        return {"weight": weight, "bias": bias}
+
+    def apply_folded(self, folded, x, dtype):
+        # Stays in the compute dtype between folded convs; the bias is added
+        # in that dtype, as JAX's apply_folded does (``.to`` is a no-op on a
+        # bias the pipeline has already cast).
+        y = F.conv2d(x.to(dtype), folded["weight"], folded["bias"].to(dtype),
+                     self.stride, self.padding)
+        return leaky_relu(y) if self.activation == "leaky" else y
+
+
+class Conv(nn.Module):
+    """Plain conv with bias (prediction heads): conv in ``dtype``, then f32
+    plus the f32 bias."""
+
+    def __init__(self, cin, cout, ksize, stride=1, padding=0):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(cout, cin, ksize, ksize))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def fold(self):
+        return {"weight": self.weight.detach(), "bias_f32": self.bias.detach()}
+
+    def apply_folded(self, folded, x, dtype):
+        y = F.conv2d(x.to(dtype), folded["weight"], None, self.stride, self.padding)
+        return y.float() + folded["bias_f32"][:, None, None]
+
+
+class NearestUpsample(nn.Module):
+    """Nearest-neighbour x``scale`` upsample (an exact copy for integer scales)."""
+
+    def __init__(self, scale_factor):
+        super().__init__()
+        self.scale = int(scale_factor)
+
+    def fold(self):
+        return {}
+
+    def apply_folded(self, folded, x, dtype):
+        return F.interpolate(x, scale_factor=self.scale, mode="nearest")
+
+
+def upsample_matrix(out_size, in_size, align_corners=False):
+    """Dense 1-D bilinear interpolation matrix (out_size, in_size) with
+    ``F.interpolate(mode='bilinear')`` source coordinates, clipped to the
+    input as JAX ``layers.upsample_matrix`` does."""
+    m = np.zeros((out_size, in_size), np.float32)
+    if align_corners and out_size > 1:
+        src = np.arange(out_size) * (in_size - 1) / (out_size - 1)
+    else:
+        scale = in_size / out_size
+        src = (np.arange(out_size) + 0.5) * scale - 0.5
+    src = np.clip(src, 0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    frac = (src - lo).astype(np.float32)
+    m[np.arange(out_size), lo] += 1 - frac
+    m[np.arange(out_size), hi] += frac
+    return m
+
+
+def resize_matrices(in_hw, out_hw, align_corners, device):
+    """(mh (out_h, in_h), mw (out_w, in_w)) f32 tensors on ``device``."""
+    (in_h, in_w), (out_h, out_w) = in_hw, out_hw
+    mh = torch.from_numpy(upsample_matrix(out_h, in_h, align_corners))
+    mw = torch.from_numpy(upsample_matrix(out_w, in_w, align_corners))
+    return mh.to(device), mw.to(device)
+
+
+def resize_nhwc(x, mh, mw):
+    """NHWC ``x`` resized by the matrices of ``resize_matrices``: along H
+    first, then W, as JAX ``layers.bilinear_resize``."""
+    b, in_h, in_w, c = x.shape
+    y = torch.matmul(mh, x.reshape(b, in_h, in_w * c)).reshape(b, mh.shape[0], in_w, c)
+    return torch.matmul(mw, y)
+
+
+def bilinear_resize(x, out_h, out_w, align_corners=False):
+    """Bilinear resize of NHWC f32 ``x`` to (out_h, out_w) as two matmuls.
+    ``F.interpolate`` rounds differently and is not used."""
+    mh, mw = resize_matrices(x.shape[1:3], (out_h, out_w), align_corners, x.device)
+    return resize_nhwc(x, mh, mw)

@@ -1,0 +1,67 @@
+"""Fused inference: uint8 image -> packed instance masks (counterpart of
+``orienmask_tpu/pipeline.py::InferencePipeline``).
+
+One call runs resize + normalize, the BN-folded forward (bf16 convolutions
+on cuDNN, channels_last, f32 heads), the detect stage and the mask assembly,
+with no host round trip except the NMS convergence check.
+"""
+
+import torch
+
+from .device import resolve_device
+
+
+class InferencePipeline:
+    def __init__(self, model, transform, postprocess, compute_dtype="bfloat16",
+                 device=None):
+        """``model``: an ``OrienMaskYOLOFPNPlus`` holding its weights (on the
+        CPU is fine: only its folded copy moves to ``device``).
+        ``postprocess`` must live on the same device."""
+        self.device = resolve_device(device)
+        if postprocess.device != self.device:
+            raise ValueError(f"postprocess is on {postprocess.device}, "
+                             f"the pipeline on {self.device}")
+        self.model = model
+        self.transform = transform
+        self.postprocess = postprocess
+        self.dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[compute_dtype]
+        # Fold BN once, then pre-cast the conv kernels (channels_last for
+        # cuDNN) and the ConvBNLeaky biases to the compute dtype, the same
+        # bits as a cast per call; the heads' biases stay f32.
+        self.folded = self._to_device(model.fold())
+        h, w = transform.size
+        # transform resizes to the exact network size; padding is a no-op
+        self.pad_info = (0, 0, 0, 0, h, w)
+
+    def _to_device(self, tree):
+        if isinstance(tree, list):
+            return [self._to_device(t) for t in tree]
+        if isinstance(tree, dict) and "weight" in tree:
+            weight = tree["weight"].to(self.device, self.dtype)
+            out = {"weight": weight.contiguous(memory_format=torch.channels_last)}
+            if "bias" in tree:
+                out["bias"] = tree["bias"].to(self.device, self.dtype)
+            if "bias_f32" in tree:
+                out["bias_f32"] = tree["bias_f32"].to(self.device, torch.float32)
+            return out
+        return {k: self._to_device(v) for k, v in tree.items()}
+
+    @torch.inference_mode()
+    def heads(self, image):
+        """image: (B, H, W, 3) uint8 (tensor or numpy, any device) -> three
+        (bbox, orien) head pairs in the JAX layout (B, h, w, C), f32."""
+        x = torch.as_tensor(image).to(self.device).float()
+        x = self.transform.apply(x)  # (B, h, w, 3) f32
+        x = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
+        predict = self.model.apply_folded(self.folded, x, self.dtype)
+        return tuple((b.permute(0, 2, 3, 1), o.permute(0, 2, 3, 1)) for b, o in predict)
+
+    @torch.inference_mode()
+    def run_device(self, image):
+        """image: (B, H, W, 3) uint8 -> device output dict
+        {'bbox', 'cls', 'mask', 'valid'}."""
+        return self.postprocess._run_batch(self.heads(image))
+
+    def __call__(self, image):
+        """image: (B, H, W, 3) -> (list of per-image detection dicts, pad_info)."""
+        return self.postprocess.to_host_list(self.run_device(image)), self.pad_info

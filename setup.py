@@ -28,7 +28,8 @@ setup(
     name="orienmask_tpu",
     version="0.1.0",
     description="TPU-native OrienMask real-time instance segmentation framework",
-    packages=find_packages(include=["orienmask_tpu", "orienmask_tpu.*"]),
+    packages=find_packages(include=["orienmask_tpu", "orienmask_tpu.*",
+                                    "orienmask_tpu_torch", "orienmask_tpu_torch.*"]),
     python_requires=">=3.10",
     cmdclass={"build_native": BuildNative},
 )
