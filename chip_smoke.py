@@ -19,11 +19,25 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
 5. timings at the main path's shapes: each kernel, its plain version and
    the library call (CUDA events between CUDA-graph replays, median of 50),
    and e2e FPS at 544² batch 1 (10 warm-ups, 5 windows of 200 frames, one
-   synchronize per window, median window).
+   synchronize per window, median window);
+6. kernel 5 (orientation painting) against its plain version on the card:
+   pos, neg and torien bit-identical on the train batch's painter inputs
+   and on edge cases at 544²;
+7. the train path: the published train config at full width (seeded random
+   weights, B = 8 synthetic 544² images collated with packed masks and
+   max_instances = 100) takes 30 steps through ``make_train_step`` under
+   the config's schedule, with launch counts read around them (kernel 5
+   once per step); the loss must be finite and fall; a NaN batch must be
+   skipped with the state unchanged by bits; the loss on the same heads
+   must be identical with kernel 5 and with its plain version;
+8. train timings: kernel 5 per launch against its plain version and bound,
+   and the train step in float32 and bfloat16 (3 warm-ups, 3 windows of 10
+   steps, one synchronize per window, median), with peak memory.
 
 The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes a
-torch.profiler table of 20 frames to DIR.
+``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
+torch.profiler tables of 20 frames and of 3 train steps in each dtype to
+DIR.
 """
 
 import argparse
@@ -31,6 +45,7 @@ import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -213,6 +228,96 @@ def check_masks():
     log("  assemble_masks_packed rows 136..271 with coord_h=544, row0=136: identical, "
         "and equal to those rows of the whole image")
     return float(max_err)
+
+
+# --------------------------------------------------------------- kernel 5
+
+def paint_geom(rng, b, n, h=544, w=544, anchors=9):
+    """Random painter geometry rows, bounds rounded as kernel_inputs rounds."""
+    cx, cy = rng.uniform(0, w - 1, (b, n)), rng.uniform(0, h - 1, (b, n))
+    cwx, cwy = rng.uniform(0.5, 120, (b, n)), rng.uniform(0.5, 120, (b, n))
+    vx, vy = cwx / 0.6 * 0.7, cwy / 0.6 * 0.7
+    x1, x2 = np.round(np.clip(cx - vx, 0, w - 1)), np.round(np.clip(cx + vx, 0, w - 1)) + 1
+    y1, y2 = np.round(np.clip(cy - vy, 0, h - 1)), np.round(np.clip(cy + vy, 0, h - 1)) + 1
+    anc = rng.integers(0, anchors, (b, n))
+    return np.stack([cx, cy, cwx, cwy, x1, x2, y1, y2, anc, np.ones((b, n))],
+                    -1).astype(np.float32)
+
+
+def paint_edge_cases(rng, h=544, w=544):
+    """The edge cases of tests/test_torch_paint.py at 544²: (name, geom,
+    n_last, masks (B, N, H, W) bool)."""
+    b, n = 3, 16
+    cases = []
+    geom = paint_geom(rng, b, n)
+    geom[:, :, 8] = 4
+    geom[:, :, 4:8] = [100, 400, 120, 380]
+    cases.append(("overlap on one anchor", geom, rng.uniform(size=(b, n, h, w)) < 0.5))
+    geom = paint_geom(rng, b, n)
+    borders = [[0, 40, 0, h], [w - 40, w, 0, h], [0, w, 0, 40], [0, w, h - 40, h],
+               [0, w, 0, h], [0, 1, 0, 1], [w - 1, w, h - 1, h]]
+    geom[:, :len(borders), 4:8] = borders
+    geom[:, :len(borders), 0:2] = [[0, 0], [w - 1, h - 1], [271.5, 0], [0, h - 1],
+                                   [272, 272], [0, 0], [w - 1, h - 1]]
+    cases.append(("ROIs on every border", geom, rng.uniform(size=(b, n, h, w)) < 0.3))
+    geom = paint_geom(rng, b, n)
+    geom[:, 3, 9] = geom[:, 6, 9] = 0
+    geom[1, :, 9] = 0
+    geom[2, 5:, 9] = 0
+    cases.append(("unmatched in the middle, n_last 0", geom,
+                  rng.uniform(size=(b, n, h, w)) < 0.5))
+    geom = paint_geom(rng, b, n)
+    ones = np.ones((b, n, h, w), bool)
+    ones[0] = False
+    cases.append(("all-one and all-zero masks", geom, ones))
+    geom = paint_geom(rng, 8, 100)  # random packed bytes
+    cases.append(("random, B=8 N=100", geom,
+                  rng.integers(0, 256, (8, 100, h, w // 8), dtype=np.uint8)))
+    out = []
+    for name, geom, masks in cases:
+        act = geom[..., 9] > 0
+        n_last = np.where(act, np.arange(1, geom.shape[1] + 1), 0).max(1).astype(np.int32)
+        out.append((name, geom, n_last, masks))
+    return out
+
+
+def check_paint_case(name, geom, n_last, masks, pixel_anchors, image_size=(544, 544)):
+    """Kernel 5 against its plain version on packed (and, for bool masks,
+    unpacked) masks; pos, neg and torien compared as int32 views.  Returns
+    the largest absolute difference of torien."""
+    from orienmask_tpu_torch.ops.maskops import pack_bits
+    from orienmask_tpu_torch.ops.paint import paint_orientation, paint_orientation_plain
+
+    want = paint_orientation_plain(geom, n_last, masks, pixel_anchors, image_size)
+    layouts = [("packed", masks)] if masks.dtype == torch.uint8 else \
+        [("packed", pack_bits(masks)), ("unpacked", masks)]
+    err = 0.0
+    for layout, m in layouts:
+        got = paint_orientation(geom, n_last, m, pixel_anchors, image_size)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("pos", "neg", "torien"), got, want):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                n_bad = (g.view(torch.int32) != w.view(torch.int32)).sum().item()
+                raise AssertionError(f"paint_orientation '{name}' ({layout}): {n_bad} "
+                                     f"{what} values differ from the plain version")
+        err = max(err, (got[2] - want[2]).abs().max().item())
+    log(f"  paint_orientation {name:34s} B={geom.shape[0]} N={geom.shape[1]}: identical "
+        f"(pos {want[0].mean().item():.4f}, neg {want[1].mean().item():.4f} of pixels)")
+    return err
+
+
+def check_paint(trainer):
+    """Phase 6: the train path's own painter inputs, then the edge cases."""
+    rng = np.random.default_rng(SEED + 3)
+    pixel_anchors = trainer.loss.painter.pixel_anchors
+    geom, n_last, masks = trainer.paint_inputs()
+    hw = (trainer.loss.painter.image_h, trainer.loss.painter.image_w)
+    err = check_paint_case("the train batch (main path)", geom, n_last, masks, pixel_anchors, hw)
+    for name, geom, n_last, masks in paint_edge_cases(rng):
+        err = max(err, check_paint_case(
+            name, torch.from_numpy(geom).cuda(), torch.from_numpy(n_last).cuda(),
+            torch.from_numpy(masks).cuda(), pixel_anchors))
+    return err
 
 
 # -------------------------------------------------------------- main path
@@ -435,6 +540,261 @@ def profile(pipe, image, out_dir):
     log(f"  profile of 20 frames written to {out / 'profile_544_bs1.txt'}")
 
 
+# ------------------------------------------------------------- train path
+
+TRAIN_COUNTS = (2, 4, 6, 7, 8, 12, 24, 100)  # instances per image; one at the cap
+
+
+def _kw(block):
+    return {k: v for k, v in block.items() if k != "type"}
+
+
+def synthetic_samples(seed=SEED, size=544, counts=TRAIN_COUNTS, num_classes=80):
+    """Transformed samples: images uniform in [0, 1]; box sides log-uniform
+    in [0.02, 0.8] of the image, so the boxes reach all nine anchors; each
+    mask the filled ellipse inscribed in its box; classes uniform."""
+    rng = np.random.default_rng(seed)
+    c = (np.arange(size) + 0.5) / size  # pixel centres, normalized
+    samples = []
+    for k in counts:
+        image = rng.uniform(0, 1, (size, size, 3)).astype(np.float32)
+        w, h = np.exp(rng.uniform(np.log(0.02), np.log(0.8), (2, k)))
+        cx, cy = rng.uniform(w / 2, 1 - w / 2), rng.uniform(h / 2, 1 - h / 2)
+        ex = ((c - cx[:, None]) / (w[:, None] / 2)) ** 2  # (k, W)
+        ey = ((c - cy[:, None]) / (h[:, None] / 2)) ** 2  # (k, H)
+        samples.append({"image": image,
+                        "bbox": np.stack([cx, cy, w, h], -1).astype(np.float32),
+                        "cls": rng.integers(0, num_classes, k),
+                        "mask": ey[:, :, None] + ex[:, None, :] <= 1})
+    return samples
+
+
+class TrainPath:
+    """The published train config on the card: OrienMaskYOLOFPNPlus at full
+    width and depth with seeded random weights, the config's loss, SGD and
+    schedule, and one device's batch (B = 8 at 544², max_instances = 100,
+    packed masks) collated by the port's ``collate``."""
+
+    def __init__(self):
+        from orienmask_tpu_torch.config import orienmask_yolo_coco_544_anchor4_fpn_plus as cfg
+        from orienmask_tpu_torch.data import collate
+        from orienmask_tpu_torch.models import build_model, init_random
+        from orienmask_tpu_torch.ops import OrienMaskYOLOMultiScaleLoss
+        from orienmask_tpu_torch.optim import SGD, StepWarmUpLR
+        from orienmask_tpu_torch.trainer import make_train_step
+        from orienmask_tpu_torch.trainer.train_state import to_device
+
+        self.cfg = cfg
+        loader = cfg["train_loader"]
+        self.model = init_random(build_model(cfg["model"]), SEED)
+        self.loss = OrienMaskYOLOMultiScaleLoss(**_kw(cfg["loss"]), device="cuda")
+        self.opt = SGD(self.model.parameters(), **_kw(cfg["optimizer"]))
+        self.sched = StepWarmUpLR(**_kw(cfg["lr_scheduler"]), base_lr=self.opt.base_lr)
+        self.steps = {dtype: make_train_step(self.model, self.loss, self.opt,
+                                             accumulate=cfg["accumulate"],
+                                             compute_dtype=dtype, device="cuda")
+                      for dtype in ("float32", "bfloat16")}
+        samples = synthetic_samples(num_classes=cfg["model"]["num_classes"])
+        if len(samples) != loader["batch_size"]:
+            raise ValueError(f"{len(samples)} samples for a batch of {loader['batch_size']}")
+        self.batch = to_device(collate(samples, max_instances=loader["max_instances"],
+                                       pack_masks=loader["pack_masks"]), "cuda")
+        self.iteration = 0
+
+    def step(self, dtype=None, batch=None):
+        """One train step at the schedule's lr (the config's dtype by default)."""
+        logs = self.steps[dtype or self.cfg["compute_dtype"]](
+            self.batch if batch is None else batch, self.sched(self.iteration))
+        self.iteration += 1
+        return logs
+
+    def paint_inputs(self):
+        """What the loss hands kernel 5's wrapper for this batch, recorded
+        by shadowing the wrapper that its painter calls."""
+        from orienmask_tpu_torch.ops import targets
+
+        calls = []
+
+        def record(geom, n_last, masks, *rest):
+            calls.append((geom.clone(), n_last.clone(), masks.clone()))
+
+        b = self.batch
+        with mock.patch.object(targets, "paint_orientation", record):
+            self.loss._paint_shared_batch(b["bbox"], b["valid"], b["mask"])
+        return calls[0]
+
+    @torch.no_grad()
+    def heads(self):
+        self.model.eval()
+        out = self.model(self.batch["image"].permute(0, 3, 1, 2), torch.float32)
+        self.model.train()
+        return out
+
+
+def run_train_path(tp, steps):
+    """``steps`` train steps through the entry point on the fixed batch;
+    the launch counts of that run alone and the losses."""
+    from orienmask_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    logs = [tp.step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    losses = torch.stack([log["loss"] for log in logs]).tolist()
+    skipped = sum(float(log["skipped"]) for log in logs)
+    return counts, losses, skipped
+
+
+def check_train_path(tp):
+    from orienmask_tpu_torch.ops import targets
+    from orienmask_tpu_torch.ops.paint import paint_orientation_plain
+    from orienmask_tpu_torch.trainer.train_state import unpack_target
+
+    b = tp.batch
+    n_valid = b["valid"].sum(1).tolist()
+    log(f"  batch: image {tuple(b['image'].shape)} f32, mask {tuple(b['mask'].shape)} uint8 "
+        f"packed, instances per image {n_valid}")
+    steps = 30
+    t = time.perf_counter()
+    counts, losses, skipped = run_train_path(tp, steps)
+    log(f"  {steps} steps ({tp.cfg['compute_dtype']}, lr {tp.sched(0):.3g}..."
+        f"{tp.sched(steps - 1):.4g}) in {time.perf_counter() - t:.2f} s, launches: {counts}")
+    if counts["paint_orientation"] != steps or counts["exact_topk"] \
+            or counts["assemble_masks_packed"]:
+        raise AssertionError(f"expected {steps} paint launches and nothing else, got {counts}")
+    if not np.isfinite(losses).all() or skipped:
+        raise AssertionError(f"non-finite or skipped steps: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  loss: first 5 {[round(x, 3) for x in losses[:5]]}, last 5 "
+        f"{[round(x, 3) for x in losses[-5:]]}; means {first:.3f} -> {last:.3f}")
+    if not last < first:
+        raise AssertionError(f"the loss did not fall over {steps} steps: {first} -> {last}")
+
+    # a NaN image: the step is skipped and the state keeps its bits
+    model, opt = tp.model, tp.opt
+    snap = [t.clone() for t in model.state_dict().values()]
+    bufs = [t.clone() for t in opt.buffers] + [opt.step.clone()]
+    bad = dict(b, image=b["image"].clone())
+    bad["image"][0, 5, 5, 0] = float("nan")
+    logs = tp.step(batch=bad)
+    if float(logs["skipped"]) != 1.0:
+        raise AssertionError("a NaN batch was not skipped")
+    for new, old in zip(list(model.state_dict().values()) + opt.buffers + [opt.step],
+                        snap + bufs):
+        if not torch.equal(new.reshape(-1).view(torch.uint8), old.reshape(-1).view(torch.uint8)):
+            raise AssertionError("the NaN batch changed the train state")
+    log("  NaN batch: skipped, parameters, BN buffers, momentum and counter unchanged by bits")
+
+    # the same heads through the loss with kernel 5 and with its plain version
+    heads = tp.heads()
+    target = unpack_target(b)
+    _, got, _ = tp.loss(heads, target, training=True)
+    with mock.patch.object(targets, "paint_orientation", paint_orientation_plain):
+        _, want, _ = tp.loss(heads, target, training=True)
+    for key in want:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"loss '{key}' differs with the plain painter: "
+                                 f"{got[key].item()} vs {want[key].item()}")
+    log(f"  loss with kernel 5 == loss with its plain version in all {len(want)} log keys "
+        f"(loss_sum {got['loss_sum'].item():.4f})")
+    return counts
+
+
+def eager_ms(fn, n=5):
+    """Mean time of ``fn()`` between CUDA events around ``n`` eager calls,
+    for a function that cannot be captured in a CUDA graph."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def time_paint(tp):
+    """Kernel 5 at the train path's inputs, its plain version, and its bound."""
+    from orienmask_tpu_torch.ops.paint import paint_orientation, paint_orientation_plain
+
+    geom, n_last, masks = tp.paint_inputs()
+    pa = tp.loss.painter.pixel_anchors
+    hw = (tp.loss.painter.image_h, tp.loss.painter.image_w)
+    t = time_ms(lambda: paint_orientation(geom, n_last, masks, pa, hw))
+    # the plain version reads its loop bound on the host: no graph capture
+    tp_ms = eager_ms(lambda: paint_orientation_plain(geom, n_last, masks, pa, hw))
+    b, n = geom.shape[:2]
+    a, (h, w) = len(pa), hw
+    g = geom.cpu().numpy()
+    act = (g[..., 9] > 0) & (np.arange(n) < n_last.cpu().numpy()[:, None])
+    x1, x2, y1, y2 = (g[..., i][act] for i in (4, 5, 6, 7))
+    roi_px = float(((x2 - x1) * (y2 - y1)).sum())
+    # each output written once (pos, neg, torien x and y), the geometry and
+    # the mask bytes under the active ROIs read once
+    mask_bytes = float(((y2 - y1) * ((x2 - 1) // 8 - x1 // 8 + 1)).sum())
+    n_bytes = 4 * b * a * h * w * 4 + mask_bytes + g.nbytes + b * 4
+    # ~30 instructions per instance and ROI pixel, ~15 per canvas pixel to
+    # finalize (compares, selects, a reciprocal, subtracts and multiplies)
+    n_ops = 30 * roi_px + 15 * b * a * h * w
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    log(f"  paint_orientation B={b} N={n} ({int(act.sum())} active, {roi_px:.0f} ROI pixels, "
+        f"{mask_bytes / 1e6:.2f} MB of mask bytes): kernel {t:.4f} ms, plain {tp_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e6:.0f} M ops)")
+    return dict(ms=t, plain_ms=tp_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def time_train(tp, dtype, warmup=3, windows=3, steps=10):
+    """e2e_fps's method for the train step: warm-ups, then windows of
+    ``steps`` steps with one synchronize each; ms/step per window."""
+    for _ in range(warmup):
+        tp.step(dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    windows_ms = []
+    for _ in range(windows):
+        start = time.perf_counter()
+        for _ in range(steps):
+            logs = tp.step(dtype)
+        torch.cuda.synchronize()
+        windows_ms.append((time.perf_counter() - start) / steps * 1e3)
+    if not torch.isfinite(logs["loss"]) or float(logs["skipped"]):
+        raise AssertionError(f"the {dtype} train step gave a non-finite loss")
+    ms = float(np.median(windows_ms))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    b = tp.batch["image"].shape[0]
+    log(f"  train step {dtype} B={b} 544x544: {ms:.2f} ms/step, {b * 1e3 / ms:.1f} img/s "
+        f"(median; windows {', '.join(f'{x:.2f}' for x in windows_ms)} ms); peak memory "
+        f"{peak:.2f} GiB")
+    return {"ms_per_step": ms, "img_per_s": b * 1e3 / ms, "windows_ms": windows_ms,
+            "peak_gib": peak}
+
+
+def profile_train(tp, out_dir, steps=3):
+    """torch.profiler tables of ``steps`` train steps in each dtype, sorted
+    by device time and by host time."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for dtype in ("float32", "bfloat16"):
+        tp.step(dtype)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                tp.step(dtype)
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        path = out / f"profile_train_544_b8_{dtype}.txt"
+        path.write_text(avg.table(sort_by="cuda_time_total", row_limit=40) + "\n\n"
+                        + avg.table(sort_by="self_cpu_time_total", row_limit=25))
+        log(f"  profile of {steps} {dtype} train steps written to {path}")
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -481,6 +841,23 @@ def main(argv=None):
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     if args.profile:
         profile(pipe, image, args.profile)
+    del pipe
+
+    log("[6] kernel 5: paint_orientation vs its plain version")
+    t = time.perf_counter()
+    tp = TrainPath()
+    log(f"  train path set up in {time.perf_counter() - t:.2f} s (full-width model, "
+        f"seeded weights, synthetic batch through collate)")
+    paint_err = check_paint(tp)
+
+    log("[7] train path: orienmask_yolo_coco_544_anchor4_fpn_plus, B=8, make_train_step")
+    train_counts = check_train_path(tp)
+
+    log("[8] train timings")
+    times["paint_orientation"] = time_paint(tp)
+    train = {dtype: time_train(tp, dtype) for dtype in ("float32", "bfloat16")}
+    if args.profile:
+        profile_train(tp, args.profile)
 
     kernels_line = {"kernels": [
         dict(name="exact_topk", route="cuda", source="orienmask_tpu_torch/csrc/topk.cu",
@@ -491,9 +868,13 @@ def main(argv=None):
              replaces="orienmask_tpu/ops/pallas_masks.py:247",
              launches=counts["assemble_masks_packed"], max_abs_err=mask_err,
              **times["assemble_masks_packed"]),
+        dict(name="paint_orientation", route="cuda", source="orienmask_tpu_torch/csrc/paint.cu",
+             replaces="orienmask_tpu/ops/pallas_paint.py:149",
+             launches=train_counts["paint_orientation"], max_abs_err=paint_err,
+             **times["paint_orientation"]),
     ]}
     log(f"  total {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates}))
+    log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,14 @@
-"""The port's own copy of what the 544² inference config needs.
+"""The port's own copy of what the 544² inference and train configs need.
 
-Same dicts and names as ``orienmask_tpu.config`` (``config/base.py`` and
-``config/config_infer.py`` there); ``tests/test_torch_models.py`` holds the
-copy equal to the original.
+Same dicts and names as ``orienmask_tpu.config`` (``config/base.py``,
+``config/config_infer.py`` and ``config/config_train.py`` there);
+``tests/test_torch_models.py`` holds the copy equal to the original.
 """
 
 import copy
+
+# ImageNet statistics (the train transform's pad value).
+MEAN = [123.675, 116.280, 103.530]
 
 # Per-scale anchor index groups: scale-32 owns anchors 6..8, scale-16 owns
 # 3..5, scale-8 owns 0..2.
@@ -69,4 +72,135 @@ orienmask_yolo_coco_544_anchor4_fpn_plus_infer = dict(
     transform=transform_infer_544,
     postprocess=dict(orienmask_yolo_coco_544_anchor4_postprocess,
                      topk_mode="twostage"),
+)
+
+# ------------------------------------------------------------------- train
+
+coco_train_dataset = dict(
+    type="COCODataset",
+    list_file="coco/list/coco_train.txt",
+    image_dir="coco/train2017",
+    anno_file="coco/annotations/orienmask_coco_train.json",
+    with_mask=True,
+    with_info=False,
+)
+
+coco_val_dataset = dict(
+    type="COCODataset",
+    list_file="coco/list/coco_val.txt",
+    image_dir="coco/val2017",
+    anno_file="coco/annotations/orienmask_coco_val.json",
+    with_mask=True,
+    with_info=True,
+)
+
+transform_train_544 = dict(
+    type="COCOTransform",
+    pipeline=[
+        dict(type="ColorJitter", brightness=0.2, contrast=0.5, saturation=0.5, hue=0.1),
+        dict(type="RandomCrop", p=0.5, image_min_iou=0.64, bbox_min_iou=0.64),
+        dict(type="Resize", size=(544, 544), pad_needed=True, warp_p=0.25, jitter=0.3,
+             random_place=True, pad_p=0.75, pad_ratio=0.75, pad_value=MEAN),
+        dict(type="RandomHorizontalFlip", p=0.5),
+        dict(type="ToArray"),
+        dict(type="Normalize", mean=(0, 0, 0), std=(255, 255, 255)),
+    ],
+)
+
+transform_val_544 = dict(
+    type="COCOTransform",
+    pipeline=[
+        dict(type="Resize", size=(544, 544), pad_needed=False, warp_p=0., jitter=0.,
+             random_place=False, pad_p=0., pad_ratio=0., pad_value=MEAN),
+        dict(type="ToArray"),
+        dict(type="Normalize", mean=(0, 0, 0), std=(255, 255, 255)),
+    ],
+)
+
+# Per-device batch of 8 images, at most 100 instances each, masks bit-packed.
+coco_544_train_loader = dict(
+    type="DataLoader",
+    dataset=coco_train_dataset,
+    transform=transform_train_544,
+    batch_size=8,
+    num_workers=4,
+    shuffle=True,
+    max_instances=100,
+    pack_masks=True,
+    collate=dict(type="collate"),
+)
+
+coco_544_val_loader = dict(
+    type="DataLoader",
+    dataset=coco_val_dataset,
+    transform=transform_val_544,
+    batch_size=8,
+    num_workers=4,
+    shuffle=False,
+    max_instances=100,
+    pack_masks=True,
+    collate=dict(type="collate"),
+)
+
+coco_val2017_gt_file = "coco/annotations/instances_val2017.json"
+
+orienmask_yolo_coco_544_loss = dict(
+    type="OrienMaskYOLOMultiScaleLoss",
+    grid_size=[[17, 17], [34, 34], [68, 68]],
+    image_size=[544, 544],
+    anchors=ANCHORS_YOLOV3,
+    anchor_mask=ANCHORS_MASK,
+    num_classes=80,
+    center_region=0.6,
+    valid_region=0.6,
+    label_smooth=False,
+    obj_ignore_threshold=0.7,
+    weight=[1, 1, 1, 1, 1, 20, 20],
+    scales_weight=[1, 1, 1],
+)
+
+orienmask_yolo_coco_544_anchor4_loss = dict(
+    copy.deepcopy(orienmask_yolo_coco_544_loss), anchors=ANCHORS_YOLOV4)
+
+base_sgd = dict(
+    type="SGD",
+    lr=1e-3,
+    momentum=0.9,
+    weight_decay=5e-4,
+)
+
+# Milestones count optimizer iterations, not epochs.
+step_lr_warmup_coco_e100 = dict(
+    type="StepWarmUpLR",
+    warmup_type="linear",
+    warmup_iter=1000,
+    warmup_ratio=0.1,
+    milestones=[520000, 660000],
+    gamma=0.1,
+)
+
+# The published model's train config.  Effective batch = n_device *
+# batch_size * accumulate = 2 * 8 * 1 = 16; one card runs one device's share.
+orienmask_yolo_coco_544_anchor4_fpn_plus = dict(
+    name="OrienMaskAnchor4FPNPlus",
+    n_device=2,
+    epochs=100,
+    accumulate=1,
+    monitor="segm_AP",
+    monitor_mode="max",
+    log_dir="checkpoints",
+    val_freq=5,
+    save_freq=20,
+    log_freq=50,
+    seed=0,
+    trainer="Trainer",
+    compute_dtype="float32",
+    model=orienmask_yolo_fpn_plus_coco,
+    train_loader=coco_544_train_loader,
+    val_loader=coco_544_val_loader,
+    val_gt_file=coco_val2017_gt_file,
+    loss=orienmask_yolo_coco_544_anchor4_loss,
+    postprocess=orienmask_yolo_coco_544_anchor4_postprocess,
+    optimizer=base_sgd,
+    lr_scheduler=step_lr_warmup_coco_e100,
 )

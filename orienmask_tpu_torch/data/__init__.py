@@ -1,3 +1,4 @@
+from .collate import collate
 from .transform import FastCOCOTransform
 
-__all__ = ["FastCOCOTransform"]
+__all__ = ["FastCOCOTransform", "collate"]

@@ -39,9 +39,14 @@ SIGNATURES = {
         "omt_assemble_masks_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _F, _F, _F, _I, _P],
     },
+    "paint": {
+        # geom, n_last, masks, inv_half_anchors (host), pos, neg, torien,
+        # B, N, A, H, W, stream
+        "omt_paint_orientation": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
 
-launches = {"exact_topk": 0, "assemble_masks_packed": 0}
+launches = {"exact_topk": 0, "assemble_masks_packed": 0, "paint_orientation": 0}
 
 _libs = {}
 build_seconds = None  # wall time of the last build that compiled anything

@@ -28,6 +28,9 @@ class DarkNetBlock(nn.Module):
     def apply_folded(self, folded, x, dtype):
         return x + self.conv.apply_folded(folded, x, dtype)
 
+    def forward(self, x, dtype):
+        return x + self.conv(x, dtype)
+
 
 class DarkNet53(nn.Module):
     STAGE_BLOCKS = (1, 2, 8, 8, 4)
@@ -47,8 +50,15 @@ class DarkNet53(nn.Module):
         return {n: getattr(self, n).fold() for n in self.stage_names}
 
     def apply_folded(self, folded, x, dtype):
+        return self._stages(
+            lambda name, x: getattr(self, name).apply_folded(folded[name], x, dtype), x)
+
+    def forward(self, x, dtype):
+        return self._stages(lambda name, x: getattr(self, name)(x, dtype), x)
+
+    def _stages(self, run, x):
         feats = {}
         for name in self.stage_names:
-            x = getattr(self, name).apply_folded(folded[name], x, dtype)
+            x = run(name, x)
             feats[name] = x
         return feats["conv6"], feats["conv5"], feats["conv4"], feats["conv3"]

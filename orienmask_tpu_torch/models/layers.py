@@ -7,9 +7,12 @@ and ``conv_block.1.{weight,bias,running_mean,running_var}`` for
 Inference runs on BN-folded weights: ``fold()`` returns a nested structure of
 ``{"weight", "bias"}`` tensors (``{"weight", "bias_f32"}`` for ``Conv``)
 mirroring the module tree (the JAX ``fold`` pytree), and
-``apply_folded(folded, x, dtype)`` runs it.  Activations are NCHW
-(channels_last in memory on the card); convolutions run in ``dtype`` and the
-prediction heads (``Conv``) emit f32, as in JAX.
+``apply_folded(folded, x, dtype)`` runs it.  Training runs the unfolded
+``forward(x, dtype)`` (JAX ``apply``): BatchNorm takes the batch statistics
+in train mode and the running ones in eval mode (``module.train()`` /
+``.eval()``).  Activations are NCHW (channels_last in memory on the card);
+convolutions run in ``dtype`` and the prediction heads (``Conv``) emit f32,
+as in JAX.
 """
 
 import numpy as np
@@ -36,9 +39,21 @@ class Sequential(nn.Sequential):
             x = m.apply_folded(f, x, dtype)
         return x
 
+    def forward(self, x, dtype):
+        for m in self:
+            x = m(x, dtype)
+        return x
+
 
 class ConvBNLeaky(nn.Module):
-    """conv (no bias) + BatchNorm + LeakyReLU(0.1)."""
+    """conv (no bias) + BatchNorm + LeakyReLU(0.1).
+
+    ``forward``'s BatchNorm is ``nn.BatchNorm2d`` (momentum 0.1, eps 1e-5)
+    on the conv output in the compute dtype, as JAX ``bn_act``: statistics
+    in f32, the biased variance for the normalisation and the unbiased one
+    for the running variance.  JAX takes the variance as E[y²] - E[y]² and
+    applies the affine in the compute dtype; BatchNorm2d reduces in another
+    order and, under bf16, applies the affine in f32 and rounds once."""
 
     def __init__(self, cin, cout, ksize, stride=1, padding=0, activation="leaky"):
         super().__init__()
@@ -65,6 +80,11 @@ class ConvBNLeaky(nn.Module):
                      self.stride, self.padding)
         return leaky_relu(y) if self.activation == "leaky" else y
 
+    def forward(self, x, dtype):
+        conv, bn = self.conv_block
+        y = bn(F.conv2d(x.to(dtype), conv.weight.to(dtype), None, self.stride, self.padding))
+        return leaky_relu(y) if self.activation == "leaky" else y
+
 
 class Conv(nn.Module):
     """Plain conv with bias (prediction heads): conv in ``dtype``, then f32
@@ -83,6 +103,10 @@ class Conv(nn.Module):
         y = F.conv2d(x.to(dtype), folded["weight"], None, self.stride, self.padding)
         return y.float() + folded["bias_f32"][:, None, None]
 
+    def forward(self, x, dtype):
+        y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.stride, self.padding)
+        return y.float() + self.bias[:, None, None]
+
 
 class NearestUpsample(nn.Module):
     """Nearest-neighbour x``scale`` upsample (an exact copy for integer scales)."""
@@ -95,6 +119,9 @@ class NearestUpsample(nn.Module):
         return {}
 
     def apply_folded(self, folded, x, dtype):
+        return F.interpolate(x, scale_factor=self.scale, mode="nearest")
+
+    def forward(self, x, dtype):
         return F.interpolate(x, scale_factor=self.scale, mode="nearest")
 
 

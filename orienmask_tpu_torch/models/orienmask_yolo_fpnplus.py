@@ -5,7 +5,8 @@ YOLOv3-style bbox path over three scales plus an orientation path that
 gathers skip connections from all scales into a stride-4 neck feeding a
 shared orientation head.  ``apply_folded`` returns three (bbox_s, orien_s)
 NCHW tuples at strides 32/16/8 (channels_last in memory on the card, so
-``.permute(0, 2, 3, 1)`` gives the JAX (B, H, W, C) layout as a view).
+``.permute(0, 2, 3, 1)`` gives the JAX (B, H, W, C) layout as a view);
+``forward``, the unfolded train/eval path, returns them in that layout.
 """
 
 import torch
@@ -84,11 +85,20 @@ class OrienMaskYOLOFPNPlus(nn.Module):
     def apply_folded(self, folded, x, dtype):
         """x: (B, 3, H, W) normalized image -> three (bbox, orien) NCHW pairs;
         bbox heads and the orientation head emit f32."""
-        x32, x16, x8, x4 = self.backbone.apply_folded(folded["backbone"], x, dtype)
+        feats = self.backbone.apply_folded(folded["backbone"], x, dtype)
+        return self._heads(
+            lambda name, inp: getattr(self, name).apply_folded(folded[name], inp, dtype), feats)
 
-        def run(name, inp):
-            return getattr(self, name).apply_folded(folded[name], inp, dtype)
+    def forward(self, x, dtype=torch.float32):
+        """Unfolded forward (JAX ``apply``), BatchNorm by ``self.training``.
+        x: (B, 3, H, W) -> three (bbox, orien) pairs in the JAX layout
+        (B, h, w, C) that the loss reshapes (views of channels_last NCHW)."""
+        feats = self.backbone(x, dtype)
+        predict = self._heads(lambda name, inp: getattr(self, name)(inp, dtype), feats)
+        return tuple((b.permute(0, 2, 3, 1), o.permute(0, 2, 3, 1)) for b, o in predict)
 
+    def _heads(self, run, feats):
+        x32, x16, x8, x4 = feats
         neck32 = run("neck32", x32)
         neck16 = run("neck16", torch.cat([run("route32", neck32), x16], dim=1))
         neck8 = run("neck8", torch.cat([run("route16", neck16), x8], dim=1))

@@ -1,3 +1,4 @@
+from .loss import OrienMaskYOLOLoss, OrienMaskYOLOMultiScaleLoss
 from .postprocess import OrienMaskYOLOPostProcess
 
-__all__ = ["OrienMaskYOLOPostProcess"]
+__all__ = ["OrienMaskYOLOLoss", "OrienMaskYOLOMultiScaleLoss", "OrienMaskYOLOPostProcess"]

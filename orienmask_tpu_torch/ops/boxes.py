@@ -1,4 +1,4 @@
-"""Box IoU on cxcywh boxes (counterpart of ``orienmask_tpu/ops/boxes.py``)."""
+"""Box IoUs (counterpart of ``orienmask_tpu/ops/boxes.py``)."""
 
 import torch
 
@@ -16,4 +16,14 @@ def bbox_ious(bbox1, bbox2):
     inter = d[..., 0] * d[..., 1]
     area1 = (b1wh[..., 0] * b1wh[..., 1])[..., :, None]
     area2 = (b2wh[..., 0] * b2wh[..., 1])[..., None, :]
+    return inter / (area1 + area2 - inter)
+
+
+def anchor_ious(wh1, wh2):
+    """IoU of width/height-only boxes anchored at a shared corner:
+    (..., n1, 2) x (n2, 2) -> (..., n1, n2), JAX ``anchor_ious``'s order."""
+    inter = torch.minimum(wh1[..., :, None, 0], wh2[:, 0]) * torch.minimum(
+        wh1[..., :, None, 1], wh2[:, 1])
+    area1 = (wh1[..., 0] * wh1[..., 1])[..., :, None]
+    area2 = wh2[:, 0] * wh2[:, 1]
     return inter / (area1 + area2 - inter)

@@ -1,0 +1,115 @@
+"""The train and eval steps (counterpart of
+``orienmask_tpu/trainer/train_state.py``).
+
+The state is not a pytree here: the parameters and the BatchNorm running
+statistics live in the ``nn.Module``, the momentum buffers and the step
+counter in the ``SGD``.  One train step runs the forward in train mode
+(batch statistics), the loss with its targets (kernel 5 paints them), the
+backward, the per-step NaN guard and the SGD update, or, with
+``accumulate > 1``, adds the gradients to a buffer and applies them with
+``lr / accumulate`` when the caller says so.  It returns the log dict as
+device scalars and never waits for the card.
+"""
+
+import torch
+
+from ..device import resolve_device
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _image_f32(x):
+    """uint8-transported images -> the f32 that Normalize(0, 255) gives."""
+    if x.dtype == torch.uint8:
+        return x.float() * (1.0 / 255.0)
+    return x
+
+
+def unpack_target(batch):
+    """Collated batch -> loss target dict.  Masks stay as they came (packed
+    or not): the painter takes both."""
+    target = {k: batch[k] for k in ("bbox", "cls", "mask", "valid")}
+    if "sample_weight" in batch:
+        target["sample_weight"] = batch["sample_weight"]
+    return target
+
+
+def to_device(batch, device):
+    """A collated batch of numpy arrays or tensors, on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items() if k != "info"}
+
+
+def _setup(model, loss_fn, compute_dtype, device):
+    device = resolve_device(device)
+    if loss_fn.device != device:
+        raise ValueError(f"the loss is on {loss_fn.device}, the step on {device}")
+    model.to(device)
+    if device.type == "cuda":
+        model.to(memory_format=torch.channels_last)
+    dtype = DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype
+    return device, dtype
+
+
+def make_train_step(model, loss_fn, optimizer, accumulate=1, compute_dtype="float32",
+                    device=None):
+    """Returns ``train_step(batch, lr, do_step=True) -> logs``.
+
+    ``model`` moves to ``device`` (None: the card), channels_last there;
+    ``optimizer`` is an ``SGD`` over ``model.parameters()``.  ``lr`` is the
+    scheduled rate of this step.  ``do_step`` (a Python bool) applies the
+    accumulated gradients when ``accumulate > 1``.
+
+    NaN guard: a step whose loss or any gradient is not finite logs
+    ``skipped = 1`` and leaves the parameters, the momentum, the step counter
+    and the BatchNorm buffers as they were (with ``accumulate > 1`` its
+    gradients add nothing).  BatchNorm updates its buffers in place during
+    the forward, so they are copied before it and put back with
+    ``torch.where`` after it, on the card."""
+    device, dtype = _setup(model, loss_fn, compute_dtype, device)
+    params = list(model.parameters())
+    if [id(p) for p in optimizer.params] != [id(p) for p in params]:
+        raise ValueError("the optimizer must hold model.parameters(), in order")
+    buffers = list(model.buffers())
+    grad_acc = [torch.zeros_like(p) for p in params] if accumulate > 1 else None
+
+    def train_step(batch, lr, do_step=True):
+        batch = to_device(batch, device)
+        model.train()
+        stats = [b.clone() for b in buffers]
+        x = _image_f32(batch["image"]).permute(0, 3, 1, 2)  # NCHW view, channels_last
+        loss_sum, loss_log, _ = loss_fn(model(x, dtype), unpack_target(batch), training=True)
+        grads = torch.autograd.grad(loss_sum, params)
+        with torch.no_grad():
+            finite = torch.stack([torch.isfinite(loss_sum)]
+                                 + [torch.isfinite(g).all() for g in grads]).all()
+            for new, old in zip(buffers, stats):
+                new.copy_(torch.where(finite, new, old))
+            if accumulate > 1:
+                for acc, g in zip(grad_acc, grads):
+                    acc.add_(torch.where(finite, g, 0.0))
+                if do_step:
+                    optimizer.apply(grad_acc, lr / accumulate)
+                    for acc in grad_acc:
+                        acc.zero_()
+            else:
+                optimizer.apply(grads, lr, update_gate=finite)
+        logs = {k: v.detach() for k, v in loss_log.items()}
+        return dict(logs, loss=loss_sum.detach(), skipped=1.0 - finite.float())
+
+    return train_step
+
+
+def make_eval_step(model, loss_fn, compute_dtype="float32", device=None):
+    """Returns ``eval_step(batch) -> (heads, loss log, metric log)``: the
+    forward with the running statistics and the loss with its metrics."""
+    device, dtype = _setup(model, loss_fn, compute_dtype, device)
+
+    @torch.no_grad()
+    def eval_step(batch):
+        batch = to_device(batch, device)
+        model.eval()
+        out = model(_image_f32(batch["image"]).permute(0, 3, 1, 2), dtype)
+        loss_sum, loss_log, metric_log = loss_fn(out, unpack_target(batch), training=False)
+        return out, dict(loss_log, loss=loss_sum), metric_log
+
+    return eval_step

@@ -9,14 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from orienmask_tpu.config import orienmask_yolo_coco_544_anchor4_fpn_plus as jax_train_cfg
 from orienmask_tpu.config import orienmask_yolo_coco_544_anchor4_fpn_plus_infer as jax_cfg
 from orienmask_tpu.models import OrienMaskYOLOFPNPlus as JaxModel
 from orienmask_tpu.models.convert import variables_to_torch
 from orienmask_tpu.models.layers import bilinear_resize as jax_bilinear_resize
+from orienmask_tpu.models.layers import ConvBNLeaky as JaxConvBNLeaky
 from orienmask_tpu.models.layers import default_ctx
+from orienmask_tpu_torch.config import orienmask_yolo_coco_544_anchor4_fpn_plus as train_cfg
 from orienmask_tpu_torch.config import orienmask_yolo_coco_544_anchor4_fpn_plus_infer as cfg
 from orienmask_tpu_torch.models import OrienMaskYOLOFPNPlus, load_reference_state_dict, variables_from_jax
-from orienmask_tpu_torch.models.layers import bilinear_resize
+from orienmask_tpu_torch.models.layers import ConvBNLeaky, bilinear_resize
 
 SLIM = (1, 1, 1, 1, 1)
 
@@ -67,9 +70,9 @@ def test_weight_bridge_matches_reference_state_dict(models):
         assert torch.equal(a[key], b[key]), key
 
 
-def _forward_pair(models, s2d_stem):
+def _forward_pair(models, s2d_stem, monkeypatch):
     jm, variables, pm = models
-    jm.backbone.s2d_stem = s2d_stem
+    monkeypatch.setattr(jm.backbone, "s2d_stem", s2d_stem)  # the fixture is shared
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
     folded = jm.fold(variables)
@@ -82,13 +85,13 @@ def _forward_pair(models, s2d_stem):
 
 
 @pytest.mark.parametrize("s2d_stem", [False, True], ids=["master_stem", "phase_stem"])
-def test_folded_forward_matches_jax(models, s2d_stem):
+def test_folded_forward_matches_jax(models, s2d_stem, monkeypatch):
     """f32 folded forward vs JAX apply_folded, rtol = atol = 1e-4.  With the
     master stem both run the same convolutions.  JAX's default space-to-depth
     phase stem reassociates the stem convolutions; on these inputs it agrees
     as closely: the largest difference from the port is 3.0e-7 with either
     stem (head outputs up to 0.32)."""
-    want, got = _forward_pair(models, s2d_stem)
+    want, got = _forward_pair(models, s2d_stem, monkeypatch)
     for (wb, wo), (gb, go) in zip(want, got):
         np.testing.assert_allclose(gb.permute(0, 2, 3, 1).numpy(), np.asarray(wb),
                                    rtol=1e-4, atol=1e-4)
@@ -107,3 +110,102 @@ def test_bilinear_resize_matches_jax():
 def test_config_copy_matches_jax_config():
     for key in ("compute_dtype", "model", "transform", "postprocess"):
         assert cfg[key] == jax_cfg[key], key
+
+
+def test_train_config_copy_matches_jax_config():
+    assert train_cfg == jax_train_cfg
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["batch_stats", "running_stats"])
+def test_conv_bn_leaky_forward_matches_jax(train):
+    """One ConvBNLeaky, unfolded (JAX ``apply``), f32: the output and the
+    updated running statistics at rtol = atol = 1e-5.  JAX's E[y²] - E[y]²
+    variance and BatchNorm2d's agree to f32 reduction order here."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(3)
+    jl = JaxConvBNLeaky(8, 16, 3, stride=2, padding=1)
+    params, stats = jax.tree_util.tree_map(np.asarray, jl.init(jax.random.PRNGKey(3)))
+    params = dict(params, scale=rng.uniform(0.5, 1.5, 16).astype(np.float32),
+                  bias=rng.uniform(-0.2, 0.2, 16).astype(np.float32))
+    stats = {"mean": rng.uniform(-0.2, 0.2, 16).astype(np.float32),
+             "var": rng.uniform(0.5, 1.5, 16).astype(np.float32)}
+    x = rng.standard_normal((2, 16, 16, 8)).astype(np.float32)
+    want, want_stats = jl.apply(params, stats, jnp.asarray(x), default_ctx(train=train))
+    layer = ConvBNLeaky(8, 16, 3, stride=2, padding=1)
+    layer.load_state_dict({
+        "conv_block.0.weight": torch.tensor(params["kernel"].transpose(3, 2, 0, 1)),
+        "conv_block.1.weight": torch.tensor(params["scale"]),
+        "conv_block.1.bias": torch.tensor(params["bias"]),
+        "conv_block.1.running_mean": torch.tensor(stats["mean"]),
+        "conv_block.1.running_var": torch.tensor(stats["var"]),
+        "conv_block.1.num_batches_tracked": torch.tensor(0)})
+    layer.train(train)
+    with torch.no_grad():
+        got = layer(torch.from_numpy(x).permute(0, 3, 1, 2), torch.float32)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    bn = layer.conv_block[1]
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(want_stats["mean"]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(want_stats["var"]),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_conv_bn_leaky_backward_matches_jax():
+    """One ConvBNLeaky in train mode, f32: the gradients of <out, cot> with
+    respect to the input, the kernel and the BatchNorm affine against
+    ``jax.vjp`` of JAX ``apply``, to 1e-5 of each tensor's largest value
+    (measured worst 4.8e-7).  This holds the batch-statistics backward
+    that the whole-model train-step test can only hold to a few percent."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(5)
+    jl = JaxConvBNLeaky(8, 16, 3, stride=2, padding=1)
+    params, stats = jax.tree_util.tree_map(np.asarray, jl.init(jax.random.PRNGKey(5)))
+    params = dict(params, scale=rng.uniform(0.5, 1.5, 16).astype(np.float32),
+                  bias=rng.uniform(-0.2, 0.2, 16).astype(np.float32))
+    x = rng.standard_normal((4, 16, 16, 8)).astype(np.float32)
+    cot = rng.standard_normal((4, 8, 8, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p, x: jl.apply(p, stats, x, default_ctx(train=True))[0],
+                     params, jnp.asarray(x))
+    want_p, want_x = jax.tree_util.tree_map(np.asarray, vjp(jnp.asarray(cot)))
+    layer = ConvBNLeaky(8, 16, 3, stride=2, padding=1).train()
+    with torch.no_grad():
+        layer.conv_block[0].weight.copy_(torch.tensor(params["kernel"].transpose(3, 2, 0, 1)))
+        layer.conv_block[1].weight.copy_(torch.tensor(params["scale"]))
+        layer.conv_block[1].bias.copy_(torch.tensor(params["bias"]))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    out = layer(xt, torch.float32)
+    out.backward(torch.from_numpy(cot).permute(0, 3, 1, 2))
+    conv, bn = layer.conv_block
+    for name, got, want in (
+            ("input", xt.grad.permute(0, 2, 3, 1), want_x),
+            ("kernel", conv.weight.grad.permute(2, 3, 1, 0), want_p["kernel"]),
+            ("scale", bn.weight.grad, want_p["scale"]), ("bias", bn.bias.grad, want_p["bias"])):
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert err < 1e-5, f"{name}: {err:.2e} of the largest gradient"
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_unfolded_forward_matches_jax(models, train, monkeypatch):
+    """The whole slim model's ``forward`` against JAX ``apply`` (master
+    stem), f32, heads in the JAX layout.  Eval mode holds to 1e-4 like the
+    folded forward.  Train mode normalises by batch statistics: at 64² the
+    stride-32 BatchNorms see 8 values a channel and amplify rounding.  The
+    heads (range up to 2.2) then sit up to 4.2e-4 (port) and 2.4e-4 (JAX)
+    from an f64 evaluation of the port, and 4.1e-4 from each other;
+    atol = 2e-3."""
+    jm, variables, _ = models
+    monkeypatch.setattr(jm.backbone, "s2d_stem", False)  # the fixture is shared
+    pm = OrienMaskYOLOFPNPlus(3, 80, backbone_stage_blocks=SLIM)
+    pm.load_state_dict(variables_from_jax(pm, variables), strict=True)
+    pm.train(train)
+    x = np.random.default_rng(4).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    want, _ = jax.jit(lambda x: jm.apply(variables["params"], variables["batch_stats"], x,
+                                         default_ctx(train=train)))(jnp.asarray(x))
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x).permute(0, 3, 1, 2), torch.float32)
+    tol = 2e-3 if train else 1e-4
+    for (wb, wo), (gb, go) in zip(want, got):
+        assert gb.shape == wb.shape and go.shape == wo.shape
+        np.testing.assert_allclose(gb.numpy(), np.asarray(wb), rtol=tol, atol=tol)
+        np.testing.assert_allclose(go.numpy(), np.asarray(wo), rtol=tol, atol=tol)
