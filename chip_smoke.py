@@ -32,7 +32,26 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    must be identical with kernel 5 and with its plain version;
 8. train timings: kernel 5 per launch against its plain version and bound,
    and the train step in float32 and bfloat16 (3 warm-ups, 3 windows of 10
-   steps, one synchronize per window, median), with peak memory.
+   steps, one synchronize per window, median), with peak memory;
+9. kernels 3 and 4 (per-detection mask assembly, unpacked and packed), the
+   path of the JAX package's on-chip validation: at its shapes (544², A = 9,
+   K = 100, B = 2, per-detection anchor sizes off any table) and on edge
+   cases (K = 1, one anchor, coord_h != H, zero-sized and off-table
+   detections, W = 8), each bit-identical to its plain version, with launch
+   counts read around the run; on table sizes pack_bits(kernel 3) ==
+   kernel 4 == kernel 2;
+10. the eval path: the published test config (f32, batch 16, the exact
+   selection) at full width with seeded random weights saved as a
+   reference-layout .pth and read by ``load_checkpoint``; ``Tester`` runs
+   over 32 synthetic 544² scenes with COCO ground truth, with launch
+   counts read around the loop (kernel 1 twice a batch, kernel 2 once);
+   the postprocess with the plain versions on the same heads must give
+   identical device outputs and identical 12-stat bbox and segm vectors;
+   one batch with spread head logits must match too;
+11. eval timings: kernels 3 and 4 and the exact selection (two levels of
+   kernel 1 at (16, 1,456,560)) beside their plain versions, the library
+   calls and their bounds; ``Tester``'s ms/image per stage, the loop's
+   images per second and the seconds of ``coco_eval``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
@@ -41,10 +60,15 @@ DIR.
 """
 
 import argparse
+import contextlib
+import copy
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -53,9 +77,13 @@ import torch
 SEED = 0
 # H100 SXM (NVIDIA data sheet): the HBM rate, and 67 TFLOP/s of float32
 # outside the tensor cores.  That peak counts an FMA as two operations; the
-# kernels' counts below are single instructions (subtract, compare, shift,
-# and, or), each of which takes a whole FMA slot, so they are held against
-# half of it.  Bounds are taken against these published peaks.
+# kernels' counts below are single instructions (multiply, add, compare,
+# select, or), each of which takes a whole FMA slot, so they are held
+# against half of it.  The mask kernels' counts are those of the predicate
+# and packing in ``cuobjdump -sass`` of the built csrc/build/libmasks.so:
+# the abs is an operand modifier of the compare, and the second compare
+# takes the first's predicate as its `and` input.  Bounds are taken against
+# these published peaks.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12 / 2
 TIMED_LAUNCHES = 50
@@ -135,6 +163,11 @@ def topk_cases(rng):
         ("P not a multiple of 32", normal(3, 1001), 400),
         ("k = P", normal(2, 300), 300),
         ("k = 1024", normal(1, 32000), 1024),
+        # rows past one launch: two levels (exact_topk_split)
+        ("split, quantized ties", rng.choice(levels, (2, 3 * 32768 + 77)), 400),
+        ("split, -inf mix, short last chunk", np.where(
+            rng.uniform(size=(1, 2 * 32768 + 100)) < 0.5, -np.inf,
+            normal(1, 2 * 32768 + 100)).astype(np.float32), 1024),
     ]
     return cases
 
@@ -483,10 +516,10 @@ def time_kernels(pipe, image):
     used = sum(len(set(row.tolist())) for row in anchor_idx)
     n_bytes = (used * 2 * h * w * 4 + boxes.numel() * 4 + kk * b * 4 + a * 8
                + b * kk * h * (w // 8))
-    # per used anchor and pixel: 2 multiplies and 2 adds; per detection and
-    # pixel (each on its own anchor): 2 subtracts, 2 abs, 2 compares, 1 and,
-    # and the shift and or that pack the bit into its byte
-    n_ops = used * h * w * 4 + b * kk * h * w * 9
+    # per used anchor and pixel: 2 multiplies and 2 adds (the sample
+    # position); per detection and pixel: 2 subtracts, 2 compares, and the
+    # select and or that pack the bit into its byte
+    n_ops = used * h * w * 4 + b * kk * h * w * 6
     log(f"  the main path's detections use {used} of {b * a} anchor planes")
     res["assemble_masks_packed"].update(ms=t, plain_ms=tp, library_ms=None)
     # beside it, for the record: detections spread over all nine anchors
@@ -660,8 +693,7 @@ def check_train_path(tp):
     counts, losses, skipped = run_train_path(tp, steps)
     log(f"  {steps} steps ({tp.cfg['compute_dtype']}, lr {tp.sched(0):.3g}..."
         f"{tp.sched(steps - 1):.4g}) in {time.perf_counter() - t:.2f} s, launches: {counts}")
-    if counts["paint_orientation"] != steps or counts["exact_topk"] \
-            or counts["assemble_masks_packed"]:
+    if counts["paint_orientation"] != steps or sum(counts.values()) != steps:
         raise AssertionError(f"expected {steps} paint launches and nothing else, got {counts}")
     if not np.isfinite(losses).all() or skipped:
         raise AssertionError(f"non-finite or skipped steps: {losses}")
@@ -795,6 +827,376 @@ def profile_train(tp, out_dir, steps=3):
         log(f"  profile of {steps} {dtype} train steps written to {path}")
 
 
+# ------------------------------------------------------- kernels 3 and 4
+
+def per_detection_inputs(rng, b, a=9, h=544, w=544, k=100):
+    """``tools/validate_tpu.py::check_mask_kernel``'s inputs with a batch:
+    boxes centred in [0.2, 0.8], sides in [0.05, 0.6], anchors uniform over
+    the A planes, each detection's anchor size drawn on its own (no table
+    row), the last five detections (of more than five) zero-sized."""
+    field = rng.standard_normal((b, a, 2, h, w)).astype(np.float32)
+    boxes = np.concatenate([rng.uniform(0.2, 0.8, (b, k, 2)),
+                            rng.uniform(0.05, 0.6, (b, k, 2))], -1).astype(np.float32)
+    boxes[:, max(k - 5, 1):] = 0.0
+    anchor_idx = rng.integers(0, a, (b, k)).astype(np.int32)
+    anchor_wh = rng.uniform(0.02, 0.5, (b, k, 2)).astype(np.float32)
+    return [torch.from_numpy(t).cuda() for t in (field, boxes, anchor_wh, anchor_idx)]
+
+
+def per_detection_cases(rng):
+    """(name, (field, boxes, anchor_wh, anchor_idx), coord_h)."""
+    cases = [("B=2 A=9 K=100 544x544", per_detection_inputs(rng, 2), None)]
+    args = per_detection_inputs(rng, 1, k=1)
+    cases.append(("K=1", args, None))
+    args = per_detection_inputs(rng, 2, k=40)
+    args[3].fill_(4)
+    cases.append(("all detections on anchor 4", args, None))
+    args = per_detection_inputs(rng, 1, h=136)
+    cases.append(("rows 0..135 with coord_h=544", args, 544))
+    args = per_detection_inputs(rng, 2, h=16, w=8, k=7)
+    cases.append(("W=8 H=16", args, None))
+    args = per_detection_inputs(rng, 1, k=6)
+    args[1][:] = torch.tensor([0.5, 0.5, 2.0, 2.0])  # covers the image
+    args[3][0, 1], args[3][0, 2] = 9, -1  # off the table: empty masks
+    cases.append(("anchors off the table", args, None))
+    return cases
+
+
+def run_validation_path(cases):
+    """The validation path of kernels 3 and 4 (``validate_tpu.py:120-161``'s
+    role): each case through both wrappers; the launch counts of that run
+    alone and the outputs."""
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.ops.masks import assemble_masks, assemble_masks_bitpacked
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = [(assemble_masks(*args, 0.3, coord_h=coord_h),
+             assemble_masks_bitpacked(*args, 0.3, coord_h=coord_h))
+            for _, args, coord_h in cases]
+    torch.cuda.synchronize()
+    return dict(kernels.launches), outs
+
+
+def check_per_detection():
+    """Phase 9: kernels 3 and 4 against their plain versions, bit for bit,
+    and against kernel 2 on table sizes."""
+    from orienmask_tpu_torch.ops.maskops import pack_bits
+    from orienmask_tpu_torch.ops.masks import (
+        assemble_masks,
+        assemble_masks_bitpacked,
+        assemble_masks_bitpacked_plain,
+        assemble_masks_packed,
+        assemble_masks_plain,
+    )
+
+    rng = np.random.default_rng(SEED + 4)
+    cases = per_detection_cases(rng)
+    counts, outs = run_validation_path(cases)
+    max_err = 0
+    n = len(cases)
+    log(f"  validation path, {n} cases, launches: {counts}")
+    if counts["assemble_masks"] != n or counts["assemble_masks_bitpacked"] != n \
+            or sum(counts.values()) != 2 * n:
+        raise AssertionError(f"expected {n} launches of each per-detection kernel, got {counts}")
+    for (name, args, coord_h), (got, got_packed) in zip(cases, outs):
+        want = assemble_masks_plain(*args, 0.3, coord_h=coord_h)
+        want_packed = assemble_masks_bitpacked_plain(*args, 0.3, coord_h=coord_h)
+        if not torch.equal(got, want):
+            raise AssertionError(f"assemble_masks '{name}': {(got != want).sum().item()} "
+                                 "pixels differ from the plain version")
+        if not torch.equal(got_packed, want_packed):
+            raise AssertionError(f"assemble_masks_bitpacked '{name}': "
+                                 f"{(got_packed != want_packed).sum().item()} bytes differ")
+        if not torch.equal(pack_bits(got.bool()), got_packed):
+            raise AssertionError(f"'{name}': pack_bits(kernel 3) != kernel 4")
+        max_err = max(max_err, (got.int() - want.int()).abs().max().item(),
+                      (got_packed.int() - want_packed.int()).abs().max().item())
+        log(f"  assemble_masks, assemble_masks_bitpacked {name:30s} field "
+            f"{tuple(args[0].shape)} K={args[1].shape[1]}: identical "
+            f"({got.float().mean().item():.4f} of pixels set)")
+    got = outs[0][0]
+    if not got[0, :95].any() or got[:, -5:].any():
+        raise AssertionError("kernel 3: masks empty, or a zero-sized box has pixels")
+    off = outs[-1][0]
+    if off[0, 1:3].any() or not off[0, 0].any():
+        raise AssertionError("kernel 3: a detection off the table has pixels")
+
+    # per-detection sizes that are rows of a per-anchor table: kernel 2 applies
+    field, boxes, _, anchor_idx = per_detection_inputs(rng, 2)
+    table = torch.from_numpy(rng.uniform(0.02, 0.5, (9, 2)).astype(np.float32)).cuda()
+    anchor_wh = table[anchor_idx.long()].contiguous()
+    k3 = pack_bits(assemble_masks(field, boxes, anchor_wh, anchor_idx, 0.3).bool())
+    k4 = assemble_masks_bitpacked(field, boxes, anchor_wh, anchor_idx, 0.3)
+    k2 = assemble_masks_packed(field, boxes, anchor_idx, table, 0.3)
+    if not (torch.equal(k3, k4) and torch.equal(k4, k2)):
+        raise AssertionError("on table sizes pack_bits(kernel 3), kernel 4 and kernel 2 differ")
+    log("  table sizes, B=2 K=100 544x544: pack_bits(kernel 3) == kernel 4 == kernel 2")
+    return counts, float(max_err), cases[0][1]
+
+
+def time_per_detection(args):
+    """Kernels 3 and 4 per launch at the validation path's main shapes,
+    beside their plain versions and bounds."""
+    from orienmask_tpu_torch.ops.masks import (
+        assemble_masks,
+        assemble_masks_bitpacked,
+        assemble_masks_bitpacked_plain,
+        assemble_masks_plain,
+    )
+
+    field, boxes, _, anchor_idx = args
+    b, a, _, h, w = field.shape
+    k = boxes.shape[1]
+    det_px = b * k * h * w
+    # each image reads the field planes of the anchors its detections use
+    used = sum(len(set(row.tolist())) for row in anchor_idx)
+    in_bytes = used * 2 * h * w * 4 + b * k * (16 + 8 + 4)
+    res = {}
+    # per detection and pixel: 2 multiplies and 2 adds for the sample
+    # position, 2 subtracts and 2 compares; then a select and the byte's
+    # placement in its word (kernel 3) or a select and an or (kernel 4)
+    for name, fn, plain, out_bytes, ops in (
+            ("assemble_masks", assemble_masks, assemble_masks_plain, det_px, 10 * det_px),
+            ("assemble_masks_bitpacked", assemble_masks_bitpacked,
+             assemble_masks_bitpacked_plain, det_px // 8, 10 * det_px)):
+        t = time_ms(lambda: fn(*args, 0.3))
+        tp = time_ms(lambda: plain(*args, 0.3))
+        bound_ms, bound_by = bound(in_bytes + out_bytes, ops)
+        log(f"  {name} field {tuple(field.shape)} K={k}: kernel {t:.4f} ms, plain {tp:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {(in_bytes + out_bytes) / 1e6:.1f} MB, "
+            f"{ops / 1e6:.0f} M ops)")
+        res[name] = dict(ms=t, plain_ms=tp, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return res
+
+
+# --------------------------------------------------------------- eval path
+
+EVAL_IMAGES = 32
+
+
+class EvalPath:
+    """The published test config on the card: OrienMaskYOLOFPNPlus at full
+    width and depth with seeded random weights, written as a reference-layout
+    .pth and read back by ``load_checkpoint``; the config's postprocess
+    (exact selection) and f32 forward in ``Tester`` over 32 synthetic 544²
+    scenes, batch 16, with a COCO ground-truth file."""
+
+    def __init__(self, workdir):
+        from orienmask_tpu_torch.config import orienmask_yolo_coco_544_anchor4_fpn_plus_test as cfg
+        from orienmask_tpu_torch.data import ArrayDataset, ArrayLoader, make_scenes
+        from orienmask_tpu_torch.models import build_model, init_random
+        from orienmask_tpu_torch.ops import OrienMaskYOLOPostProcess
+        from orienmask_tpu_torch.trainer import Tester, load_checkpoint
+
+        self.cfg = cfg
+        workdir = Path(workdir)
+        pth = workdir / "weights.pth"
+        torch.save({"state_dict": init_random(build_model(cfg["model"]), SEED).state_dict(),
+                    "epoch": 0}, pth)
+        self.model = build_model(cfg["model"])
+        load_checkpoint(pth, self.model)
+        nc = cfg["model"]["num_classes"]
+        images, infos, gt = make_scenes(np.random.default_rng(SEED + 5), EVAL_IMAGES,
+                                        cfg["postprocess"]["image_size"][0], num_classes=nc)
+        self.gt_file = workdir / "instances_synthetic.json"
+        self.gt_file.write_text(json.dumps(gt))
+        self.n_gt = len(gt["annotations"])
+        bs = cfg["test_loader"]["batch_size"]
+        self.loader = ArrayLoader(images, infos, bs,
+                                  ArrayDataset([f"class{c}" for c in range(nc)], range(1, nc + 1)))
+        self.pp_kw = _kw(cfg["postprocess"])
+        self.workdir = workdir
+        pp = OrienMaskYOLOPostProcess(**self.pp_kw, device="cuda")
+        self.tester = Tester(self.model, None, pp, self.loader, str(workdir), str(self.gt_file),
+                             compute_dtype=cfg["compute_dtype"], device="cuda")
+
+    def run(self):
+        """One ``Tester.test()`` over the set, its tables printed to a
+        string; (launch counts of the run alone, printed text)."""
+        from orienmask_tpu_torch import kernels
+
+        self.tester.coco_metrics.reset()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            self.tester.test()
+        torch.cuda.synchronize()
+        return dict(kernels.launches), out.getvalue()
+
+
+def record_postprocess(pp, fn):
+    """Run ``fn()`` with ``pp.apply_device`` shadowed to keep each call's
+    head tensors and outputs; returns the (heads, outputs) list."""
+    calls = []
+
+    def apply_device(predict):
+        out = type(pp).apply_device(pp, predict)
+        calls.append((tuple((b.clone(), o.clone()) for b, o in predict),
+                      {k: v.clone() for k, v in out.items()}))
+        return out
+
+    pp.apply_device = apply_device
+    try:
+        fn()
+    finally:
+        del pp.apply_device
+    return calls
+
+
+def compare_postprocess(name, got, want):
+    for key in got:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"eval path {name}: '{key}' differs from the plain-version "
+                                 "postprocess")
+
+
+def spread_heads(ev):
+    """One eval batch's heads with the bbox heads' final convs rescaled so
+    that their logits spread over about one unit across positions (random
+    weights leave them within 1e-5), biases N(0, 1), as
+    ``tools/validate_tpu.py`` spreads them."""
+    from orienmask_tpu_torch.trainer import Tester
+
+    model = copy.deepcopy(ev.model)
+    batch = next(iter(ev.loader))
+    image = torch.as_tensor(batch["image"]).cuda()
+    gen = torch.Generator().manual_seed(SEED + 6)
+    heads = ev.tester.forward(image)
+    with torch.no_grad():
+        for (bbox, _), name in zip(heads, ("bbox_head32", "bbox_head16", "bbox_head8")):
+            conv = getattr(model, name)[1]
+            logits = bbox.reshape(*bbox.shape[:3], 3, -1)[..., 4:]
+            spread = (logits - logits.mean(dim=(1, 2), keepdim=True)).std().item()
+            conv.weight.mul_(1.0 / spread)
+            conv.bias.copy_(torch.randn(conv.bias.shape, generator=gen))
+    tester = Tester(model, None, ev.tester.postprocess, ev.loader, str(ev.workdir),
+                    str(ev.gt_file), compute_dtype=ev.cfg["compute_dtype"], device="cuda")
+    return tester.forward(image)
+
+
+def check_eval_path(ev):
+    """Phase 10: the Tester loop with launch counts, then the plain-version
+    postprocess on the recorded heads: identical outputs and stats."""
+    from orienmask_tpu_torch.eval import COCOMetrics
+
+    tester, pp = ev.tester, ev.tester.postprocess
+    n_batches = len(ev.loader)
+    t = time.perf_counter()
+    runs = []
+    calls = record_postprocess(pp, lambda: runs.append(ev.run()))
+    counts, text = runs[0]
+    log(f"  {EVAL_IMAGES} scenes ({ev.n_gt} ground-truth instances), {n_batches} batches of "
+        f"{ev.loader.batch_size} in {time.perf_counter() - t:.2f} s, launches: {counts}")
+    if counts["exact_topk"] != 2 * n_batches or counts["assemble_masks_packed"] != n_batches \
+            or sum(counts.values()) != 3 * n_batches:
+        raise AssertionError(f"expected {2 * n_batches} top-k and {n_batches} mask launches "
+                             f"and nothing else, got {counts}")
+    m = tester.coco_metrics
+    bbox, segm = np.asarray(m.bbox_eval_stats), np.asarray(m.segm_eval_stats)
+    if bbox.shape != (12,) or segm.shape != (12,) or not len(m.bbox_results):
+        raise AssertionError("the eval path gave no 12-stat vectors or no results")
+    for batch_out in (c[1] for c in calls):
+        check_outputs(batch_out, ev.loader.batch_size)
+    log(f"  bbox {np.round(bbox, 4).tolist()}")
+    log(f"  segm {np.round(segm, 4).tolist()}")
+    log(f"  {len(m.bbox_results)} detections; per-stage table: "
+        + "; ".join(line for line in text.splitlines() if "ms (" in line))
+
+    # the same heads through the plain-version postprocess, the same host code
+    plain = plain_postprocess(ev.pp_kw)
+    metrics = COCOMetrics(str(ev.gt_file), ev.loader.dataset.CAT2LABEL, True, str(ev.workdir))
+    for (heads, got), batch in zip(calls, ev.loader):
+        want = plain.apply_device(heads)
+        torch.cuda.synchronize()
+        compare_postprocess("batch", got, want)
+        metrics.update_results(metrics.to_coco_format(batch["info"], plain.to_host_list(want)))
+    metrics.coco_eval()
+    for key, got, want in (("bbox", bbox, metrics.bbox_eval_stats),
+                           ("segm", segm, metrics.segm_eval_stats)):
+        if not np.array_equal(got, np.asarray(want)):
+            raise AssertionError(f"eval path: {key} stats differ with the plain versions")
+    log(f"  postprocess with the plain versions on the same heads: identical outputs in all "
+        f"{n_batches} batches, identical bbox and segm stats")
+
+    heads = spread_heads(ev)
+    got, want = pp.apply_device(heads), plain.apply_device(heads)
+    torch.cuda.synchronize()
+    check_outputs(got, ev.loader.batch_size)
+    compare_postprocess("spread batch", got, want)
+    scores = got["bbox"][..., 4][got["valid"]]
+    log(f"  spread head logits, one batch of {ev.loader.batch_size}: identical outputs; "
+        f"{int(got['valid'].sum())} valid detections, {scores.unique().numel()} distinct "
+        f"scores in {scores.min().item():.4f}..{scores.max().item():.4f}, "
+        f"{got['cls'][got['valid']].unique().numel()} classes")
+    return counts
+
+
+def eval_topk_input(ev):
+    """The (B, P) rows the exact selection hands kernel 1 in one eval batch."""
+    pp = ev.tester.postprocess
+    rows = []
+
+    def topk(x, k):
+        rows.append((x.clone(), k))
+        return type(pp)._topk(pp, x, k)
+
+    pp._topk = topk
+    try:
+        batch = next(iter(ev.loader))
+        pp.apply_device(ev.tester.forward(torch.as_tensor(batch["image"]).cuda()))
+    finally:
+        del pp._topk
+    return rows[0]
+
+
+def time_eval(ev):
+    """Phase 11 (the eval path): the exact selection's two-level kernel 1
+    beside torch.topk and a stable sort; the Tester's stages."""
+    from orienmask_tpu_torch.ops.topk import CHUNK, exact_topk, exact_topk_plain
+    from orienmask_tpu_torch.utils import timer
+
+    x, k = eval_topk_input(ev)
+    b, p = x.shape
+    t = time_ms(lambda: exact_topk(x, k))
+    t_lib = time_ms(lambda: torch.topk(x, k))
+    t_sort = time_ms(lambda: exact_topk_plain(x, k))
+    n = -(-p // CHUNK)
+    # the row read once, the values and int64 indices written once; the
+    # two levels' key passes and sorts are ~6 operations a key
+    n_bytes = b * (p * 4 + k * 12)
+    kpad = 1 << (k - 1).bit_length()
+    n_ops = b * (6 * (n * CHUNK + n * k) + (n + 1) * kpad * kpad.bit_length() ** 2 // 2)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    log(f"  exact selection (B={b}, P={p}, k={k}; two launches of kernel 1): kernel {t:.4f} ms, "
+        f"torch.topk {t_lib:.4f} ms, stable torch.sort {t_sort:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {n_bytes / 1e6:.1f} MB)")
+    selection = dict(shape=[b, p], k=k, ms=t, plain_ms=t_sort, library_ms=t_lib,
+                     bound_ms=bound_ms, bound_by=bound_by)
+
+    # three more passes over the set (phase 10's chose the convolution
+    # algorithms); each stage's median pass.  The Tester's timers split
+    # Convert Format into the host copy, the boxes, the masks' resize and
+    # their RLE encoding.
+    passes = []
+    for _ in range(3):
+        ev.run()
+        passes.append(dict(timer.get_all_elapsed_time(), loop=ev.tester.loop_seconds,
+                           coco_eval=ev.tester.coco_eval_seconds))
+    bs = ev.loader.batch_size
+    med = {key: float(np.median([q[key] for q in passes])) for key in passes[0]}
+    stages = {key: med[key] / bs for key in passes[0] if key not in ("loop", "coco_eval")}
+    ips = EVAL_IMAGES / med["loop"]
+    log(f"  Tester, {EVAL_IMAGES} images at batch {bs}, median of 3 passes: "
+        + ", ".join(f"{key} {v:.3f} ms/image" for key, v in stages.items())
+        + f"; loop {med['loop']:.2f} s = {ips:.2f} images/s (passes "
+        + ", ".join(f"{q['loop']:.2f}" for q in passes) + f" s); coco_eval "
+        f"{med['coco_eval']:.2f} s")
+    return selection, {"ms_per_image": stages, "images_per_s": ips, "loop_s": med["loop"],
+                       "passes": passes, "coco_eval_s": med["coco_eval"]}
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -858,23 +1260,58 @@ def main(argv=None):
     train = {dtype: time_train(tp, dtype) for dtype in ("float32", "bfloat16")}
     if args.profile:
         profile_train(tp, args.profile)
+    del tp
 
+    log("[9] kernels 3 and 4: assemble_masks, assemble_masks_bitpacked vs plain versions")
+    per_det_counts, per_det_err, per_det_args = check_per_detection()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        log("[10] eval path: orienmask_yolo_coco_544_anchor4_fpn_plus_test, Tester, B=16")
+        t = time.perf_counter()
+        ev = EvalPath(workdir)
+        log(f"  eval path set up in {time.perf_counter() - t:.2f} s (full-width model, "
+            f"seeded weights through a .pth and load_checkpoint, {EVAL_IMAGES} scenes)")
+        eval_counts = check_eval_path(ev)
+
+        log("[11] eval timings")
+        times.update(time_per_detection(per_det_args))
+        selection, eval_times = time_eval(ev)
+        del ev
+
+    # launches: each path's count, read around that path's run alone; the
+    # times are those of the infer path's inputs (kernels 1, 2), the eval
+    # path's exact selection beside them (kernel 1), the validation path's
+    # (kernels 3, 4) and the train path's (kernel 5)
+    paths = {name: {"infer": counts[name], "eval": eval_counts[name]}
+             for name in ("exact_topk", "assemble_masks_packed")}
     kernels_line = {"kernels": [
         dict(name="exact_topk", route="cuda", source="orienmask_tpu_torch/csrc/topk.cu",
              replaces="orienmask_tpu/ops/pallas_topk.py:157",
-             launches=counts["exact_topk"], max_abs_err=topk_err, **times["exact_topk"]),
+             launches=sum(paths["exact_topk"].values()), paths=paths["exact_topk"],
+             max_abs_err=topk_err, **times["exact_topk"], exact_selection=selection),
         dict(name="assemble_masks_packed", route="cuda",
              source="orienmask_tpu_torch/csrc/masks.cu",
              replaces="orienmask_tpu/ops/pallas_masks.py:247",
-             launches=counts["assemble_masks_packed"], max_abs_err=mask_err,
+             launches=sum(paths["assemble_masks_packed"].values()),
+             paths=paths["assemble_masks_packed"], max_abs_err=mask_err,
              **times["assemble_masks_packed"]),
+        dict(name="assemble_masks", route="cuda", source="orienmask_tpu_torch/csrc/masks.cu",
+             replaces="orienmask_tpu/ops/pallas_masks.py:60",
+             launches=per_det_counts["assemble_masks"], max_abs_err=per_det_err,
+             **times["assemble_masks"]),
+        dict(name="assemble_masks_bitpacked", route="cuda",
+             source="orienmask_tpu_torch/csrc/masks.cu",
+             replaces="orienmask_tpu/ops/pallas_masks.py:142",
+             launches=per_det_counts["assemble_masks_bitpacked"], max_abs_err=per_det_err,
+             **times["assemble_masks_bitpacked"]),
         dict(name="paint_orientation", route="cuda", source="orienmask_tpu_torch/csrc/paint.cu",
              replaces="orienmask_tpu/ops/pallas_paint.py:149",
              launches=train_counts["paint_orientation"], max_abs_err=paint_err,
              **times["paint_orientation"]),
     ]}
     log(f"  total {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train}))
+    log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train,
+                    "eval_544_b16": eval_times}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,10 @@
-"""The port's own copy of what the 544² inference and train configs need.
+"""The port's own copy of what the 544² inference, train and test configs
+need.
 
 Same dicts and names as ``orienmask_tpu.config`` (``config/base.py``,
-``config/config_infer.py`` and ``config/config_train.py`` there);
-``tests/test_torch_models.py`` holds the copy equal to the original.
+``config/config_infer.py``, ``config/config_train.py`` and
+``config/config_test.py`` there); ``tests/test_torch_models.py`` holds the
+copy equal to the original.
 """
 
 import copy
@@ -25,6 +27,37 @@ ANCHORS_YOLOV4 = [
     [36, 75], [76, 55], [72, 146],
     [142, 110], [192, 243], [459, 401],
 ]
+
+
+def construct_config(config, update=None, pop=None):
+    """A copy of ``config`` with ``update`` deep-merged into it (dict values
+    key by key, other values replaced) and the dotted paths of ``pop``
+    removed, e.g. ``"model.pretrained"``."""
+    out = copy.deepcopy(config)
+    for key, value in (update or {}).items():
+        if isinstance(value, dict) and isinstance(out.get(key), dict):
+            out[key] = construct_config(out[key], update=value)
+        else:
+            out[key] = value
+    for path in pop or ():
+        node = out
+        *parents, leaf = path.split(".")
+        for part in parents:
+            node = node[part]
+        node.pop(leaf)
+    return out
+
+
+# The base model: the type is not ported yet (build_model refuses it); the
+# configs below name it.
+orienmask_yolo_coco = dict(
+    type="OrienMaskYOLO",
+    num_anchors=3,
+    num_classes=80,
+    pretrained="checkpoints/pretrained/pretrained_darknet53.pth",
+    freeze_backbone=False,
+    backbone_batchnorm_eval=False,
+)
 
 orienmask_yolo_fpn_plus_coco = dict(
     type="OrienMaskYOLOFPNPlus",
@@ -203,4 +236,45 @@ orienmask_yolo_coco_544_anchor4_fpn_plus = dict(
     postprocess=orienmask_yolo_coco_544_anchor4_postprocess,
     optimizer=base_sgd,
     lr_scheduler=step_lr_warmup_coco_e100,
+)
+
+orienmask_yolo_coco_544_anchor4 = construct_config(
+    orienmask_yolo_coco_544_anchor4_fpn_plus,
+    update=dict(name="OrienMaskAnchor4", model=orienmask_yolo_coco),
+)
+
+orienmask_yolo_coco_544 = construct_config(
+    orienmask_yolo_coco_544_anchor4,
+    update=dict(
+        name="OrienMaskBase",
+        loss=orienmask_yolo_coco_544_loss,
+        postprocess=orienmask_yolo_coco_544_postprocess,
+    ),
+)
+
+# -------------------------------------------------------------------- test
+
+# COCO evaluation of the published model: f32, batch 16, the exact
+# candidate selection of the postprocess block.
+orienmask_yolo_coco_544_anchor4_fpn_plus_test = dict(
+    n_device=1,
+    tester="Tester",
+    compute_dtype="float32",
+    model=orienmask_yolo_coco_544_anchor4_fpn_plus["model"],
+    test_loader=construct_config(
+        orienmask_yolo_coco_544_anchor4_fpn_plus["val_loader"],
+        update=dict(batch_size=16),
+    ),
+    postprocess=orienmask_yolo_coco_544_anchor4_fpn_plus["postprocess"],
+    gt_file=orienmask_yolo_coco_544_anchor4_fpn_plus["val_gt_file"],
+)
+
+orienmask_yolo_coco_544_anchor4_test = construct_config(
+    orienmask_yolo_coco_544_anchor4_fpn_plus_test,
+    update=dict(model=orienmask_yolo_coco_544_anchor4["model"]),
+)
+
+orienmask_yolo_coco_544_test = construct_config(
+    orienmask_yolo_coco_544_anchor4_test,
+    update=dict(postprocess=orienmask_yolo_coco_544["postprocess"]),
 )

@@ -38,6 +38,11 @@ SIGNATURES = {
         # orien_thresh, inv_w, inv_h, row0, stream
         "omt_assemble_masks_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _F, _F, _F, _I, _P],
+        # field, boxes, anchor_wh, anchor_idx, out, B, A, H, W, K,
+        # orien_thresh, inv_w, inv_h, stream
+        "omt_assemble_masks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+        "omt_assemble_masks_bitpacked": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _F, _F, _F, _P],
     },
     "paint": {
         # geom, n_last, masks, inv_half_anchors (host), pos, neg, torien,
@@ -46,7 +51,8 @@ SIGNATURES = {
     },
 }
 
-launches = {"exact_topk": 0, "assemble_masks_packed": 0, "paint_orientation": 0}
+launches = {"exact_topk": 0, "assemble_masks_packed": 0, "assemble_masks": 0,
+            "assemble_masks_bitpacked": 0, "paint_orientation": 0}
 
 _libs = {}
 build_seconds = None  # wall time of the last build that compiled anything

@@ -1,14 +1,18 @@
-"""OrienMask postprocess, twostage path with packed masks (counterpart of
+"""OrienMask postprocess with packed masks (counterpart of
 ``orienmask_tpu/ops/postprocess.py``), with the batch dimension written out
 where JAX ``vmap``s.
 
-Per image: the per-detection max score over the three heads, the top
-``nms_pre`` detections (kernel 1), their head rows, the top ``nms_pre``
-(detection, class) pairs (kernel 1), box decode, class-offset greedy NMS;
-then the x4-upsampled orientation field and the packed masks of the kept
-detections (kernel 2).  Heads arrive in the JAX layout, (B, H, W, A*(5+C))
-and (B, H/4, W/4, 2A) per scale; flatten order is scale-major then
-anchor-major, as in JAX.
+Candidate selection, per image, in one of JAX's two modes:
+* ``twostage`` (the infer configs): the per-detection max score over the
+  three heads, the top ``nms_pre`` detections (kernel 1), their head rows,
+  the top ``nms_pre`` (detection, class) pairs (kernel 1);
+* ``exact`` (the test and val configs): the flat (P, 5+C) head buffer, the
+  top ``nms_pre`` of all P x C (detection, class) pair scores (kernel 1 in
+  two levels: 1,456,560 pairs at 544²).
+Then box decode, class-offset greedy NMS, the x4-upsampled orientation
+field and the packed masks of the kept detections (kernel 2).  Heads arrive
+in the JAX layout, (B, H, W, A*(5+C)) and (B, H/4, W/4, 2A) per scale;
+flatten order is scale-major then anchor-major, as in JAX.
 """
 
 import numpy as np
@@ -31,10 +35,11 @@ class OrienMaskYOLOPostProcess:
                  conf_thresh=0.05, nms=None, nms_pre=400, nms_post=100,
                  orien_thresh=0.3, topk_mode="twostage", pack_masks=True,
                  device=None):
-        if topk_mode != "twostage" or not pack_masks:
+        if topk_mode not in ("twostage", "exact") or not pack_masks:
             raise NotImplementedError(
-                "only the twostage selection with packed masks is ported")
+                "only the twostage and exact selections with packed masks are ported")
         self.device = resolve_device(device)
+        self.topk_mode = topk_mode
         self.grid_hw = [tuple(g) for g in grid_size]
         self.image_h, self.image_w = _pair(image_size)
         self.anchor_mask = [list(m) for m in anchor_mask]
@@ -113,6 +118,49 @@ class OrienMaskYOLOPostProcess:
             scores.append(s.permute(0, 3, 1, 2).reshape(b, -1))
         return torch.cat(scores, dim=1)
 
+    def _flat_head(self, pred_bboxes):
+        """(B, P, 5+C) raw head rows, scale-major then anchor-major: the one
+        buffer the exact selection and its decode read."""
+        c = self.num_classes
+        rows = []
+        for i, bbox in enumerate(pred_bboxes):
+            b, nh, nw, _ = bbox.shape
+            na = len(self.anchor_mask[i])
+            rows.append(bbox.reshape(b, nh, nw, na, 5 + c).permute(0, 3, 1, 2, 4)
+                        .reshape(b, -1, 5 + c))
+        return torch.cat(rows, dim=1)
+
+    def _select_exact(self, pred_bboxes):
+        """Exact selection: the top ``nms_pre`` of every (detection, class)
+        pair score above the threshold -> (scores, det_idx, cls_idx,
+        candidate head rows), each (B, nms_pre[, 5+C])."""
+        c = self.num_classes
+        flat = self._flat_head(pred_bboxes)
+        conf = torch.sigmoid(flat[..., 5:]) * torch.sigmoid(flat[..., 4:5])
+        conf = torch.where(conf > self.conf_thresh, conf, -1.0)
+        scores, idx = self._topk(conf.reshape(flat.shape[0], -1), self.nms_pre)
+        det_idx = idx // c
+        rows = torch.gather(flat, 1, det_idx[..., None].expand(-1, -1, 5 + c))
+        return scores, det_idx, idx % c, rows
+
+    def _select_twostage(self, pred_bboxes):
+        """Twostage selection: the top ``nms_pre`` detections by their max
+        score, then the top ``nms_pre`` pairs among them; same outputs as
+        ``_select_exact``."""
+        c = self.num_classes
+        thr = self.conf_thresh
+        b = pred_bboxes[0].shape[0]
+        det_max = self._flat_scores(pred_bboxes)
+        det_max = torch.where(det_max > thr, det_max, -1.0)
+        _, top_det = self._topk(det_max, self.nms_pre)
+        sub_rows = self._gather_rows(pred_bboxes, top_det)
+        sub = torch.sigmoid(sub_rows[..., 5:]) * torch.sigmoid(sub_rows[..., 4:5])
+        sub = torch.where(sub > thr, sub, -1.0)
+        scores, idx = self._topk(sub.reshape(b, -1), self.nms_pre)
+        det_sel = idx // c
+        rows = torch.gather(sub_rows, 1, det_sel[..., None].expand(-1, -1, 5 + c))
+        return scores, torch.gather(top_det, 1, det_sel), idx % c, rows
+
     def _gather_rows(self, pred_bboxes, det_idx):
         """Head rows (B, n, 5+C) of flat indices ``det_idx`` (B, n), gathered
         from the native-layout heads by (a, y, x) -> (y, x, a) arithmetic."""
@@ -136,21 +184,9 @@ class OrienMaskYOLOPostProcess:
     def _detect(self, pred_bboxes):
         """Candidate selection, decode and NMS for a batch (JAX
         ``_detect_image`` under ``vmap``); no masks."""
-        c = self.num_classes
-        thr = self.conf_thresh
-        b = pred_bboxes[0].shape[0]
-        det_max = self._flat_scores(pred_bboxes)
-        det_max = torch.where(det_max > thr, det_max, -1.0)
-        _, top_det = self._topk(det_max, self.nms_pre)
-        sub_rows = self._gather_rows(pred_bboxes, top_det)
-        sub = torch.sigmoid(sub_rows[..., 5:]) * torch.sigmoid(sub_rows[..., 4:5])
-        sub = torch.where(sub > thr, sub, -1.0)
-        scores, idx = self._topk(sub.reshape(b, -1), self.nms_pre)
-        det_sel = idx // c
-        det_idx = torch.gather(top_det, 1, det_sel)
-        cls_idx = idx % c
-        valid = scores > thr
-        cand_rows = torch.gather(sub_rows, 1, det_sel[..., None].expand(-1, -1, 5 + c))
+        select = self._select_exact if self.topk_mode == "exact" else self._select_twostage
+        scores, det_idx, cls_idx, cand_rows = select(pred_bboxes)
+        valid = scores > self.conf_thresh
         cand_boxes = self._decode_rows(cand_rows, det_idx)
         cand_anchor = self.det_anchor_idx[det_idx]
         # scores come out of a top-k, so they are already descending

@@ -11,6 +11,23 @@ import torch
 from .device import resolve_device
 
 
+def folded_to_device(tree, device, dtype):
+    """BN-folded weights (``model.fold()``) on ``device``: conv kernels in
+    ``dtype`` and channels_last for cuDNN, ConvBNLeaky biases in ``dtype``
+    (the same bits as a cast per call), the heads' ``bias_f32`` in f32."""
+    if isinstance(tree, list):
+        return [folded_to_device(t, device, dtype) for t in tree]
+    if isinstance(tree, dict) and "weight" in tree:
+        weight = tree["weight"].to(device, dtype)
+        out = {"weight": weight.contiguous(memory_format=torch.channels_last)}
+        if "bias" in tree:
+            out["bias"] = tree["bias"].to(device, dtype)
+        if "bias_f32" in tree:
+            out["bias_f32"] = tree["bias_f32"].to(device, torch.float32)
+        return out
+    return {k: folded_to_device(v, device, dtype) for k, v in tree.items()}
+
+
 class InferencePipeline:
     def __init__(self, model, transform, postprocess, compute_dtype="bfloat16",
                  device=None):
@@ -25,26 +42,10 @@ class InferencePipeline:
         self.transform = transform
         self.postprocess = postprocess
         self.dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[compute_dtype]
-        # Fold BN once, then pre-cast the conv kernels (channels_last for
-        # cuDNN) and the ConvBNLeaky biases to the compute dtype, the same
-        # bits as a cast per call; the heads' biases stay f32.
-        self.folded = self._to_device(model.fold())
+        self.folded = folded_to_device(model.fold(), self.device, self.dtype)
         h, w = transform.size
         # transform resizes to the exact network size; padding is a no-op
         self.pad_info = (0, 0, 0, 0, h, w)
-
-    def _to_device(self, tree):
-        if isinstance(tree, list):
-            return [self._to_device(t) for t in tree]
-        if isinstance(tree, dict) and "weight" in tree:
-            weight = tree["weight"].to(self.device, self.dtype)
-            out = {"weight": weight.contiguous(memory_format=torch.channels_last)}
-            if "bias" in tree:
-                out["bias"] = tree["bias"].to(self.device, self.dtype)
-            if "bias_f32" in tree:
-                out["bias_f32"] = tree["bias_f32"].to(self.device, torch.float32)
-            return out
-        return {k: self._to_device(v) for k, v in tree.items()}
 
     @torch.inference_mode()
     def heads(self, image):

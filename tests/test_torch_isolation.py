@@ -1,6 +1,8 @@
 """The port stands alone: no JAX and nothing of orienmask_tpu in its sources
-or in chip_smoke.py, it imports with JAX made unimportable, and it never
-moves to the CPU on its own."""
+or in chip_smoke.py, none of the host packages the card's machine lacks
+(cv2, tabulate, tqdm; pycocotools only inside a guarded function), it
+imports with JAX made unimportable, and it never moves to the CPU on its
+own."""
 
 import ast
 import subprocess
@@ -16,12 +18,18 @@ ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "orienmask_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-def _imported_modules(path):
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+def _imports(nodes):
+    """(node, module name) of every absolute import among ``nodes``."""
+    for node in nodes:
         if isinstance(node, ast.Import):
-            yield from (alias.name for alias in node.names)
+            yield from ((node, alias.name) for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield node, node.module
+
+
+def _imported_modules(path):
+    return [name for _, name in _imports(ast.walk(ast.parse(path.read_text(),
+                                                            filename=str(path))))]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES])
@@ -31,11 +39,28 @@ def test_sources_import_neither_jax_nor_the_jax_package(path):
         assert top not in ("jax", "jaxlib", "orienmask_tpu"), f"{path.name} imports {name}"
 
 
+@pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_sources_import_no_host_package_the_card_machine_lacks(path):
+    """cv2, tabulate and tqdm nowhere; pycocotools only inside functions,
+    one of which imports it inside a ``try`` (``coco_eval._try_pycocotools``)."""
+    for name in _imported_modules(path):
+        assert name.split(".")[0] not in ("cv2", "tabulate", "tqdm"), f"{path.name} imports {name}"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    in_functions = {id(n) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+                    for n in ast.walk(f)}
+    in_try = {id(n) for t in ast.walk(tree) if isinstance(t, ast.Try) for n in ast.walk(t)}
+    coco = [node for node, name in _imports(ast.walk(tree)) if name.startswith("pycocotools")]
+    assert all(id(n) in in_functions for n in coco), f"{path.name}: pycocotools at module level"
+    assert not coco or any(id(n) in in_try for n in coco), f"{path.name}: unguarded pycocotools"
+
+
 def test_pipeline_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['orienmask_tpu'] = None\n"
+            "for m in ('cv2', 'tabulate', 'tqdm', 'pycocotools'): sys.modules[m] = None\n"
             "import orienmask_tpu_torch.pipeline, orienmask_tpu_torch.ops, "
             "orienmask_tpu_torch.models, orienmask_tpu_torch.data, "
-            "orienmask_tpu_torch.optim, orienmask_tpu_torch.trainer\n"
+            "orienmask_tpu_torch.optim, orienmask_tpu_torch.trainer, "
+            "orienmask_tpu_torch.eval, orienmask_tpu_torch.utils.timer\n"
             "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "
             "for m, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -83,7 +108,11 @@ def test_loss_and_train_step_default_to_the_card(monkeypatch):
 
 
 def test_wrappers_refuse_other_devices():
-    from orienmask_tpu_torch.ops.masks import assemble_masks_packed
+    from orienmask_tpu_torch.ops.masks import (
+        assemble_masks,
+        assemble_masks_bitpacked,
+        assemble_masks_packed,
+    )
     from orienmask_tpu_torch.ops.paint import paint_orientation
     from orienmask_tpu_torch.ops.topk import exact_topk
 
@@ -94,6 +123,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         assemble_masks_packed(field, torch.zeros(1, 1, 4), torch.zeros(1, 1, dtype=torch.int32),
                               torch.zeros(1, 2))
+    for fn in (assemble_masks, assemble_masks_bitpacked):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(field, torch.zeros(1, 1, 4), torch.zeros(1, 1, 2),
+               torch.zeros(1, 1, dtype=torch.int32))
     with pytest.raises(ValueError, match="unsupported device"):
         paint_orientation(torch.zeros(1, 2, 10, device="meta"),
                           torch.zeros(1, dtype=torch.int32, device="meta"),

@@ -116,6 +116,28 @@ def test_train_config_copy_matches_jax_config():
     assert train_cfg == jax_train_cfg
 
 
+@pytest.mark.parametrize("name", [
+    "orienmask_yolo_coco_544_anchor4_fpn_plus_test", "orienmask_yolo_coco_544_anchor4_test",
+    "orienmask_yolo_coco_544_test", "orienmask_yolo_coco_544_anchor4", "orienmask_yolo_coco_544",
+])
+def test_test_config_copies_match_jax_configs(name):
+    import orienmask_tpu.config as jax_config
+    import orienmask_tpu_torch.config as config
+
+    assert getattr(config, name) == getattr(jax_config, name)
+
+
+def test_construct_config_matches_jax():
+    from orienmask_tpu.config.base import construct_config as jax_construct_config
+    from orienmask_tpu_torch.config import construct_config
+
+    base = {"a": {"b": 1, "c": [1, 2]}, "d": 3, "e": {"f": {"g": 4}}}
+    update = {"a": {"b": 5}, "e": {"f": {"h": 6}}, "i": 7}
+    pop = ["e.f.g", "d"]
+    assert construct_config(base, update, pop) == jax_construct_config(base, update, pop)
+    assert base == {"a": {"b": 1, "c": [1, 2]}, "d": 3, "e": {"f": {"g": 4}}}
+
+
 @pytest.mark.parametrize("train", [True, False], ids=["batch_stats", "running_stats"])
 def test_conv_bn_leaky_forward_matches_jax(train):
     """One ConvBNLeaky, unfolded (JAX ``apply``), f32: the output and the

@@ -1,5 +1,6 @@
-"""The port's twostage postprocess (orienmask_tpu_torch/ops/postprocess.py)
-and NMS against orienmask_tpu's, on the same numpy head tensors.
+"""The port's postprocess (orienmask_tpu_torch/ops/postprocess.py), in its
+twostage and exact selection modes, and NMS against orienmask_tpu's, on the
+same numpy head tensors.
 
 The JAX mask assembly is switched (on the module, as the JAX package's own
 tests do) to the anchor-resident Pallas kernel in interpret mode, so both
@@ -25,10 +26,10 @@ from orienmask_tpu_torch.ops.nms import ROUND_CHUNK, greedy_nms_fixpoint
 SIZE = 128
 
 
-def _postprocess_kwargs(size=SIZE):
+def _postprocess_kwargs(size=SIZE, topk_mode="twostage"):
     kw = {k: v for k, v in cfg["postprocess"].items() if k != "type"}
     kw.update(grid_size=[[size // 32] * 2, [size // 16] * 2, [size // 8] * 2],
-              image_size=[size, size], pack_masks=True)
+              image_size=[size, size], pack_masks=True, topk_mode=topk_mode)
     return kw
 
 
@@ -46,25 +47,61 @@ def _heads(seed, b, size=SIZE):
     return heads
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """(numpy heads, JAX _run_batch output, port _run_batch output) at B=2."""
-    torch.set_num_threads(1)
-    heads = _heads(0, 2)
+def _run_both(heads, topk_mode):
+    """JAX _run_batch (masks through the anchor-resident Pallas kernel in
+    interpret mode) and the port's on the CPU, as numpy dicts."""
     mp = pytest.MonkeyPatch()
     mp.setattr(pallas_masks, "assemble_masks_packed", functools.partial(
         pallas_masks.assemble_masks_anchor_resident, interpret=True))
     try:
-        jpp = JaxPostProcess(**_postprocess_kwargs(), use_pallas_topk=False)
+        jpp = JaxPostProcess(**_postprocess_kwargs(topk_mode=topk_mode), use_pallas_topk=False)
         jpp.use_pallas_masks = True
         want = jax.tree_util.tree_map(np.asarray, jpp._run_batch(
             tuple((jnp.asarray(b), jnp.asarray(o)) for b, o in heads)))
     finally:
         mp.undo()
-    pp = OrienMaskYOLOPostProcess(**_postprocess_kwargs(), device="cpu")
+    pp = OrienMaskYOLOPostProcess(**_postprocess_kwargs(topk_mode=topk_mode), device="cpu")
     got = pp.apply_device([(torch.from_numpy(b), torch.from_numpy(o)) for b, o in heads])
-    got = {k: v.numpy() for k, v in got.items()}
-    return heads, want, got
+    return want, {k: v.numpy() for k, v in got.items()}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """(numpy heads, JAX _run_batch output, port _run_batch output) at B=2."""
+    torch.set_num_threads(1)
+    heads = _heads(0, 2)
+    return (heads, *_run_both(heads, "twostage"))
+
+
+def test_exact_selection_matches_jax():
+    """topk_mode="exact" (the test and val configs' mode): the top nms_pre
+    of all 1008 x 80 pair scores, past one kernel launch's row.  Valid
+    counts, classes and mask bytes identical, boxes and scores at 1e-6."""
+    torch.set_num_threads(1)
+    want, got = _run_both(_heads(5, 2), "exact")
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    assert got["valid"].sum(axis=1).min() > 10
+    np.testing.assert_array_equal(got["cls"], want["cls"])
+    np.testing.assert_allclose(got["bbox"], want["bbox"], rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got["mask"], want["mask"])
+    assert got["mask"].any()
+
+
+def test_exact_selection_indices_match_jax():
+    """The flat head buffer and the exact selection's candidates: the same
+    pair indices, scores and head rows as JAX ``_select_candidates``."""
+    torch.set_num_threads(1)
+    heads = _heads(6, 2)
+    jpp = JaxPostProcess(**_postprocess_kwargs(topk_mode="exact"), use_pallas_topk=False)
+    pp = OrienMaskYOLOPostProcess(**_postprocess_kwargs(topk_mode="exact"), device="cpu")
+    scores, det_idx, cls_idx, rows = pp._select_exact([torch.from_numpy(b) for b, _ in heads])
+    for i in range(2):
+        flat = jpp._flat_head([jnp.asarray(b[i]) for b, _ in heads])
+        w_det, w_cls, w_scores, _ = jpp._select_candidates(flat)
+        np.testing.assert_array_equal(det_idx[i].numpy(), np.asarray(w_det))
+        np.testing.assert_array_equal(cls_idx[i].numpy(), np.asarray(w_cls))
+        np.testing.assert_allclose(scores[i].numpy(), np.asarray(w_scores), rtol=1e-6)
+        np.testing.assert_array_equal(rows[i].numpy(), np.asarray(flat[w_det]))
 
 
 def test_run_batch_detections_match_jax(runs):

@@ -13,7 +13,14 @@ import jax
 import jax.numpy as jnp
 
 from orienmask_tpu.ops.pallas_topk import exact_topk as jax_exact_topk
-from orienmask_tpu_torch.ops.topk import MAX_K, MAX_P, exact_topk, exact_topk_plain
+from orienmask_tpu_torch.ops.topk import (
+    CHUNK,
+    MAX_K,
+    MAX_P,
+    exact_topk,
+    exact_topk_plain,
+    exact_topk_split,
+)
 
 
 def _random(p, seed):
@@ -81,11 +88,55 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 
 def test_kernel_row_limit_covers_detect_stage():
-    """Both detect-stage rows (18207 and 400*80 = 32000) at k = 400 are
-    within the kernel's limits, and their keys (4 B each) fit in shared
-    memory beside the 512 padded winners (8 B each): Hopper gives a block at
-    most 227 KB."""
+    """Both detect-stage rows (18207 and 400*80 = 32000) at k = 400, and the
+    two levels of the exact selection's split (chunks of CHUNK keys, then 45
+    chunks x 400 winners), are within the kernel's limits, and their keys
+    (4 B each) fit in shared memory beside the 512 padded winners (8 B
+    each): Hopper gives a block at most 227 KB."""
     k, kpad = 400, 512
-    for p in (18207, 32000):
+    for p in (18207, 32000, CHUNK, -(-18207 * 80 // CHUNK) * k):
         assert k <= min(p, MAX_K) and p <= MAX_P
         assert kpad * 8 + p * 4 <= 227 * 1024
+
+
+# Rows past one launch (the exact selection's 1,456,560 pairs at 544²): the
+# two-level split, with the plain top-k as each level, against lax.top_k.
+# (name, row maker, P, k); every P leaves a short last chunk.
+SPLIT_CASES = [
+    ("sentinels", lambda p, s: np.where(np.random.default_rng(s).uniform(size=p) < 0.002,
+                                        np.random.default_rng(s + 1).uniform(0.005, 1, p),
+                                        -1.0).astype(np.float32), MAX_P + 4001, 400),
+    ("heavy_ties", _quantized, 3 * CHUNK + 77, 400),
+    ("all_equal", _all_equal, 2 * CHUNK + 5, 400),
+    ("last_chunk_shorter_than_k", _random, 2 * CHUNK + 100, 400),
+    ("minus_inf", lambda p, s: np.where(_random(p, s) > -2.5, -np.inf, _random(p, s + 1))
+     .astype(np.float32), MAX_P + 1, 1024),
+]
+
+
+@pytest.mark.parametrize("name,make,p,k", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_two_level_topk_matches_lax_top_k(name, make, p, k):
+    torch.set_num_threads(1)
+    rows = np.stack([make(p, 7 * s + 1) for s in range(2)])
+    got_v, got_i = exact_topk_split(torch.from_numpy(rows), k, exact_topk_plain)
+    assert got_i.dtype == torch.int64 and got_v.shape == (2, k)
+    for b in range(2):
+        want_v, want_i = jax.lax.top_k(jnp.asarray(rows[b]), k)
+        np.testing.assert_array_equal(got_v[b].numpy(), np.asarray(want_v))
+        np.testing.assert_array_equal(got_i[b].numpy(), np.asarray(want_i))
+
+
+def test_two_level_topk_of_the_exact_selection_row():
+    """One row of the exact selection's length, 18207 x 80 pairs, mostly the
+    -1.0 below-threshold sentinel, with ties among the kept scores."""
+    torch.set_num_threads(1)
+    p = 18207 * 80
+    rng = np.random.default_rng(3)
+    row = np.full(p, -1.0, np.float32)
+    pos = rng.choice(p, 3000, replace=False)
+    row[pos] = rng.choice(np.float32([0.25, 0.5, 0.75]), 3000)
+    row[pos[:500]] = rng.uniform(0.01, 1.0, 500)
+    got_v, got_i = exact_topk_split(torch.from_numpy(row[None]), 400, exact_topk_plain)
+    want_v, want_i = jax.lax.top_k(jnp.asarray(row), 400)
+    np.testing.assert_array_equal(got_v[0].numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_i[0].numpy(), np.asarray(want_i))
