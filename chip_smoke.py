@@ -6,9 +6,11 @@ It needs one CUDA card and ``nvcc``; without a card it exits non-zero and
 prints no result.  Phases, in order (any failure raises and exits non-zero):
 
 1. build the hand-written kernels of ``orienmask_tpu_torch/csrc`` with nvcc
-   for sm_90a; print the card and the build time;
+   for sm_90a; print the card, the build time and ptxas's registers, shared
+   memory and spills for kernel 1;
 2. kernel 1 (exact top-k) against its plain version on the card: values and
-   indices bit-identical on every case;
+   indices bit-identical on every case, each with its launch plan (C, chunk);
+   rows its cluster cannot hold, and a cluster past 16 CTAs, refused;
 3. kernel 2 (packed mask assembly) against its plain version on the card:
    bytes bit-identical on every case;
 4. the main path: the full-width 544² OrienMaskYOLOFPNPlus (seeded random
@@ -18,8 +20,9 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    versions and must give identical outputs;
 5. timings at the main path's shapes: each kernel, its plain version and
    the library call (CUDA events between CUDA-graph replays, median of 50),
-   and e2e FPS at 544² batch 1 (10 warm-ups, 5 windows of 200 frames, one
-   synchronize per window, median window);
+   kernel 1 at cluster sizes 4, 8 and 16, and e2e FPS at 544² batch 1 (10
+   warm-ups, 5 windows of 200 frames, one synchronize per window, median
+   window);
 6. kernel 5 (orientation painting) against its plain version on the card:
    pos, neg and torien bit-identical on the train batch's painter inputs
    and on edge cases at 544²;
@@ -165,15 +168,38 @@ def topk_cases(rng):
         ("k = 1024", normal(1, 32000), 1024),
         # rows past one launch: two levels (exact_topk_split)
         ("split, quantized ties", rng.choice(levels, (2, 3 * 32768 + 77)), 400),
-        ("split, -inf mix, short last chunk", np.where(
+        ("split, -inf mix, padded last chunk", np.where(
             rng.uniform(size=(1, 2 * 32768 + 100)) < 0.5, -np.inf,
             normal(1, 2 * 32768 + 100)).astype(np.float32), 1024),
+    ]
+    # the detect stage's sentinel: -1.0 everywhere but m keys, so T is -1.0
+    # (m < k) or the lowest kept score (m = k)
+    for p, m in ((18207, 150), (32000, 399), (18207, 400), (32000, 400)):
+        x = np.full((1, p), -1.0, np.float32)
+        x[0, rng.choice(p, m, replace=False)] = rng.uniform(0.005, 1.0, m)
+        cases.append((f"-1.0 but {m} keys, B=1 P={p}", x, 400))
+    # the exact selection's level 1: 720 chunks of 32,368, mostly -1.0 with
+    # tied kept scores
+    x = np.where(rng.uniform(size=(720, 32368)) < 0.02,
+                 rng.choice(np.float32([0.25, 0.5, 0.75]), (720, 32368)), -1.0)
+    cases += [
+        ("eval level 1, tie-heavy", x.astype(np.float32), 400),
+        ("P = 5 < C", normal(3, 5), 5),
+        ("k = 1", normal(4, 18207), 1),
+        ("k = 1, all equal", np.full((2, 32000), 0.5, np.float32), 1),
+        # one high part, 10 random low bits: the first two passes find the
+        # same bins and the third tells the keys apart (ties among 1024 values)
+        ("keys differ in the last 10 bits",
+         (np.uint32(0x3e860000) | rng.integers(0, 1024, (2, 18207), dtype=np.uint32))
+         .view(np.float32), 400),
+        ("last 10 bits, negative", -(np.uint32(0x3f000000) | rng.integers(
+            0, 1024, (1, 32000), dtype=np.uint32)).view(np.float32), 1024),
     ]
     return cases
 
 
 def check_topk():
-    from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain
+    from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain, launch_plan
 
     rng = np.random.default_rng(SEED)
     max_err = 0.0
@@ -189,28 +215,30 @@ def check_topk():
                                  f"'{name}' (rows {bad})")
         err = torch.where(v == pv, 0.0, (v - pv).abs()).max().item()
         max_err = max(max_err, err)
-        log(f"  exact_topk {name:24s} B={x.shape[0]} P={x.shape[1]} k={k}: identical")
+        log(f"  exact_topk {name:34s} B={x.shape[0]} P={x.shape[1]} k={k} "
+            f"(C, chunk) {launch_plan(*x.shape)}: identical")
     check_topk_limits()
     return max_err
 
 
 def check_topk_limits():
-    """The C entry point refuses a row past its 16-bit scan and one whose
-    keys do not fit in shared memory; the next launch is unaffected."""
+    """The C entry point refuses a row that its cluster cannot hold in
+    registers, and the card refuses a cluster past 16 CTAs; either raises,
+    and the next launch is unaffected."""
     from orienmask_tpu_torch import kernels
     from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain
 
-    for p, k in ((65536, 400), (60000, 1024)):
+    for p, k, c in ((65537, 400, 8), (40000, 400, 4), (18207, 400, 32)):
         x = torch.zeros((1, p), device="cuda")
         v = torch.empty((1, k), device="cuda")
         i = torch.empty((1, k), dtype=torch.int64, device="cuda")
         try:
             kernels.launch("topk", "omt_exact_topk", x.data_ptr(), v.data_ptr(),
-                           i.data_ptr(), 1, p, k)
+                           i.data_ptr(), 1, p, k, c)
         except RuntimeError as e:
-            log(f"  omt_exact_topk P={p} k={k} refused: {e}")
+            log(f"  omt_exact_topk P={p} k={k} C={c} refused: {e}")
             continue
-        raise AssertionError(f"omt_exact_topk took P={p} k={k}, past its limits")
+        raise AssertionError(f"omt_exact_topk took P={p} k={k} C={c}, past its limits")
     x = torch.randn((2, 32000), device="cuda")
     if not torch.equal(exact_topk(x, 400)[1], exact_topk_plain(x, 400)[1]):
         raise AssertionError("exact_topk differs after a refused launch")
@@ -479,9 +507,35 @@ def main_path_inputs(pipe, image):
     return calls
 
 
+def topk_work(b, p, k):
+    """(bytes, operations) that an exact top-k of (b, p) rows needs, however
+    it is implemented: each row read once, the values and int64 indices
+    written once, and a radix select's compare per key in each of its three
+    passes."""
+    return b * (p * 4 + k * (4 + 8)), 3 * b * p
+
+
+def topk_by_cluster(x, k, sizes):
+    """Kernel 1 on the rows ``x`` at each cluster size C of ``sizes`` that
+    holds them, through the C entry point (not counted as launches)."""
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.ops.topk import KEYS_PER_CTA
+
+    b, p = x.shape
+    v = torch.empty((b, k), device="cuda")
+    i = torch.empty((b, k), dtype=torch.int64, device="cuda")
+    out = []
+    for c in sizes:
+        if -(-p // c) <= KEYS_PER_CTA:
+            out.append((c, time_ms(lambda: kernels.launch(
+                "topk", "omt_exact_topk", x.data_ptr(), v.data_ptr(), i.data_ptr(),
+                b, p, k, c))))
+    return out
+
+
 def time_kernels(pipe, image):
     from orienmask_tpu_torch.ops.masks import assemble_masks_packed, assemble_masks_packed_plain
-    from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain
+    from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain, launch_plan
 
     pp = pipe.postprocess
     calls = main_path_inputs(pipe, image)
@@ -493,15 +547,16 @@ def time_kernels(pipe, image):
         t = time_ms(lambda: exact_topk(x, k))
         tp = time_ms(lambda: exact_topk_plain(x, k))
         tl = time_ms(lambda: torch.topk(x, k))
-        log(f"  exact_topk P={p} k={k}: kernel {t:.4f} ms, plain {tp:.4f} ms, "
-            f"torch.topk {tl:.4f} ms")
+        log(f"  exact_topk B={b} P={p} k={k}, (C, chunk) {launch_plan(b, p)}: kernel {t:.4f} ms, "
+            f"plain {tp:.4f} ms, torch.topk {tl:.4f} ms")
         ms, plain, lib = ms + t, plain + tp, lib + tl
-        n_bytes += b * (p * 4 + k * (4 + 8))  # row read once; values and int64 indices
-        # key map + four 8-bit radix passes + the selection pass (one
-        # operation per element each), and the bitonic sort of k padded
-        kpad = 1 << (k - 1).bit_length()
-        n_ops += b * (6 * p + kpad * kpad.bit_length() ** 2 // 2)
+        b_, o_ = topk_work(b, p, k)
+        n_bytes, n_ops = n_bytes + b_, n_ops + o_
     res["exact_topk"].update(ms=ms, plain_ms=plain, library_ms=lib)
+    log("  exact_topk by cluster size C, the same rows: " + "; ".join(
+        f"P={x.shape[1]}: " + ", ".join(f"C={c} {ms:.4f} ms" for c, ms in
+                                          topk_by_cluster(x, k, (4, 8, 16)))
+        for x, k in calls["topk"]))
     res["exact_topk"]["bound_ms"], res["exact_topk"]["bound_by"] = bound(n_bytes, n_ops)
 
     field, boxes, anchor_idx = calls["masks"][0]
@@ -1154,7 +1209,7 @@ def eval_topk_input(ev):
 def time_eval(ev):
     """Phase 11 (the eval path): the exact selection's two-level kernel 1
     beside torch.topk and a stable sort; the Tester's stages."""
-    from orienmask_tpu_torch.ops.topk import CHUNK, exact_topk, exact_topk_plain
+    from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain, launch_plan, split_chunk
     from orienmask_tpu_torch.utils import timer
 
     x, k = eval_topk_input(ev)
@@ -1162,14 +1217,13 @@ def time_eval(ev):
     t = time_ms(lambda: exact_topk(x, k))
     t_lib = time_ms(lambda: torch.topk(x, k))
     t_sort = time_ms(lambda: exact_topk_plain(x, k))
-    n = -(-p // CHUNK)
-    # the row read once, the values and int64 indices written once; the
-    # two levels' key passes and sorts are ~6 operations a key
-    n_bytes = b * (p * 4 + k * 12)
-    kpad = 1 << (k - 1).bit_length()
-    n_ops = b * (6 * (n * CHUNK + n * k) + (n + 1) * kpad * kpad.bit_length() ** 2 // 2)
+    chunk = split_chunk(p)
+    n = -(-p // chunk)
+    n_bytes, n_ops = topk_work(b, p, k)
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    log(f"  exact selection (B={b}, P={p}, k={k}; two launches of kernel 1): kernel {t:.4f} ms, "
+    log(f"  exact selection (B={b}, P={p}, k={k}; two launches of kernel 1, (C, chunk) "
+        f"{launch_plan(b, p)}, then {launch_plan(b * n, chunk)} and {launch_plan(b, n * k)}): "
+        f"kernel {t:.4f} ms, "
         f"torch.topk {t_lib:.4f} ms, stable torch.sort {t_sort:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}: {n_bytes / 1e6:.1f} MB)")
     selection = dict(shape=[b, p], k=k, ms=t, plain_ms=t_sort, library_ms=t_lib,
@@ -1220,6 +1274,9 @@ def main(argv=None):
     log(f"  card: {card_line()} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     log(f"  kernels built and loaded in {time.perf_counter() - t:.2f} s "
         f"(nvcc: {kernels.build_seconds if kernels.build_seconds is not None else 0:.2f} s)")
+    for line in kernels.build_log.get("topk", "topk.cu not rebuilt here").splitlines():
+        if "topk_kernel" in line or "registers" in line or "spill" in line or "rebuilt" in line:
+            log(f"  ptxas (topk.cu): {line.strip()}")
 
     log("[2] kernel 1: exact_topk vs its plain version")
     topk_err = check_topk()

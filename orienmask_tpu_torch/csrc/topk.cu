@@ -1,49 +1,75 @@
 // Exact top-k over the rows of a (B, P) float32 matrix, for sm_90a.
 //
-// Replaces orienmask_tpu/ops/pallas_topk.py::exact_topk (kernel _topk_kernel).
-// Contract: values descending, ties to the lower index, bit-identical to a
-// stable descending sort (lax.top_k's order).  Inputs hold no NaN.
+// Replaces orienmask_tpu/ops/pallas_topk.py::exact_topk (:157; its
+// pallas_call at :173, kernel _topk_kernel).  Contract: values descending,
+// ties to the lower index, bit-identical to a stable descending sort
+// (lax.top_k's order).  -0.0 ties with +0.0; -inf and values <= -3.0 are
+// ordered like any others.  Inputs hold no NaN.
 //
-// What bounds it: a row is 73 KB (P=18207) or 128 KB (P=32000), so its bytes
-// take a few hundredths of a microsecond at the card's memory rate.  One CTA
-// works on a row, so the work is a chain of block-wide passes over shared
-// memory separated by barriers: instruction throughput on one SM, the barriers
-// and the launch bound it, not bytes.  The design keeps each pass to one
-// read of the row per thread and a handful of barriers.
+// What bounds it: a row is 73 KB (P=18207) or 128 KB (P=32000), a few
+// hundredths of a microsecond at the card's memory rate, and a radix select
+// needs a compare per key and pass.  So at the main path's batch of one row
+// the bound is far below what any launch takes: what costs is latency, the
+// chain of barriers between passes, and the one SM that a one-CTA-a-row
+// design leaves working while 131 wait.  The detect stage maps every score
+// under conf_thresh to -1.0, so rows are tie-heavy: T, the k-th largest key,
+// is often shared by thousands of keys.
 //
-// Design: one CTA of 1024 threads per row, the row's keys resident in
-// dynamic shared memory.  Thread t owns the contiguous chunk
-// [t*c, t*c + c) of the row, with c odd so that a warp's 32 chunk reads of
-// one step fall into 32 different banks.
-//   1. key(v): the float's bits mapped to an unsigned key whose order is the
-//      float order (-0.0 folded onto +0.0, so they tie as a float compare
-//      makes them tie); the counterpart of pallas_topk.py's _sign_biased_keys.
-//   2. Radix select, 4 passes of 8 bits MSB first.  Each thread adds its
-//      chunk's keys that still match the prefix into a shared 256-bin
-//      histogram, one atomic per run of equal digits, the last run of each
-//      warp's threads summed first (heavy ties cost one atomic per warp).  Warp 0 finds the next digit of T, the k-th
-//      largest key, with a suffix scan over the bins, and how many keys
-//      equal to T must be taken.
-//   3. Selection: per thread, count key > T and key == T in its chunk; one
-//      block-wide exclusive scan of the two counts in thread order, which is
-//      index order, places each thread's winners.  The first `need` keys
-//      == T in index order are taken.  Winners are 64-bit (key, ~index)
-//      words.
-//   4. Bitonic sort of the winners, padded to a power of two (<= 1024),
-//      descending: key descending, then index ascending.
-//   5. Gather the values from the input row (keeps the input's bits).
-// No padding value is ever compared: rows of any length are read as they
-// are, so inputs <= -3.0 and -inf are ordered like any other value.
+// Design: one row over a thread-block cluster of C CTAs (C from the shape,
+// ops/topk.py::launch_plan), launched with cudaLaunchKernelEx.
+//   * CTA r of the cluster owns the contiguous range [r*per, (r+1)*per) of
+//     the row, per = ceil(P/C) <= kKeysPerCta; its 512 threads hold those
+//     keys in registers, 16 a thread, slot j of thread t at j*512 + t (the
+//     loads coalesced, and index order is (j, warp, lane) order).
+//   * key(v): the float's bits mapped to an unsigned key whose order is the
+//     float order, -0.0 folded onto +0.0.
+//   * Radix select of T in three passes of 11, 11 and 10 bits, MSB first.
+//     Each CTA adds its keys that still match the prefix into its own shared
+//     histogram, one shared atomic a key (on an H100 that beats merging a
+//     warp's equal digits with __match_any_sync first, ties included), and
+//     counts them per group of 32 bins.  One cluster barrier;
+//     then one warp of every CTA sums the C CTAs' group counts through
+//     distributed shared memory (cluster.map_shared_rank), finds T's group
+//     with a warp suffix scan, sums that group's 32 bins over the C CTAs and
+//     finds T's digit: every CTA finds the same, reading 96 words a CTA (not
+//     the 2048 bins), all C CTAs' at once, and with no trip to device memory.
+//     Each pass has its own histogram, so none is cleared between passes.
+//     Once T's bin holds exactly the keys still to take, every key in it is a
+//     winner and the passes stop: the selection then compares the masked
+//     prefix.
+//   * Selection: the same warp also counts the lower-ranked CTAs' keys above
+//     T's bin and in it.  Per warp and slot, ballots of key > T and key == T;
+//     one warp scans the (slot, warp) counts within the CTA; with the lower
+//     ranks' counts that places every winner, the keys > T first, then the
+//     first `need` keys == T in index order.  Winners are 64-bit (key,
+//     ~index) words, so a larger word is a larger key or, at equal keys, a
+//     lower index; each goes to every CTA's shared winner array, then one
+//     cluster barrier.
+//   * Rank sort: the k words are distinct, so a winner's output slot is the
+//     number of words greater than it.  Each CTA ranks its k/C winners
+//     against all k (a warp per 4 winners, the lanes splitting the words);
+//     then each thread writes one winner's value, read back from the input
+//     row by its index (which keeps the input's bits), and int64 index to
+//     its slot.
+// No padding value is ever compared, and a CTA whose range is empty (P < C)
+// only takes part in the barriers.  A launch the card refuses (cluster too
+// large, too few SMs free) returns its error; there is no other path.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 1024;   // the winners' bitonic sort runs in one block
-constexpr int kMaxP = 65535;  // the selection scan packs two 16-bit counts
+constexpr int kKeysPerThread = 16;
+constexpr int kKeysPerCta = kThreads * kKeysPerThread;  // ops/topk.py KEYS_PER_CTA
+constexpr int kMaxK = 1024;
+constexpr int kInFlight = 8;  // remote loads a lane issues before it adds them
+constexpr int kBins = 2048;  // 11-bit digits; the last pass uses 1024
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t order_key(float v) {
@@ -52,181 +78,281 @@ __device__ __forceinline__ uint32_t order_key(float v) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-// Winner word: key in the high half, ~index in the low half, so a larger
-// word means a larger key or, at equal keys, a lower index.  Padding words
-// are 0: every real key is > 0 (the key of -inf is 0x007fffff).
 __device__ __forceinline__ unsigned long long winner(uint32_t key, int i) {
   return ((unsigned long long)key << 32) | (unsigned long long)(~(uint32_t)i);
 }
 
-// Exclusive scan of one value per thread in thread order; `sums` holds
-// kWarps words of shared memory.  Ends with a barrier, so `sums` may be
-// reused at once.
-__device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* sums) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    const uint32_t w = sums[lane];
-    uint32_t s = w;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(kFull, s, o);
-      if (lane >= o) s += y;
-    }
-    sums[lane] = s - w;
-  }
-  __syncthreads();
-  const uint32_t excl = sums[warp] + x - v;
-  __syncthreads();
-  return excl;
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 topk_kernel(const float* __restrict__ x, float* __restrict__ vals,
-            int64_t* __restrict__ idx, int P, int k, int kpad, int chunk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned long long* win = reinterpret_cast<unsigned long long*>(smem_raw);
-  uint32_t* keys = reinterpret_cast<uint32_t*>(win + kpad);
-  __shared__ uint32_t hist[256];
-  __shared__ uint32_t sums[kWarps];
-  __shared__ uint32_t s_prefix, s_need;
+            int64_t* __restrict__ idx, int P, int k) {
+  __shared__ uint32_t hist[3][kBins];
+  __shared__ unsigned long long win[kMaxK];
+  __shared__ uint32_t slot_of[kMaxK];  // output slot of this CTA's winners
+  __shared__ uint32_t cnt[kKeysPerThread * kWarps];  // (slot, warp): gt << 16 | eq
+  __shared__ __align__(8) uint32_t coarse[3][kBins / 32];  // per pass, per 32 bins
+  __shared__ uint32_t s_off[2];
+  __shared__ uint32_t s_prefix, s_need, s_exact, s_digit;
 
-  const float* row = x + (size_t)blockIdx.x * P;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int row = blockIdx.x / C;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lo = min(tid * chunk, P), hi = min(lo + chunk, P);
+  const float* xr = x + (size_t)row * P;
+  const int per = (P + C - 1) / C;
+  const int lo = min(rank * per, P);
+  const int n = min(per, P - lo);  // this CTA's keys
+  const int slots = (n + kThreads - 1) / kThreads;
 
-#pragma unroll 8
-  for (int i = tid; i < P; i += kThreads) keys[i] = order_key(row[i]);
-  for (int i = tid; i < kpad; i += kThreads) win[i] = 0ull;
+  uint32_t key[kKeysPerThread];
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    const int i = j * kThreads + tid;
+    key[j] = order_key(i < n ? xr[lo + i] : 0.0f);
+  }
+  for (int i = tid; i < 3 * kBins; i += kThreads) (&hist[0][0])[i] = 0u;
+  __syncthreads();
 
   // ---- radix select of T, the k-th largest key --------------------------
   uint32_t prefix = 0u, mask = 0u;
   uint32_t need = (uint32_t)k;  // keys still to take among those matching prefix
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    if (tid < 256) hist[tid] = 0u;
-    __syncthreads();
-    uint32_t run_d = 0u, run_n = 0u;
-    for (int i = lo; i < hi; ++i) {
-      const uint32_t u = keys[i];
-      if ((u & mask) != prefix) continue;
-      const uint32_t d = (u >> shift) & 0xffu;
-      if (run_n && d != run_d) {
-        atomicAdd(&hist[run_d], run_n);
-        run_n = 0u;
-      }
-      run_d = d;
-      ++run_n;
-    }
-    // the last run: the threads of a warp on one digit add it once (under
-    // heavy ties every thread ends on the same digit)
-    const unsigned peers = __match_any_sync(kFull, run_n ? run_d : 0x100u);
-    const uint32_t total = __reduce_add_sync(peers, run_n);
-    if (run_n && lane == __ffs(peers) - 1) atomicAdd(&hist[run_d], total);
-    __syncthreads();
-    if (warp == 0) {
-      // lane l owns bins [8l, 8l + 8); s: keys in the bins of lanes >= l
-      uint32_t own = 0u;
+  bool exact = false;
+  uint32_t gt_lo = 0u, eq_lo = 0u;  // warp 0's: see below
+#pragma unroll 1
+  for (int pass = 0; pass < 3 && !exact; ++pass) {
+    const int shift = pass == 0 ? 21 : (pass == 1 ? 10 : 0);
+    const uint32_t dmask = pass == 2 ? 0x3ffu : 0x7ffu;
+    uint32_t* h = hist[pass];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) own += hist[lane * 8 + j];
-      uint32_t s = own;
+    for (int j = 0; j < kKeysPerThread; ++j) {
+      if (j >= slots) break;
+      const bool in = j * kThreads + tid < n && (key[j] & mask) == prefix;
+      if (in) atomicAdd(&h[(key[j] >> shift) & dmask], 1u);
+    }
+    // per group of 32 bins, this CTA's count (64 groups; 32 in the last pass)
+    __syncthreads();
+    const int groups = (int)(dmask + 1) / 32;
+    uint32_t* g_cnt = coarse[pass];
+    for (int g = warp; g < groups; g += kWarps) {
+      const uint32_t v = __reduce_add_sync(kFull, h[32 * g + lane]);
+      if (lane == 0) g_cnt[g] = v;
+    }
+    cluster.sync();
+
+    // warp 0 sums the cluster's group counts, finds T's group, then sums
+    // that group's 32 bins and finds T's digit: every CTA finds the same.
+    // Beside the sums, it counts the keys of the lower-ranked CTAs above
+    // T's bin (gt_lo) and in it (eq_lo), which place this CTA's winners.
+    if (warp == 0) {
+      // groups 2*lane and 2*lane + 1: the cluster's counts, the lower ranks'
+      uint32_t g0 = 0u, g1 = 0u, l0 = 0u, l1 = 0u;
+      if (2 * lane < groups) {
+        for (int q0 = 0; q0 < C; q0 += kInFlight) {
+          uint2 v[kInFlight];
+#pragma unroll
+          for (int i = 0; i < kInFlight; ++i) {
+            v[i] = q0 + i < C
+                       ? reinterpret_cast<const uint2*>(cluster.map_shared_rank(g_cnt, q0 + i))[lane]
+                       : make_uint2(0u, 0u);
+          }
+#pragma unroll
+          for (int i = 0; i < kInFlight; ++i) {
+            g0 += v[i].x;
+            g1 += v[i].y;
+            if (q0 + i < rank) {
+              l0 += v[i].x;
+              l1 += v[i].y;
+            }
+          }
+        }
+      }
+      const uint32_t own = g0 + g1;
+      uint32_t s = own;  // keys in the groups of lanes >= this one
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
         const uint32_t y = __shfl_down_sync(kFull, s, o);
         if (lane + o < 32) s += y;
       }
-      uint32_t above = s - own;  // keys in the bins of higher lanes
-      if (above < need && need <= s) {  // exactly one lane: T's digit is here
-        int d = lane * 8 + 7;
-        for (; d > lane * 8; --d) {
-          if (above + hist[d] >= need) break;
-          above += hist[d];
+      uint32_t above = s - own;  // keys in higher groups than this lane's
+      const bool here = above < need && need <= s;  // exactly one lane
+      int grp = 2 * lane;
+      if (above + g1 >= need) ++grp;
+      else above += g1;
+      const int src = __ffs(__ballot_sync(kFull, here)) - 1;
+      grp = __shfl_sync(kFull, grp, src);
+      above = __shfl_sync(kFull, above, src);  // keys in groups above T's
+      gt_lo += __reduce_add_sync(kFull, (2 * lane > grp ? l0 : 0u) +
+                                            (2 * lane + 1 > grp ? l1 : 0u));
+      uint32_t b = 0u, bl = 0u;  // bin 32*grp + lane: the cluster's, the lower ranks'
+      for (int q0 = 0; q0 < C; q0 += kInFlight) {
+        uint32_t v[kInFlight];
+#pragma unroll
+        for (int i = 0; i < kInFlight; ++i)
+          v[i] = q0 + i < C ? cluster.map_shared_rank(h, q0 + i)[32 * grp + lane] : 0u;
+#pragma unroll
+        for (int i = 0; i < kInFlight; ++i) {
+          b += v[i];
+          if (q0 + i < rank) bl += v[i];
         }
-        s_prefix = prefix | ((uint32_t)d << shift);
-        s_need = need - above;
+      }
+      uint32_t t = b;  // keys in the group's bins >= this lane's
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t y = __shfl_down_sync(kFull, t, o);
+        if (lane + o < 32) t += y;
+      }
+      const uint32_t a = above + t - b;  // keys above this bin
+      const bool hit = a < need && need <= a + b;  // exactly one lane: T's digit
+      const int dl = __ffs(__ballot_sync(kFull, hit)) - 1;
+      gt_lo += __reduce_add_sync(kFull, lane > dl ? bl : 0u);
+      eq_lo = __shfl_sync(kFull, bl, dl);
+      if (hit) {
+        s_digit = (uint32_t)(32 * grp + lane);
+        s_prefix = prefix | (s_digit << shift);
+        s_need = need - a;
+        s_exact = b == need - a;
       }
     }
     __syncthreads();
     prefix = s_prefix;
     need = s_need;
-    mask |= 0xffu << shift;
+    exact = s_exact;
+    mask |= dmask << shift;
   }
-  const uint32_t T = prefix;
-  const uint32_t n_gt = (uint32_t)k - need;
+  const uint32_t n_gt = (uint32_t)k - need;  // keys above T's masked prefix
 
-  // ---- selection: key > T, and the first `need` keys == T by index ------
-  uint32_t c_gt = 0u, c_eq = 0u;
-  for (int i = lo; i < hi; ++i) {
-    const uint32_t u = keys[i];
-    c_gt += u > T;
-    c_eq += u == T;
+  // ---- selection: (slot, warp) counts, scanned within the CTA ------------
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    if (j >= slots) break;
+    const bool v = j * kThreads + tid < n;
+    const uint32_t m = key[j] & mask;
+    const unsigned bg = __ballot_sync(kFull, v && m > prefix);
+    const unsigned be = __ballot_sync(kFull, v && m == prefix);
+    if (lane == 0) cnt[j * kWarps + warp] = ((uint32_t)__popc(bg) << 16) | (uint32_t)__popc(be);
   }
-  // both totals are < 2^16 (P < 65536), so one scan carries the pair
-  const uint32_t excl = block_exclusive_scan((c_gt << 16) | c_eq, sums);
-  uint32_t pos_gt = excl >> 16, rank_eq = excl & 0xffffu;
-  for (int i = lo; i < hi && (c_gt || rank_eq < need); ++i) {
-    const uint32_t u = keys[i];
-    if (u > T) {
-      win[pos_gt++] = winner(u, i);
-      --c_gt;
-    } else if (u == T) {
-      if (rank_eq < need) win[n_gt + rank_eq] = winner(u, i);
-      ++rank_eq;
+  __syncthreads();
+  if (warp == 0) {
+    // lane l scans entries [kPer*l, kPer*(l + 1)) in order; per CTA gt < 1024
+    // and eq <= kKeysPerCta, so the packed halves do not carry into each other
+    constexpr int kPer = kKeysPerThread * kWarps / 32;
+    const int entries = slots * kWarps;
+    uint32_t v[kPer], sum = 0u;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = lane * kPer + e;
+      v[e] = i < entries ? cnt[i] : 0u;
+      sum += v[e];
+    }
+    uint32_t incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    uint32_t run = incl - sum;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = lane * kPer + e;
+      if (i < entries) cnt[i] = run;
+      run += v[e];
+    }
+    if (lane == 0) {  // the winners of the lower-ranked CTAs come first
+      s_off[0] = gt_lo;
+      s_off[1] = eq_lo;
     }
   }
   __syncthreads();
 
-  // ---- bitonic sort of the winners, descending --------------------------
-  for (int size = 2; size <= kpad; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < kpad; i += kThreads) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const unsigned long long a = win[i], b = win[j];
-          const bool desc = (i & size) == 0;
-          if (desc ? a < b : a > b) {
-            win[i] = b;
-            win[j] = a;
-          }
-        }
-      }
-      __syncthreads();
+  // ---- winners to every CTA's shared array -------------------------------
+  const uint32_t off_gt = s_off[0], off_eq = s_off[1];
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    if (j >= slots) break;
+    const int i = j * kThreads + tid;
+    const bool v = i < n;
+    const uint32_t m = key[j] & mask;
+    const bool gt = v && m > prefix, eq = v && m == prefix;
+    const unsigned bg = __ballot_sync(kFull, gt), be = __ballot_sync(kFull, eq);
+    const uint32_t base = cnt[j * kWarps + warp];
+    int slot = -1;
+    if (gt) {
+      slot = (int)(off_gt + (base >> 16) + __popc(bg & lt));
+    } else if (eq) {
+      const uint32_t r = off_eq + (base & 0xffffu) + __popc(be & lt);
+      if (r < need) slot = (int)(n_gt + r);
+    }
+    if (slot >= 0) {
+      const unsigned long long w = winner(key[j], lo + i);
+      for (int q = 0; q < C; ++q) cluster.map_shared_rank(win, q)[slot] = w;
     }
   }
+  cluster.sync();  // the last access to another CTA's shared memory is above
 
-  for (int i = tid; i < k; i += kThreads) {
-    const uint32_t id = ~(uint32_t)(win[i] & 0xffffffffull);
-    vals[(size_t)blockIdx.x * k + i] = row[id];
-    idx[(size_t)blockIdx.x * k + i] = (int64_t)id;
+  // ---- rank sort: slot = the number of winner words greater -------------
+  // a warp ranks 4 of this CTA's winners at once, its lanes splitting the k
+  // words; then every thread writes one winner's value and index
+  const int w_lo = k * rank / C, w_hi = k * (rank + 1) / C;
+  for (int w0 = w_lo + 4 * warp; w0 < w_hi; w0 += 4 * kWarps) {
+    unsigned long long me[4];
+    uint32_t above[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) me[e] = w0 + e < w_hi ? win[w0 + e] : ~0ull;
+    for (int j = lane; j < k; j += 32) {
+      const unsigned long long v = win[j];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) above[e] += v > me[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t r = __reduce_add_sync(kFull, above[e]);
+      if (lane == e && w0 + e < w_hi) slot_of[w0 + e - w_lo] = r;
+    }
+  }
+  __syncthreads();
+  for (int w = w_lo + tid; w < w_hi; w += kThreads) {
+    const uint32_t id = ~(uint32_t)(win[w] & 0xffffffffull);
+    const size_t out = (size_t)row * k + slot_of[w - w_lo];
+    vals[out] = xr[id];
+    idx[out] = (int64_t)id;
   }
 }
 
 }  // namespace
 
+// C CTAs a row (a cluster), B rows; ops/topk.py::launch_plan picks C.
 extern "C" int omt_exact_topk(const float* x, float* vals, int64_t* idx, int B,
-                              int P, int k, void* stream) {
-  if (k < 1 || k > kMaxK || k > P || P > kMaxP) return (int)cudaErrorInvalidValue;
-  int kpad = 1;
-  while (kpad < k) kpad <<= 1;
-  int chunk = (P + kThreads - 1) / kThreads;
-  chunk |= 1;  // odd: conflict-free chunk reads
-  // fails with cudaErrorInvalidValue when the row does not fit (227 KB);
-  // that error is then cleared, so the next launch does not report it
-  const size_t smem = (size_t)kpad * 8 + (size_t)P * 4;
+                              int P, int k, int C, void* stream) {
+  if (k < 1 || k > kMaxK || k > P || C < 1 || (P + C - 1) / C > kKeysPerCta)
+    return (int)cudaErrorInvalidValue;
+  // C > 8 is a non-portable cluster size (up to 16 on an H100); the launch
+  // refuses a larger C
   cudaError_t err = cudaFuncSetAttribute(
-      topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      topk_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, C > 8 ? 1 : 0);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
-  topk_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(x, vals, idx, P, k, kpad,
-                                                           chunk);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * C));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a refused launch (cluster size, resources) reports here; its error is
+  // cleared, so the next launch does not report it
+  err = cudaLaunchKernelEx(&cfg, topk_kernel, x, vals, idx, P, k);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -24,14 +24,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library -> {C entry point: argtypes}
 SIGNATURES = {
     "topk": {
-        # x, vals, idx, B, P, k, stream
-        "omt_exact_topk": [_P, _P, _P, _I, _I, _I, _P],
+        # x, vals, idx, B, P, k, C (CTAs a row), stream
+        "omt_exact_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "masks": {
         # field, boxes, anchor_idx, anchor_table, out, B, A, H, W, K,
@@ -56,6 +56,7 @@ launches = {"exact_topk": 0, "assemble_masks_packed": 0, "assemble_masks": 0,
 
 _libs = {}
 build_seconds = None  # wall time of the last build that compiled anything
+build_log = {}  # library -> nvcc's output (ptxas -v: registers, shared memory, spills)
 
 
 def reset_launches():
@@ -96,6 +97,7 @@ def build_all():
     failed = []
     for src, so, tmp, proc in procs:
         out, _ = proc.communicate()
+        build_log[src.stem] = out
         if proc.returncode != 0:
             failed.append(f"{src.name}:\n{out}")
             tmp.unlink(missing_ok=True)

@@ -8,9 +8,10 @@ feeds sigmoid products and the -1.0 below-threshold sentinel.
 * ``exact_topk_plain``: ``torch.sort(descending=True, stable=True)``, the
   spec.  ``torch.topk`` promises no order among ties and is not used.
 * ``exact_topk``: the wrapper.  A CPU tensor takes the plain version; a CUDA
-  tensor launches the kernel of ``csrc/topk.cu`` or raises.  A row longer
-  than one launch takes (``MAX_P``) goes through ``exact_topk_split``: the
-  exact selection's rows (18207 x 80 = 1,456,560 pairs) take two launches.
+  tensor launches the kernel of ``csrc/topk.cu`` or raises.  ``launch_plan``
+  says how: a row over a cluster of C CTAs, or, for a row longer than one
+  launch takes (``MAX_P``), ``exact_topk_split``: the exact selection's
+  rows (18207 x 80 = 1,456,560 pairs) take two launches.
 """
 
 import torch
@@ -18,15 +19,44 @@ import torch.nn.functional as F
 
 from .. import kernels
 
-# The kernel's limits, which omt_exact_topk also checks: k winners sort in
-# one block, and the selection scan carries its two counts in 16 bits each.
-# The row's keys must also fit in shared memory next to the winners (about
-# 56000 keys at k = 1024); the launch reports it when they do not.
+# The kernel's limits, which omt_exact_topk also checks: k winners rank in
+# one CTA's shared memory; a CTA holds KEYS_PER_CTA keys in registers (512
+# threads, 16 each), and a cluster takes up to MAX_CLUSTER CTAs (8, the
+# portable cluster size).
 MAX_K = 1024
-MAX_P = 65535
-# Level-1 chunk of a split row: its keys fit in shared memory beside any
-# k <= MAX_K winners.
+KEYS_PER_CTA = 8192
+MAX_CLUSTER = 8
+MAX_P = MAX_CLUSTER * KEYS_PER_CTA
+# The longest level-1 chunk of a split row: one launch takes it at any
+# k <= MAX_K.
 CHUNK = 32768
+# SMs of an H100 SXM: few rows spread over clusters until the grid fills them.
+SMS = 132
+
+
+def split_chunk(p):
+    """The chunk length of a row of ``p`` keys: as even as the fewest chunks
+    of at most ``CHUNK`` keys allow (the exact selection's 1,456,560 keys
+    are 45 chunks of 32,368, with no padding)."""
+    n = -(-p // CHUNK)
+    return -(-p // n)
+
+
+def launch_plan(b, p):
+    """(C, chunk) for (b, p) rows, from the shape alone.
+
+    A row longer than ``MAX_P`` is cut into chunks (``exact_topk_split``,
+    ``split_chunk``), and each level then has a plan of its own: the result
+    is (None, chunk).  Otherwise the result is (C, None), C the CTAs of the
+    cluster that takes one row: at least enough to hold the row's keys, and,
+    for few rows, up to ``MAX_CLUSTER`` while the grid of b * C CTAs stays
+    within one CTA an SM.  So the main path's single rows and the exact
+    selection's 16 level-2 rows take clusters of 8, and its 720 level-1 rows
+    of 32,368 keys the 4 CTAs that hold them."""
+    if p > MAX_P:
+        return None, split_chunk(p)
+    fit = -(-p // KEYS_PER_CTA)
+    return max(fit, min(MAX_CLUSTER, SMS // max(b, 1))), None
 
 
 def exact_topk_plain(x, k):
@@ -37,8 +67,9 @@ def exact_topk_plain(x, k):
 def exact_topk_split(x, k, row_topk):
     """Exact top-k of (B, P) rows in two levels of ``row_topk`` (the
     argument of JAX ``_topk_split``, postprocess.py:173-192): the rows are
-    cut into contiguous chunks of ``CHUNK`` keys, the last padded with -inf;
-    one ``row_topk`` over the (B * chunks, chunk) matrix keeps each chunk's
+    cut into n contiguous chunks of ``split_chunk(P)`` keys, the last padded
+    with -inf (a copy, skipped when the chunks fill the row exactly);
+    one ``row_topk`` over the (B * n, chunk) matrix keeps each chunk's
     top k; one more over the (B, chunks * k) winners, in chunk order, picks
     the row's top k.  Every element of the row's top k is in its own chunk's
     top k, and among equal values the winners sit in global index order
@@ -47,11 +78,12 @@ def exact_topk_split(x, k, row_topk):
     is never picked: it has the lowest value and a higher index than any of
     the P >= k real keys."""
     b, p = x.shape
-    n = -(-p // CHUNK)
-    kk = min(k, CHUNK)
-    padded = F.pad(x, (0, n * CHUNK - p), value=float("-inf"))
-    v1, i1 = row_topk(padded.view(b * n, CHUNK), kk)
-    base = torch.arange(0, n * CHUNK, CHUNK, device=x.device)[:, None]
+    chunk = split_chunk(p)
+    n = -(-p // chunk)
+    kk = min(k, chunk)
+    padded = x if n * chunk == p else F.pad(x, (0, n * chunk - p), value=float("-inf"))
+    v1, i1 = row_topk(padded.view(b * n, chunk), kk)
+    base = torch.arange(0, n * chunk, chunk, device=x.device)[:, None]
     idx = (i1.reshape(b, n, kk) + base).reshape(b, n * kk)
     v2, j = row_topk(v1.reshape(b, n * kk), k)
     return v2, torch.gather(idx, 1, j)
@@ -59,13 +91,14 @@ def exact_topk_split(x, k, row_topk):
 
 def _exact_topk_cuda(x, k):
     b, p = x.shape
-    if p > MAX_P:
+    c, chunk = launch_plan(b, p)
+    if chunk:
         return exact_topk_split(x, k, _exact_topk_cuda)
     vals = torch.empty((b, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, k), dtype=torch.int64, device=x.device)
     if b:
         kernels.launch("topk", "omt_exact_topk", x.data_ptr(), vals.data_ptr(),
-                       idx.data_ptr(), b, p, k)
+                       idx.data_ptr(), b, p, k, c)
         kernels.launches["exact_topk"] += 1
     return vals, idx
 

@@ -15,11 +15,16 @@ import jax.numpy as jnp
 from orienmask_tpu.ops.pallas_topk import exact_topk as jax_exact_topk
 from orienmask_tpu_torch.ops.topk import (
     CHUNK,
+    KEYS_PER_CTA,
+    MAX_CLUSTER,
     MAX_K,
     MAX_P,
+    SMS,
     exact_topk,
     exact_topk_plain,
     exact_topk_split,
+    launch_plan,
+    split_chunk,
 )
 
 
@@ -90,13 +95,49 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_kernel_row_limit_covers_detect_stage():
     """Both detect-stage rows (18207 and 400*80 = 32000) at k = 400, and the
     two levels of the exact selection's split (chunks of CHUNK keys, then 45
-    chunks x 400 winners), are within the kernel's limits, and their keys
-    (4 B each) fit in shared memory beside the 512 padded winners (8 B
-    each): Hopper gives a block at most 227 KB."""
-    k, kpad = 400, 512
+    chunks x 400 winners), are within the kernel's limits: k <= MAX_K, and
+    the row fits in the registers of a cluster of at most MAX_CLUSTER CTAs
+    (KEYS_PER_CTA keys each), a portable cluster size."""
+    k = 400
+    assert MAX_CLUSTER <= 8 and MAX_P == MAX_CLUSTER * KEYS_PER_CTA
     for p in (18207, 32000, CHUNK, -(-18207 * 80 // CHUNK) * k):
         assert k <= min(p, MAX_K) and p <= MAX_P
-        assert kpad * 8 + p * 4 <= 227 * 1024
+
+
+# (B, P) -> (C, chunk): the main path's two rows, the exact selection
+# (B = 16 rows of 18207 x 80 pairs) and its two levels, a batch of two
+# frames, rows shorter than the cluster, k = P (the plan does not read k).
+PLAN_CASES = [
+    ("infer_detect_max", 1, 18207, (8, None)),
+    ("infer_pairs", 1, 32000, (8, None)),
+    ("infer_b2", 2, 32000, (8, None)),
+    ("exact_selection", 16, 18207 * 80, (None, 32368)),
+    ("eval_level1_720_rows", 16 * 45, 32368, (4, None)),
+    ("eval_level2", 16, 45 * 400, (8, None)),
+    ("p_less_than_c", 3, 5, (8, None)),
+    ("k_equals_p", 2, 300, (8, None)),
+    ("max_p", 1, MAX_P, (8, None)),
+    ("one_past_max_p", 1, MAX_P + 1, (None, 21846)),
+    ("many_short_rows", 1000, 1000, (1, None)),
+    ("many_long_rows", 200, 3 * KEYS_PER_CTA, (3, None)),
+]
+
+
+@pytest.mark.parametrize("name,b,p,want", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_launch_plan(name, b, p, want):
+    c, chunk = launch_plan(b, p)
+    assert (c, chunk) == want
+    if chunk is None:
+        # the cluster holds the row, is portable, and few rows fill no more
+        # than one CTA an SM unless the row needs more CTAs
+        assert 1 <= c <= MAX_CLUSTER and c * KEYS_PER_CTA >= p
+        assert b * c <= SMS or c == -(-p // KEYS_PER_CTA)
+    else:
+        # each level of the split is one launch (k = 400, the configs' nms_pre)
+        assert chunk == split_chunk(p) <= CHUNK
+        n = -(-p // chunk)
+        assert launch_plan(b * n, chunk)[1] is None
+        assert launch_plan(b, n * 400)[1] is None
 
 
 # Rows past one launch (the exact selection's 1,456,560 pairs at 544²): the
@@ -111,7 +152,14 @@ SPLIT_CASES = [
     ("last_chunk_shorter_than_k", _random, 2 * CHUNK + 100, 400),
     ("minus_inf", lambda p, s: np.where(_random(p, s) > -2.5, -np.inf, _random(p, s + 1))
      .astype(np.float32), MAX_P + 1, 1024),
+    # one past the largest row of one launch
+    ("one_key_in_last_chunk", _sentinels, 2 * CHUNK + 1, 400),
+    # chunks that fill the row exactly: no padding
+    ("even_chunks_no_pad", _quantized, 3 * 30000, 400),
 ]
+# Chunks are as even as their count allows (split_chunk), so a last chunk
+# no longer falls short of k or holds one key: those two cases keep their
+# names and check a padded last chunk.
 
 
 @pytest.mark.parametrize("name,make,p,k", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
@@ -127,8 +175,9 @@ def test_two_level_topk_matches_lax_top_k(name, make, p, k):
 
 
 def test_two_level_topk_of_the_exact_selection_row():
-    """One row of the exact selection's length, 18207 x 80 pairs, mostly the
-    -1.0 below-threshold sentinel, with ties among the kept scores."""
+    """One row of the exact selection's length, 18207 x 80 pairs (45 chunks
+    of 32,368, no padding), mostly the -1.0 below-threshold sentinel, with
+    ties among the kept scores."""
     torch.set_num_threads(1)
     p = 18207 * 80
     rng = np.random.default_rng(3)
