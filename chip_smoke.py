@@ -82,11 +82,13 @@ SEED = 0
 # outside the tensor cores.  That peak counts an FMA as two operations; the
 # kernels' counts below are single instructions (multiply, add, compare,
 # select, or), each of which takes a whole FMA slot, so they are held
-# against half of it.  The mask kernels' counts are those of the predicate
-# and packing in ``cuobjdump -sass`` of the built csrc/build/libmasks.so:
-# the abs is an operand modifier of the compare, and the second compare
-# takes the first's predicate as its `and` input.  Bounds are taken against
-# these published peaks.
+# against half of it.  Kernel 2's bound counts what its function needs
+# however it is built (``mask_work``); the per-detection kernels' counts
+# (3, 4) and kernel 2's unculled count are those of the predicate and
+# packing in ``cuobjdump -sass`` of the built csrc/build/libmasks.so: the
+# abs is an operand modifier of the compare, and the second compare takes
+# the first's predicate as its `and` input.  Bounds are taken against these
+# published peaks.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12 / 2
 TIMED_LAUNCHES = 50
@@ -251,11 +253,117 @@ def mask_inputs(rng, b, a=9, h=544, w=544, k=100):
     boxes = np.stack([rng.uniform(0.1, 0.9, (b, k)), rng.uniform(0.1, 0.9, (b, k)),
                       rng.uniform(0.02, 0.6, (b, k)), rng.uniform(0.02, 0.6, (b, k))],
                      axis=-1).astype(np.float32)
-    boxes[:, -10:] = 0.0  # padded detections: zero-sized boxes
+    boxes[:, k - min(10, k - 1):] = 0.0  # padded detections: zero-sized boxes
     anchor_idx = rng.integers(0, a - 2, (b, k)).astype(np.int32)  # a-2, a-1 unused
     anchor_idx[:, :8] = 3  # duplicates on one anchor
     table = rng.uniform(0.02, 0.7, (a, 2)).astype(np.float32)
     return [torch.from_numpy(t).cuda() for t in (field, boxes, anchor_idx, table)]
+
+
+def painted_inputs(rng, b, n=8, k=100, device="cuda"):
+    """Kernel 2's inputs on the field that a model which fits its training
+    targets predicts: the orientation targets that ``OrientationPainter``
+    paints at 544² for ``n`` synthetic instances an image (an ellipse in
+    each box, on the anchor of closest shape), as (B, 9, 2, H, W); and
+    ``k`` detections an image drawn from those instances, on their anchors,
+    with boxes jittered by up to 5% of their sides.  Returns ([field,
+    boxes, anchor_idx, table], orien_thresh)."""
+    from orienmask_tpu_torch.config import orienmask_yolo_coco_544_anchor4_fpn_plus as cfg
+    from orienmask_tpu_torch.ops.targets import OrientationPainter
+
+    lc, pc = cfg["loss"], cfg["postprocess"]
+    painter = OrientationPainter(lc["image_size"], lc["anchors"], lc["anchor_mask"],
+                                 lc["grid_size"], lc["center_region"], lc["valid_region"],
+                                 device=device)
+    h, w = lc["image_size"]
+    anchors = np.asarray(lc["anchors"], np.float32)
+    gt = np.concatenate([rng.uniform(0.15, 0.85, (b, n, 2)),
+                         rng.uniform(0.05, 0.5, (b, n, 2))], -1).astype(np.float32)
+    pw, ph = gt[..., 2:3] * w, gt[..., 3:4] * h
+    inter = np.minimum(pw, anchors[:, 0]) * np.minimum(ph, anchors[:, 1])
+    anc = (inter / (pw * ph + anchors.prod(1) - inter)).argmax(-1)
+    xs, ys = (np.arange(w) + 0.5) / w, (np.arange(h)[:, None] + 0.5) / h
+    cx, cy, bw, bh = (gt[..., i, None, None] for i in range(4))
+    gt_mask = ((xs - cx) / (bw / 2)) ** 2 + ((ys - cy) / (bh / 2)) ** 2 < 1
+    _, _, torien = painter(*(torch.from_numpy(t).to(device) for t in (
+        gt, anc, np.ones((b, n), bool), gt_mask)))
+    field = torien.permute(0, 1, 4, 2, 3).contiguous()
+    inst = rng.integers(0, n, (b, k))
+    rows = np.take_along_axis(gt, inst[..., None], 1)
+    boxes = rows * (1 + rng.uniform(-0.05, 0.05, rows.shape))
+    table = anchors / np.array([w, h], np.float32)
+    return [field] + [torch.from_numpy(t).to(device) for t in (
+        boxes.astype(np.float32), np.take_along_axis(anc, inst, 1).astype(np.int32),
+        table)], pc["orien_thresh"]
+
+
+def tile_counts(args, thresh, valid=None, **kw):
+    """Kernel 2's (detection, tile) classes for one call, counted with the
+    plain mirror of its rule: {all out, all in, mixed, empty}."""
+    from orienmask_tpu_torch.ops import masks
+
+    cls = masks.tile_classes(*args, thresh, valid=valid, **kw)
+    return {name: int((cls == v).sum()) for name, v in (
+        ("all_out", masks.ALL_OUT), ("all_in", masks.ALL_IN), ("mixed", masks.MIXED),
+        ("empty", masks.EMPTY))}
+
+
+def mask_cases(rng):
+    """(name, [field, boxes, anchor_idx, table], thresh, valid or None, coord_h/row0
+    keywords): kernel 2's cases beside the random ones."""
+    def tensors(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(t)).cuda() for t in arrays]
+
+    cases = []
+    for b in (1, 2, 16):
+        cases.append((f"random B={b} A=9 K=100", mask_inputs(rng, b), 0.3, None, {}))
+    # a zero field: g is the pixel's own coordinate; with t = 1, t*w = w, and
+    # each box's edges sit exactly on column (row) coordinates: ties
+    h = w = 544
+    k = 100
+    cols = np.arange(w, dtype=np.float32) * np.float32(1.0 / w)
+    i, j = rng.integers(0, w, (2, 1, k))
+    boxes = np.stack([cols[i], cols[j], np.abs(cols[rng.integers(0, w, (1, k))] - cols[i]),
+                      np.abs(cols[rng.integers(0, w, (1, k))] - cols[j])], -1)
+    field = np.zeros((1, 3, 2, h, w), np.float32)
+    table = rng.uniform(0.02, 0.7, (3, 2)).astype(np.float32)
+    aidx = rng.integers(0, 3, (1, k)).astype(np.int32)
+    cases.append(("zero field, box edges on pixel coordinates (ties)",
+                  tensors(field, boxes.astype(np.float32), aidx, table), 1.0, None, {}))
+    # NaN and +-inf in the field of every anchor
+    args = mask_inputs(rng, 1)
+    f = args[0].view(-1)
+    spots = torch.from_numpy(rng.choice(f.numel(), 30000, replace=False)).cuda()
+    f[spots] = torch.tensor([np.nan, np.inf, -np.inf], device=f.device).repeat(10000)
+    cases.append(("NaN and +-inf in the field", args, 0.3, None, {}))
+    # boxes over the whole image on a small field: all-in tiles
+    args = mask_inputs(rng, 2)
+    args[0].mul_(0.01)
+    args[1][:, :50] = torch.tensor([0.5, 0.5, 4.0, 4.0], device=args[1].device)
+    cases.append(("boxes covering the image", args, 0.3, None, {}))
+    # zero-sized and negative boxes
+    args = mask_inputs(rng, 1)
+    args[1][0, :30, 2] = 0.0
+    args[1][0, 30:60, 3] = -0.2
+    args[1][0, 60:70, 2:4] = -0.0
+    cases.append(("zero-sized and negative boxes", args, 0.3, None, {}))
+    # validity: all, none, 7 of 100
+    args = mask_inputs(rng, 1)
+    for name, valid in (("all", np.ones((1, 100), bool)), ("none", np.zeros((1, 100), bool)),
+                        ("7 of 100", np.isin(np.arange(100), rng.choice(100, 7, False))[None])):
+        cases.append((f"valid: {name}", args, 0.3, *tensors(valid), {}))
+    args = mask_inputs(rng, 3, k=100)
+    valid, = tensors(rng.uniform(size=(3, 100)) < 0.5)
+    args[2][0, :5] = 9  # off the table
+    args[2][1, :5] = -1
+    cases.append(("B=3, half valid, anchors off the table", args, 0.3, valid, {}))
+    cases.append(("K=1", mask_inputs(rng, 1, k=1), 0.3, None, {}))
+    args, thresh = painted_inputs(rng, 2)
+    cases.append(("painted field (a fitted model's), B=2", args, thresh, None, {}))
+    # a partial last tile of a row (W % 32 != 0: byte stores) and a partial band
+    cases.append(("W=40 H=10", mask_inputs(rng, 2, h=10, w=40, k=20), 0.3, None, {}))
+    cases.append(("W=8 H=3", mask_inputs(rng, 1, h=3, w=8, k=5), 0.3, None, {}))
+    return cases
 
 
 def check_masks():
@@ -263,19 +371,22 @@ def check_masks():
 
     rng = np.random.default_rng(SEED + 1)
     max_err = 0
-    for b in (1, 2):
-        args = mask_inputs(rng, b)
-        got = assemble_masks_packed(*args, 0.3)
-        want = assemble_masks_packed_plain(*args, 0.3)
+    for name, args, thresh, valid, kw in mask_cases(rng):
+        got = assemble_masks_packed(*args, thresh, valid=valid, **kw)
+        want = assemble_masks_packed_plain(*args, thresh, valid=valid, **kw)
         torch.cuda.synchronize()
+        max_err = max(max_err, (got.int() - want.int()).abs().max().item())
         if not torch.equal(got, want):
             n = (got != want).sum().item()
-            raise AssertionError(f"assemble_masks_packed: {n} bytes differ at B={b}")
-        if not got.any() or got[:, -10:].any():
+            raise AssertionError(f"assemble_masks_packed '{name}': {n} bytes differ")
+        counts = tile_counts(args, thresh, valid, **kw)
+        log(f"  assemble_masks_packed {name:50s} field {tuple(args[0].shape)} "
+            f"K={args[1].shape[1]}: identical ({(got != 0).float().mean().item():.4f} of bytes "
+            f"nonzero; tiles {counts})")
+        if name.startswith("random") and (not got.any() or got[:, -10:].any()):
             raise AssertionError("assemble_masks_packed: masks empty, or a padded box has pixels")
-        max_err = max(max_err, (got.int() - want.int()).abs().max().item())
-        log(f"  assemble_masks_packed B={b} A=9 K=100 544x544: identical "
-            f"({(got != 0).float().mean().item():.4f} of bytes nonzero)")
+        if name == "boxes covering the image" and not counts["all_in"]:
+            raise AssertionError("no all-in tile under boxes covering the image")
     # a row block of the image: coord_h = full height, row0 = first row
     field, boxes, anchor_idx, table = mask_inputs(rng, 1)
     whole = assemble_masks_packed(field, boxes, anchor_idx, table, 0.3)
@@ -284,6 +395,7 @@ def check_masks():
     got = assemble_masks_packed(block, boxes, anchor_idx, table, 0.3, coord_h=544, row0=r0)
     want = assemble_masks_packed_plain(block, boxes, anchor_idx, table, 0.3,
                                        coord_h=544, row0=r0)
+    max_err = max(max_err, (got.int() - want.int()).abs().max().item())
     if not (torch.equal(got, want) and torch.equal(got, whole[:, :, r0:r0 + rows])):
         raise AssertionError("assemble_masks_packed: the row0/coord_h block differs")
     log("  assemble_masks_packed rows 136..271 with coord_h=544, row0=136: identical, "
@@ -409,9 +521,9 @@ def plain_postprocess(pp_kw):
         def _topk(self, x, k):
             return exact_topk_plain(x, k)
 
-        def _assemble_masks(self, field, boxes, anchor_idx):
+        def _assemble_masks(self, field, boxes, anchor_idx, valid):
             return assemble_masks_packed_plain(field, boxes, anchor_idx, self.norm_anchors,
-                                               self.orien_thresh)
+                                               self.orien_thresh, valid=valid)
 
     return Plain(**pp_kw, pack_masks=True, device="cuda")
 
@@ -448,6 +560,30 @@ def run_main_path(pipe, image, requests):
     return counts, results, pad_info, out
 
 
+def mask_tensor_ops(pipe, image):
+    """The aten operators of one frame that take or give a tensor of the
+    packed masks' shape; kernel 2's launch through ctypes is none of them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    pp = pipe.postprocess
+    shape = (image.shape[0], pp.nms_post, pp.image_h, pp.image_w // 8)
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and tuple(t.shape) == shape
+                   for t in tree_flatten((args, kwargs, out))[0]):
+                ops.append(str(func))
+            return out
+
+    with Record():
+        pipe.run_device(image)
+    torch.cuda.synchronize()
+    return ops
+
+
 def check_main_path(pipe, pp_kw, image):
     requests = 4
     counts, results, pad_info, out = run_main_path(pipe, image, requests)
@@ -455,6 +591,12 @@ def check_main_path(pipe, pp_kw, image):
     if counts["exact_topk"] != 2 * requests or counts["assemble_masks_packed"] != requests:
         raise AssertionError(f"expected {2 * requests} top-k and {requests} mask launches, "
                              f"got {counts}")
+    # kernel 2 writes the masks whole, invalid rows included: no operator
+    # touches them after their allocation (no masks *= valid)
+    ops = mask_tensor_ops(pipe, image)
+    if not ops or any(not op.startswith("aten.empty") for op in ops):
+        raise AssertionError(f"operators on the masks besides their allocation: {ops}")
+    log(f"  operators on the masks' tensor in one frame: {ops} (kernel 2 writes them whole)")
     check_outputs(out, 1)
     n = int(out["valid"][0].sum())
     r = results[0]
@@ -534,7 +676,7 @@ def topk_by_cluster(x, k, sizes):
 
 
 def time_kernels(pipe, image):
-    from orienmask_tpu_torch.ops.masks import assemble_masks_packed, assemble_masks_packed_plain
+    from orienmask_tpu_torch.ops.masks import assemble_masks_packed_plain
     from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain, launch_plan
 
     pp = pipe.postprocess
@@ -559,32 +701,64 @@ def time_kernels(pipe, image):
         for x, k in calls["topk"]))
     res["exact_topk"]["bound_ms"], res["exact_topk"]["bound_by"] = bound(n_bytes, n_ops)
 
-    field, boxes, anchor_idx = calls["masks"][0]
-    args = (field, boxes, anchor_idx, pp.norm_anchors, pp.orien_thresh)
-    t = time_ms(lambda: assemble_masks_packed(*args))
-    tp = time_ms(lambda: assemble_masks_packed_plain(*args))
-    log(f"  assemble_masks_packed field {tuple(field.shape)} K={boxes.shape[1]}: "
-        f"kernel {t:.4f} ms, plain {tp:.4f} ms")
-    b, a, _, h, w = field.shape
-    kk = boxes.shape[1]
-    # the kernel reads the field planes of the anchors that hold a detection
-    used = sum(len(set(row.tolist())) for row in anchor_idx)
-    n_bytes = (used * 2 * h * w * 4 + boxes.numel() * 4 + kk * b * 4 + a * 8
-               + b * kk * h * (w // 8))
-    # per used anchor and pixel: 2 multiplies and 2 adds (the sample
-    # position); per detection and pixel: 2 subtracts, 2 compares, and the
-    # select and or that pack the bit into its byte
-    n_ops = used * h * w * 4 + b * kk * h * w * 6
-    log(f"  the main path's detections use {used} of {b * a} anchor planes")
-    res["assemble_masks_packed"].update(ms=t, plain_ms=tp, library_ms=None)
-    # beside it, for the record: detections spread over all nine anchors
+    field, boxes, anchor_idx, valid = calls["masks"][0]
+    main_args = (field, boxes, anchor_idx, pp.norm_anchors)
     spread = mask_inputs(np.random.default_rng(SEED + 2), 1)
     spread[2] = torch.arange(100, device="cuda", dtype=torch.int32).remainder(9)[None]
-    log(f"  assemble_masks_packed, the same shapes with all 9 anchors used: kernel "
-        f"{time_ms(lambda: assemble_masks_packed(*spread, 0.3)):.4f} ms")
-    r = res["assemble_masks_packed"]
-    r["bound_ms"], r["bound_by"] = bound(n_bytes, n_ops)
+    few = torch.zeros_like(valid)
+    few[0, torch.from_numpy(np.random.default_rng(SEED + 7).choice(100, 7, False)).cuda()] = True
+    cases = {
+        "a": ("the main path's inputs", main_args, pp.orien_thresh, valid),
+        "b": ("the same shapes, detections on all 9 anchors", tuple(spread), 0.3, None),
+        "c": ("(a) with 7 of 100 detections valid", main_args, pp.orien_thresh, few),
+        "e": ("the field painted for 8 instances, a fitted model's",
+              *painted_inputs(np.random.default_rng(SEED + 8), 1), None),
+    }
+    res["assemble_masks_packed"]["cases"] = {
+        key: time_mask_case(f"({key}) {name}", *case) for key, (name, *case) in cases.items()}
+    a = res["assemble_masks_packed"]["cases"]["a"]
+    tp = time_ms(lambda: assemble_masks_packed_plain(*main_args, pp.orien_thresh, valid=valid))
+    log(f"  assemble_masks_packed (a): plain {tp:.4f} ms")
+    res["assemble_masks_packed"].update(ms=a["ms"], plain_ms=tp, library_ms=None,
+                                        bound_ms=a["bound_ms"], bound_by=a["bound_by"])
     return res
+
+
+def mask_work(field, boxes, anchor_idx, valid=None):
+    """(bytes, operations, unculled) that kernel 2's call needs however it
+    is built: the field planes of the anchors that hold a valid detection,
+    the boxes, indices, anchor table and validity row read once and the
+    masks written once; 4 operations (2 multiplies, 2 adds) per used anchor
+    and pixel for the sample positions.  ``unculled``: the predicate at
+    every detection and pixel, 6 instructions each in SASS (2 subtracts, 2
+    compares with the abs as an operand modifier, the bit's select and or),
+    the work of a kernel that culls nothing."""
+    b, a, _, h, w = field.shape
+    k = boxes.shape[1]
+    keep = (anchor_idx >= 0) & (anchor_idx < a)
+    if valid is not None:
+        keep = keep & valid
+    used = sum(len(set(row[m].tolist())) for row, m in zip(anchor_idx, keep))
+    n_bytes = (used * 2 * h * w * 4 + boxes.numel() * 4 + anchor_idx.numel() * 4 + a * 8
+               + (valid.numel() if valid is not None else 0) + b * k * h * (w // 8))
+    return n_bytes, 4 * used * h * w, 6 * b * k * h * w
+
+
+def time_mask_case(name, args, thresh, valid):
+    """Kernel 2 on one case: its time, the bound of what the call needs,
+    the unculled count and the tile classes."""
+    from orienmask_tpu_torch.ops.masks import assemble_masks_packed
+
+    t = time_ms(lambda: assemble_masks_packed(*args, thresh, valid=valid))
+    n_bytes, n_ops, unculled = mask_work(args[0], args[1], args[2], valid)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    tiles = tile_counts(args, thresh, valid)
+    log(f"  assemble_masks_packed {name}, field {tuple(args[0].shape)} K={args[1].shape[1]}: "
+        f"kernel {t:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.2f} MB, "
+        f"{n_ops / 1e6:.2f} M ops; unculled {unculled / 1e6:.1f} M instructions, "
+        f"{unculled / SCALAR_OPS_PER_S * 1e3:.4f} ms); tiles {tiles}")
+    return dict(ms=t, bound_ms=bound_ms, bound_by=bound_by, unculled_ms=unculled
+                / SCALAR_OPS_PER_S * 1e3, tiles=tiles)
 
 
 def e2e_fps(pipe, image):
@@ -1188,22 +1362,27 @@ def check_eval_path(ev):
     return counts
 
 
-def eval_topk_input(ev):
-    """The (B, P) rows the exact selection hands kernel 1 in one eval batch."""
+def eval_kernel_inputs(ev):
+    """What one eval batch hands kernels 1 and 2: (the (B, P) rows of the
+    exact selection's first top-k, k) and the mask wrapper's arguments."""
     pp = ev.tester.postprocess
-    rows = []
+    rows, masks = [], []
 
     def topk(x, k):
         rows.append((x.clone(), k))
         return type(pp)._topk(pp, x, k)
 
-    pp._topk = topk
+    def assemble(*args):
+        masks.append(tuple(a.clone() for a in args))
+        return type(pp)._assemble_masks(pp, *args)
+
+    pp._topk, pp._assemble_masks = topk, assemble
     try:
         batch = next(iter(ev.loader))
         pp.apply_device(ev.tester.forward(torch.as_tensor(batch["image"]).cuda()))
     finally:
-        del pp._topk
-    return rows[0]
+        del pp._topk, pp._assemble_masks
+    return rows[0], masks[0]
 
 
 def time_eval(ev):
@@ -1212,7 +1391,11 @@ def time_eval(ev):
     from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain, launch_plan, split_chunk
     from orienmask_tpu_torch.utils import timer
 
-    x, k = eval_topk_input(ev)
+    (x, k), (field, boxes, anchor_idx, valid) = eval_kernel_inputs(ev)
+    pp = ev.tester.postprocess
+    masks_d = time_mask_case("(d) the eval path's batch", (field, boxes, anchor_idx,
+                                                           pp.norm_anchors),
+                             pp.orien_thresh, valid)
     b, p = x.shape
     t = time_ms(lambda: exact_topk(x, k))
     t_lib = time_ms(lambda: torch.topk(x, k))
@@ -1247,7 +1430,7 @@ def time_eval(ev):
         + f"; loop {med['loop']:.2f} s = {ips:.2f} images/s (passes "
         + ", ".join(f"{q['loop']:.2f}" for q in passes) + f" s); coco_eval "
         f"{med['coco_eval']:.2f} s")
-    return selection, {"ms_per_image": stages, "images_per_s": ips, "loop_s": med["loop"],
+    return selection, masks_d, {"ms_per_image": stages, "images_per_s": ips, "loop_s": med["loop"],
                        "passes": passes, "coco_eval_s": med["coco_eval"]}
 
 
@@ -1332,7 +1515,7 @@ def main(argv=None):
 
         log("[11] eval timings")
         times.update(time_per_detection(per_det_args))
-        selection, eval_times = time_eval(ev)
+        selection, times["assemble_masks_packed"]["cases"]["d"], eval_times = time_eval(ev)
         del ev
 
     # launches: each path's count, read around that path's run alone; the

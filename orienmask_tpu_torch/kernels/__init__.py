@@ -34,9 +34,9 @@ SIGNATURES = {
         "omt_exact_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "masks": {
-        # field, boxes, anchor_idx, anchor_table, out, B, A, H, W, K,
-        # orien_thresh, inv_w, inv_h, row0, stream
-        "omt_assemble_masks_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        # field, boxes, anchor_idx, anchor_table, valid (or null), out, B, A,
+        # H, W, K, orien_thresh, inv_w, inv_h, row0, stream
+        "omt_assemble_masks_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _F, _F, _F, _I, _P],
         # field, boxes, anchor_wh, anchor_idx, out, B, A, H, W, K,
         # orien_thresh, inv_w, inv_h, stream

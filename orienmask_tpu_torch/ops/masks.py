@@ -20,8 +20,8 @@ Each ``*_plain`` function is the same expressions, op by op, in torch.  The
 wrappers take the plain version for a CPU tensor; for a CUDA tensor they
 launch the kernel of ``csrc/masks.cu`` or raise.  All three need W % 8 == 0,
 as the TPU kernels assert.  Zero-sized (padded) detections and detections
-whose anchor index is off the table give empty masks; masking by validity
-stays with the caller.
+whose anchor index is off the table give empty masks; kernel 2 also takes
+the detections' validity and gives an invalid detection an empty mask.
 """
 
 import numpy as np
@@ -30,7 +30,7 @@ import torch
 from .. import kernels
 from .maskops import pack_bits
 
-MAX_DETS = 2048
+MAX_DETS = 2048  # detections an image in shared memory (csrc/masks.cu)
 MAX_ANCHORS = 64  # per-anchor detection lists in shared memory (csrc/masks.cu)
 
 
@@ -39,8 +39,8 @@ def _f32(v):
     return float(np.float32(v))
 
 
-def assemble_masks_packed_plain(field, boxes, anchor_idx, anchor_table,
-                                orien_thresh=0.3, coord_h=None, row0=0):
+def _sample_positions(field, anchor_table, coord_h=None, row0=0):
+    """Per anchor, each pixel's sample positions (gx, gy), each (B, A, H, W)."""
     b, a, _, h, w = field.shape
     dev = field.device
     cols = torch.arange(w, device=dev).float() * _f32(1.0 / w)
@@ -48,15 +48,90 @@ def assemble_masks_packed_plain(field, boxes, anchor_idx, anchor_table,
     half = anchor_table * 0.5
     gx = field[:, :, 0] * half[:, 0].view(1, a, 1, 1) + cols
     gy = field[:, :, 1] * half[:, 1].view(1, a, 1, 1) + rows[:, None]
-    on_table = (anchor_idx >= 0) & (anchor_idx < a)
-    sel = anchor_idx.long().clamp(0, a - 1)
-    batch = torch.arange(b, device=dev)[:, None]
+    return gx, gy
+
+
+def _per_detection_boxes(boxes, orien_thresh):
+    """(centre (B, K, 2), t * sides (B, K, 2)) as the kernel rounds them."""
+    return boxes[..., :2], boxes[..., 2:4] * _f32(orien_thresh)
+
+
+def _on_table(anchor_idx, a, valid):
+    """(B, K) bool: the detections the kernel evaluates (valid, anchor on
+    the table), and their anchors clamped onto the table."""
+    keep = (anchor_idx >= 0) & (anchor_idx < a)
+    if valid is not None:
+        keep = keep & valid
+    return keep, anchor_idx.long().clamp(0, a - 1)
+
+
+def assemble_masks_packed_plain(field, boxes, anchor_idx, anchor_table,
+                                orien_thresh=0.3, coord_h=None, row0=0, valid=None):
+    b, a = field.shape[:2]
+    gx, gy = _sample_positions(field, anchor_table, coord_h, row0)
+    keep, sel = _on_table(anchor_idx, a, valid)
+    batch = torch.arange(b, device=field.device)[:, None]
     gxk, gyk = gx[batch, sel], gy[batch, sel]  # (B, K, H, W)
-    t = _f32(orien_thresh)
-    cx, cy = boxes[..., 0, None, None], boxes[..., 1, None, None]
-    tx, ty = (boxes[..., 2] * t)[..., None, None], (boxes[..., 3] * t)[..., None, None]
-    m = ((gxk - cx).abs() < tx) & ((gyk - cy).abs() < ty) & on_table[..., None, None]
+    c, tb = _per_detection_boxes(boxes, orien_thresh)
+    m = ((gxk - c[..., 0, None, None]).abs() < tb[..., 0, None, None]) \
+        & ((gyk - c[..., 1, None, None]).abs() < tb[..., 1, None, None]) & keep[..., None, None]
     return pack_bits(m)
+
+
+# Kernel 2's tile culling (csrc/masks.cu), op by op, for the tests and for
+# counting a call's tile classes: a tile is one row by TILE_W columns, two
+# bytes of the packed output.
+TILE_W = 16
+ALL_OUT, ALL_IN, MIXED, EMPTY = 0, 1, 2, -1
+
+
+def tile_bounds(gx, gy):
+    """The kernel's bounds of tiles of pixels (..., n): (gx min, gx max,
+    gy min, gy max), each (...).  A min or max ignores NaN (NaN only when
+    every value is), and gx max is NaN where any pixel's gx or gy is NaN,
+    which refuses all in."""
+    def reduce(g, fn, neutral):
+        nan = torch.isnan(g)
+        out = fn(torch.where(nan, neutral, g), dim=-1)
+        return torch.where(nan.all(-1), torch.nan, out)
+
+    xhi = reduce(gx, torch.amax, -torch.inf)
+    xhi = torch.where(torch.isnan(gx).any(-1) | torch.isnan(gy).any(-1), torch.nan, xhi)
+    return (reduce(gx, torch.amin, torch.inf), xhi, reduce(gy, torch.amin, torch.inf),
+            reduce(gy, torch.amax, -torch.inf))
+
+
+def classify_tiles(bounds, c, tb):
+    """The kernel's class of (tile, detection) pairs, int8: ALL_OUT, ALL_IN
+    or MIXED.  ``bounds`` from ``tile_bounds``; ``c`` = (cx, cy) and ``tb``
+    = (t*w, t*h), each a pair of tensors broadcasting against the bounds.
+    Per axis, dlo = fl(gmin - c) and dhi = fl(gmax - c); all out if, in
+    either axis, dhi <= -tb or dlo >= tb; all in if, in both, -tb < dlo and
+    dhi < tb."""
+    xlo, xhi, ylo, yhi = bounds
+    dlx, dhx, dly, dhy = xlo - c[0], xhi - c[0], ylo - c[1], yhi - c[1]
+    out = (dhx <= -tb[0]) | (dlx >= tb[0]) | (dhy <= -tb[1]) | (dly >= tb[1])
+    inside = (-tb[0] < dlx) & (dhx < tb[0]) & (-tb[1] < dly) & (dhy < tb[1])
+    return torch.where(out, ALL_OUT, torch.where(inside, ALL_IN, MIXED)).to(torch.int8)
+
+
+def tile_classes(field, boxes, anchor_idx, anchor_table, orien_thresh=0.3, coord_h=None,
+                 row0=0, valid=None):
+    """Each (detection, tile)'s class in kernel 2 for these inputs: (B, K,
+    H, ceil(W/TILE_W)) int8, EMPTY for a detection written as zeros without
+    a predicate (invalid, or its anchor off the table)."""
+    b, a, _, h, w = field.shape
+    gx, gy = _sample_positions(field, anchor_table, coord_h, row0)
+    pad = -w % TILE_W  # the last tile of a row: past W is no pixel, as the edge
+    gx, gy = (torch.nn.functional.pad(g.reshape(b * a, h, w), (0, pad), mode="replicate")
+              .reshape(b, a, h, -1, TILE_W) for g in (gx, gy))
+    keep, sel = _on_table(anchor_idx, a, valid)
+    batch = torch.arange(b, device=field.device)[:, None]
+    bounds = [t[batch, sel] for t in tile_bounds(gx, gy)]  # (B, K, H, nw)
+    c, tb = _per_detection_boxes(boxes, orien_thresh)
+    cls = classify_tiles(bounds, (c[..., 0, None, None], c[..., 1, None, None]),
+                         (tb[..., 0, None, None], tb[..., 1, None, None]))
+    return torch.where(keep[..., None, None], cls, EMPTY).to(torch.int8)
 
 
 def assemble_masks_plain(field, boxes, anchor_wh, anchor_idx, orien_thresh=0.3,
@@ -151,22 +226,27 @@ def assemble_masks_bitpacked(field, boxes, anchor_wh, anchor_idx, orien_thresh=0
 
 
 def assemble_masks_packed(field, boxes, anchor_idx, anchor_table,
-                          orien_thresh=0.3, coord_h=None, row0=0):
+                          orien_thresh=0.3, coord_h=None, row0=0, valid=None):
     """field (B, A, 2, H, W) f32, boxes (B, K, 4) normalized cxcywh,
     anchor_idx (B, K) int32, anchor_table (A, 2) normalized anchor sizes
     -> (B, K, H, W/8) uint8.  ``coord_h``/``row0``: the global image height
-    and the field's first global row, for a row block of a taller image."""
+    and the field's first global row, for a row block of a taller image.
+    ``valid`` (B, K) bool, or None for all valid: an invalid detection gets
+    an empty mask."""
     if field.device.type == "cpu":
         return assemble_masks_packed_plain(field, boxes, anchor_idx, anchor_table,
-                                           orien_thresh, coord_h, row0)
+                                           orien_thresh, coord_h, row0, valid)
     b, a, two, h, w = field.shape
     k = boxes.shape[1]
-    _check_kernel_args("assemble_masks_packed", field, [
+    checks = [
         (field, torch.float32, (b, a, 2, h, w)),
         (boxes, torch.float32, (b, k, 4)),
         (anchor_idx, torch.int32, (b, k)),
         (anchor_table, torch.float32, (a, 2)),
-    ])
+    ]
+    if valid is not None:
+        checks.append((valid, torch.bool, (b, k)))
+    _check_kernel_args("assemble_masks_packed", field, checks)
     if k > MAX_DETS or a > MAX_ANCHORS:
         raise ValueError(f"assemble_masks_packed: the kernel takes K <= {MAX_DETS} and "
                          f"A <= {MAX_ANCHORS}; K={k}, A={a}")
@@ -174,7 +254,8 @@ def assemble_masks_packed(field, boxes, anchor_idx, anchor_table,
     if b and k and h:
         kernels.launch("masks", "omt_assemble_masks_packed", field.data_ptr(),
                        boxes.data_ptr(), anchor_idx.data_ptr(), anchor_table.data_ptr(),
-                       out.data_ptr(), b, a, h, w, k, orien_thresh,
+                       None if valid is None else valid.data_ptr(), out.data_ptr(),
+                       b, a, h, w, k, orien_thresh,
                        _f32(1.0 / w), _f32(1.0 / (coord_h or h)), int(row0))
         kernels.launches["assemble_masks_packed"] += 1
     return out

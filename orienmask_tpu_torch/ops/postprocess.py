@@ -101,10 +101,11 @@ class OrienMaskYOLOPostProcess:
         """Selection top-k (kernel 1 on the card)."""
         return exact_topk(x, k)
 
-    def _assemble_masks(self, field, boxes, anchor_idx):
-        """Packed masks of the kept detections (kernel 2 on the card)."""
+    def _assemble_masks(self, field, boxes, anchor_idx, valid):
+        """Packed masks of the kept detections, empty for the invalid ones
+        (kernel 2 on the card)."""
         return assemble_masks_packed(field, boxes, anchor_idx, self.norm_anchors,
-                                     self.orien_thresh)
+                                     self.orien_thresh, valid=valid)
 
     def _flat_scores(self, pred_bboxes):
         """(B, P) per-detection max score, reduced in each head's native
@@ -225,9 +226,10 @@ class OrienMaskYOLOPostProcess:
         'valid' (B,K) bool}."""
         field = self._upsample_orientation([p[1] for p in predict])
         det = self._detect([p[0] for p in predict])
+        # invalid rows get empty masks inside the kernel (JAX multiplies
+        # them by ``valid`` afterwards)
         masks = self._assemble_masks(field, det["bbox"][..., :4].contiguous(),
-                                     det["anchor"])
-        masks *= det["valid"][..., None, None].to(torch.uint8)
+                                     det["anchor"], det["valid"])
         return {"bbox": det["bbox"], "cls": det["cls"], "mask": masks,
                 "valid": det["valid"]}
 

@@ -1,0 +1,445 @@
+// An alternative layout of kernel 2, timed beside the shipped one by
+// probe/designs.py: a band of rows a block, tiles' positions and bounds in
+// shared memory, a warp a detection.  The file's header comment below is older
+// text and does not describe this layout.
+
+// Orientation-mask assembly for sm_90a: three kernels over one predicate.
+//
+// For detection k of image b on anchor a, pixel (y, x) is inside its mask when
+//   |fx[a,y,x] * (aw * 0.5) + x * (1/W) - cx_k| < t * w_k   and
+//   |fy[a,y,x] * (ah * 0.5) + (y + row0) * (1/coord_h) - cy_k| < t * h_k.
+//
+// * mask_kernel replaces orienmask_tpu/ops/pallas_masks.py::
+//   assemble_masks_anchor_resident (kernel _mask_kernel_anchor): (aw, ah) is
+//   the row a of a per-anchor table, and 8 columns pack into one byte, MSB
+//   first: out (B, K, H, W/8) uint8.  It also takes the (B, K) validity row
+//   (null: all valid); an invalid detection gets an empty mask.
+// * unpacked_kernel replaces pallas_masks.py::assemble_masks (_mask_kernel):
+//   (aw, ah) is the detection's own anchor size, out (B, K, H, W) uint8 in
+//   {0, 1}, row0 = 0.
+// * bitpacked_kernel replaces pallas_masks.py::assemble_masks_bitpacked
+//   (_mask_kernel_bitpack): the same per-detection inputs as unpacked_kernel,
+//   packed MSB first with shifts and ors: out (B, K, H, W/8) uint8.
+//
+// mask_kernel.  What the function needs: at 544², K=100 it reads the field
+// planes of the anchors that hold a detection once (2.37 MB an anchor, 21.3
+// MB with all A=9) and writes 3.7 MB of bytes, and forms the sample
+// positions with 4 operations per used anchor and pixel: 1.81 us at 3.35
+// TB/s on the main path (one anchor), 7.46 us with nine.  Evaluating the
+// predicate at every detection and pixel, as the TPU kernel does, is 6
+// instructions per detection-pixel in SASS (177.6 M, 5.3 us at the card's
+// 32-bit instruction rate), most of it for pixels far from the box.
+// Design: exact tile culling.  A block owns a band of kBandRows rows of one
+// image; a tile is one row by 32 columns, the pixels of one 32-bit word of
+// the packed output.  Per anchor that holds a valid detection, the block
+// forms its band's sample positions once into shared memory (a lane a
+// column, coalesced loads; NaN past column W) with each tile's min and max
+// of gx and gy (NaN ignored) and a NaN flag (the max of gx made NaN).  Then
+// a warp takes its share of that anchor's detections and classes each tile
+// with the detection's own rounded differences dlo = fl(gmin - c), dhi =
+// fl(gmax - c): all out if, in either axis, dhi <= -tb or dlo >= tb; all in
+// if, in both, -tb < dlo and dhi < tb; mixed otherwise.  Round-to-nearest
+// subtraction is monotone in g, so every pixel's fl(g - c) lies in [dlo,
+// dhi], and only definite outcomes are taken: a NaN, inf - inf, tb <= 0 or a
+// NaN tb ends as mixed or all out, where the predicate is false too.  An all
+// out or all in tile is the word 0 or ~0; a mixed tile is evaluated by the
+// whole warp, a lane a column, and __ballot_sync packs the word (lane L
+// takes column L ^ 7, so the little-endian word holds each byte MSB first).
+// A warp's store covers 32 consecutive words of the detection's band, which
+// are contiguous in memory when W % 32 == 0.  A detection that is invalid
+// or whose anchor index is off the table gets zero words with no predicate.
+// Barriers: one after the block loads the detections, then two per used
+// anchor less one (two on the main path).  One launch covers the batch.
+//
+// unpacked_kernel and bitpacked_kernel are the per-detection formulation:
+// one block per (image, detection, run of pixels), so each detection reads
+// its own anchor's field slice (from L2 after the first detection of that
+// anchor) and uses its own anchor size, which need not be a table row.
+// unpacked_kernel: one thread per 4 pixels of a row, two float4 loads and one
+// uchar4 store; bitpacked_kernel: one thread per output byte, four float4
+// loads and one byte store.  At 544², K=100 the first writes 29.6 MB, the
+// second 3.7 MB; both read at least the used anchors' field once.
+// A detection whose anchor index is off the table gets an empty mask.
+//
+// Exact arithmetic, as the TPU kernels evaluate it: every multiply and add
+// is a separately rounded __fmul_rn/__fadd_rn/__fsub_rn (nvcc would
+// otherwise contract them into FMAs and flip boundary pixels), the column
+// and row coordinates are float(i) * (1/W) with 1/W rounded to f32 on the
+// host (not x / W), and the compare is the one-sided |g - c| < t * b.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBandRows = 4;    // mask_kernel: rows a block
+constexpr int kTileW = 32;      // columns a tile: one 32-bit word of the output
+constexpr int kMaskWarps = 16;
+constexpr int kMaskThreads = kMaskWarps * 32;
+constexpr int kMaxAnchors = 64;  // the used anchors are one 64-bit mask
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kIntMax = 0x7fffffff, kIntMin = -kIntMax - 1;
+constexpr int kMinBlocks = 2;  // mask_kernel blocks an SM must hold at once
+// dynamic shared memory a block may opt in to (227 KB) less the static part
+constexpr size_t kMaxDynamicSmem = 232448 - 1024;
+constexpr int kDetThreads = 256;  // per-detection kernels: threads per block
+
+// The sample position f * (anchor * 0.5) + coordinate of one pixel.
+__device__ __forceinline__ float sample(float f, float half_anchor, float coord) {
+  return __fadd_rn(__fmul_rn(f, half_anchor), coord);
+}
+
+// The predicate of detection d = (cx, cy, t*w, t*h) at sample (gx, gy).
+__device__ __forceinline__ bool inside(float gx, float gy, float4 d) {
+  return fabsf(__fsub_rn(gx, d.x)) < d.z && fabsf(__fsub_rn(gy, d.y)) < d.w;
+}
+
+// The detection's box as (cx, cy, t*w, t*h).
+__device__ __forceinline__ float4 load_det(const float* bx, float thresh) {
+  return make_float4(bx[0], bx[1], __fmul_rn(thresh, bx[2]), __fmul_rn(thresh, bx[3]));
+}
+
+// Min and max over the warp's lanes, NaN ignored (NaN when every lane's is):
+// a float's bits made an order-preserving int, then one __reduce_*_sync.
+__device__ __forceinline__ int order_key(float f) {
+  const int i = __float_as_int(f);
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float key_float(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  const int m = __reduce_min_sync(kFull, isnan(v) ? kIntMax : order_key(v));
+  return m == kIntMax ? CUDART_NAN_F : key_float(m);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  const int m = __reduce_max_sync(kFull, isnan(v) ? kIntMin : order_key(v));
+  return m == kIntMin ? CUDART_NAN_F : key_float(m);
+}
+
+// The tile's class for detection d = (cx, cy, t*w, t*h) from its bounds t =
+// (gx min, gx max, gy min, gy max): 0 all out, 1 all in, 2 mixed.
+__device__ __forceinline__ int classify(float4 t, float4 d) {
+  const float dlx = __fsub_rn(t.x, d.x), dhx = __fsub_rn(t.y, d.x);
+  const float dly = __fsub_rn(t.z, d.y), dhy = __fsub_rn(t.w, d.y);
+  if (dhx <= -d.z || dlx >= d.z || dhy <= -d.w || dly >= d.w) return 0;
+  if (-d.z < dlx && dhx < d.z && -d.w < dly && dhy < d.w) return 1;
+  return 2;
+}
+
+// Word i of a band (row i / nw, tile i % nw) at o, the band's first byte:
+// one 32-bit store when rows are whole words (W % 32 == 0), else the bytes
+// that lie in the row.
+__device__ __noinline__ void store_tile_bytes(uint8_t* o, int i, int nw, int W8, unsigned v) {
+  const int r = i / nw, c = i - r * nw;
+  const int n = min(4, W8 - 4 * c);
+  for (int j = 0; j < n; ++j) o[r * W8 + 4 * c + j] = (uint8_t)(v >> (8 * j));
+}
+
+__device__ __forceinline__ void store_tile(uint8_t* o, int i, int nw, int W8, unsigned v) {
+  if ((W8 & 3) == 0) {
+    reinterpret_cast<unsigned*>(o)[i] = v;
+  } else {
+    store_tile_bytes(o, i, nw, W8, v);
+  }
+}
+
+// fn(k) for this warp's share of the detections k with det_anchor[k] == a:
+// the matches in index order, dealt to the warps in turn.
+template <class F>
+__device__ __forceinline__ void for_my_dets(const int* det_anchor, int K, int a, F fn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int seen = 0;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const bool match = k0 + lane < K && det_anchor[k0 + lane] == a;
+    const unsigned m = __ballot_sync(kFull, match);
+    const int rank = seen + __popc(m & ((1u << lane) - 1u));
+    unsigned mine = __ballot_sync(kFull, match && rank % kMaskWarps == warp);
+    seen += __popc(m);
+    while (mine) {
+      const int j = __ffs(mine) - 1;
+      mine &= mine - 1u;
+      fn(k0 + j);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(smem)), "l"(gmem));
+}
+
+__global__ void __launch_bounds__(kMaskThreads, kMinBlocks)
+mask_kernel(const float* __restrict__ field, const float* __restrict__ boxes,
+            const int* __restrict__ anchor_idx, const float* __restrict__ table,
+            const uint8_t* __restrict__ valid, uint8_t* __restrict__ out, int A, int H,
+            int W, int K, float thresh, float inv_w, float inv_h, int row0) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nw = (W + kTileW - 1) / kTileW;  // tiles a row
+  float* raw = reinterpret_cast<float*>(smem_raw);  // the band's fx rows, then its fy rows
+  float2* g = reinterpret_cast<float2*>(raw + 2 * kBandRows * W);  // tile t at g + 32 t
+  float4* bounds = reinterpret_cast<float4*>(g + kBandRows * nw * kTileW);
+  float4* det = bounds + kBandRows * nw;               // (cx, cy, t*w, t*h)
+  int* det_anchor = reinterpret_cast<int*>(det + K);   // -1: an empty mask
+  __shared__ unsigned long long warp_used[kMaskWarps];
+  __shared__ float4 warp_bounds[kMaskWarps];  // bounds of each warp's tiles
+  __shared__ int warp_nan[kMaskWarps];
+
+  const int b = blockIdx.y, y0 = blockIdx.x * kBandRows;
+  const int rows = min(kBandRows, H - y0), tiles = rows * nw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W8 = W >> 3;
+  unsigned long long used = 0;
+  for (int k = threadIdx.x; k < K; k += kMaskThreads) {
+    const size_t bk = (size_t)b * K + k;
+    det[k] = load_det(boxes + bk * 4, thresh);
+    int a = anchor_idx[bk];
+    if (a < 0 || a >= A || (valid != nullptr && !valid[bk])) {
+      a = -1;
+    } else {
+      used |= 1ull << a;
+    }
+    det_anchor[k] = a;
+  }
+  const unsigned lo = __reduce_or_sync(kFull, (unsigned)used);
+  const unsigned hi = __reduce_or_sync(kFull, (unsigned)(used >> 32));
+  if (lane == 0) warp_used[warp] = ((unsigned long long)hi << 32) | lo;
+  __syncthreads();
+  used = 0;
+  for (int w = 0; w < kMaskWarps; ++w) used |= warp_used[w];
+
+  uint8_t* band = out + ((size_t)b * K * H + y0) * W8;  // + k * H * W8
+  const size_t kstride = (size_t)H * W8;
+  // invalid detections and anchors off the table: empty masks, no predicate
+  for_my_dets(det_anchor, K, -1, [&](int k) {
+    for (int i = lane; i < tiles; i += 32) store_tile(band + k * kstride, i, nw, W8, 0u);
+  });
+
+  const size_t plane = (size_t)H * W;
+  const int row_chunks = W >> 2;  // 16-byte chunks a row
+  for (unsigned long long u = used; u; u &= u - 1) {
+    const int a = __ffsll((long long)u) - 1;
+    if (u != used) __syncthreads();  // the previous anchor's warps are done
+    // the band's field rows into shared memory, every copy in flight at once
+    const float* fx = field + ((size_t)b * A + a) * 2 * plane + (size_t)y0 * W;
+    for (int c = threadIdx.x; c < 2 * rows * row_chunks; c += kMaskThreads) {
+      const int pr = c / row_chunks, x4 = (c - pr * row_chunks) * 4;
+      const int pl = pr >= rows, r = pr - pl * rows;  // plane (fx, fy), row
+      cp_async16(raw + (pl * kBandRows + r) * W + x4, fx + pl * plane + (size_t)r * W + x4);
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+    // each tile's sample positions and bounds, a warp a tile and a lane a
+    // column (NaN past W); this lane's min and max over the warp's tiles
+    const float aw = __fmul_rn(table[2 * a], 0.5f);
+    const float ah = __fmul_rn(table[2 * a + 1], 0.5f);
+    float4 lb = make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
+    bool lane_nan = false;
+    for (int t = warp; t < tiles; t += kMaskWarps) {
+      const int r = t / nw, x = (t - r * nw) * kTileW + lane;
+      float gx = CUDART_NAN_F, gy = CUDART_NAN_F;
+      if (x < W) {
+        gx = sample(raw[r * W + x], aw, __fmul_rn((float)x, inv_w));
+        gy = sample(raw[(kBandRows + r) * W + x], ah,
+                    __fmul_rn((float)(y0 + r + row0), inv_h));
+      }
+      g[t * kTileW + lane] = make_float2(gx, gy);
+      const bool has_nan = x < W && (isnan(gx) || isnan(gy));
+      const bool tile_nan = __any_sync(kFull, has_nan);
+      const float4 tb = make_float4(warp_min(gx), warp_max(gx), warp_min(gy), warp_max(gy));
+      if (lane == 0) bounds[t] = make_float4(tb.x, tile_nan ? CUDART_NAN_F : tb.y, tb.z, tb.w);
+      lb = make_float4(fminf(lb.x, gx), fmaxf(lb.y, gx), fminf(lb.z, gy), fmaxf(lb.w, gy));
+      lane_nan |= has_nan;
+    }
+    {
+      const float4 wb = make_float4(warp_min(lb.x), warp_max(lb.y), warp_min(lb.z),
+                                    warp_max(lb.w));
+      const bool wnan = __any_sync(kFull, lane_nan);
+      if (lane == 0) {
+        warp_bounds[warp] = wb;
+        warp_nan[warp] = wnan;
+      }
+    }
+    __syncthreads();
+    // the band's bounds, the same rule one level up: a detection whose band
+    // is all out or all in needs no tile of it classed
+    float4 band_bounds = make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
+    if (lane < kMaskWarps) band_bounds = warp_bounds[lane];
+    const bool band_nan = __any_sync(kFull, lane < kMaskWarps && warp_nan[lane]);
+    band_bounds = make_float4(warp_min(band_bounds.x), warp_max(band_bounds.y),
+                              warp_min(band_bounds.z), warp_max(band_bounds.w));
+    if (band_nan) band_bounds.y = CUDART_NAN_F;
+    for_my_dets(det_anchor, K, a, [&](int k) {
+      const float4 d = det[k];
+      uint8_t* o = band + k * kstride;
+      const int band_cls = classify(band_bounds, d);
+      if (band_cls != 2) {
+        for (int t = lane; t < tiles; t += 32) store_tile(o, t, nw, W8, band_cls ? kFull : 0u);
+        return;
+      }
+      for (int t0 = 0; t0 < tiles; t0 += 32) {
+        const int t = t0 + lane;
+        const int cls = t < tiles ? classify(bounds[t], d) : 0;
+        unsigned v = cls == 1 ? kFull : 0u;
+        unsigned mixed = __ballot_sync(kFull, cls == 2);
+        while (mixed) {  // a mixed tile: the warp evaluates it, a lane a column
+          const int j = __ffs(mixed) - 1;
+          mixed &= mixed - 1u;
+          const float2 s = g[(t0 + j) * kTileW + (lane ^ 7)];
+          const unsigned word = __ballot_sync(kFull, inside(s.x, s.y, d));
+          if (lane == j) v = word;
+        }
+        if (t < tiles) store_tile(o, t, nw, W8, v);
+      }
+    });
+  }
+}
+
+// Per-detection kernels: blockIdx.y = detection, blockIdx.z = image.
+// Returns the detection's field planes (fx; fy = fx + H*W) or nullptr when
+// its anchor index is off the table, and its box and half anchor size.
+__device__ __forceinline__ const float* det_setup(
+    const float* field, const float* boxes, const float* anchor_wh,
+    const int* anchor_idx, int A, int H, int W, int K, float thresh, float4* d,
+    float* aw, float* ah) {
+  const int b = blockIdx.z, k = blockIdx.y;
+  const size_t bk = (size_t)b * K + k;
+  const int a = anchor_idx[bk];
+  *d = load_det(boxes + bk * 4, thresh);
+  *aw = __fmul_rn(anchor_wh[bk * 2], 0.5f);
+  *ah = __fmul_rn(anchor_wh[bk * 2 + 1], 0.5f);
+  if (a < 0 || a >= A) return nullptr;
+  return field + ((size_t)b * A + a) * 2 * (size_t)H * W;
+}
+
+__global__ void __launch_bounds__(kDetThreads)
+unpacked_kernel(const float* __restrict__ field, const float* __restrict__ boxes,
+                const float* __restrict__ anchor_wh, const int* __restrict__ anchor_idx,
+                uint8_t* __restrict__ out, int A, int H, int W, int K, float thresh,
+                float inv_w, float inv_h) {
+  const int W4 = W >> 2;
+  const int q = blockIdx.x * kDetThreads + threadIdx.x;  // 4-pixel group
+  if (q >= H * W4) return;
+  const int y = q / W4, x = (q - y * W4) * 4;
+  float4 d;
+  float aw, ah;
+  const float* fx = det_setup(field, boxes, anchor_wh, anchor_idx, A, H, W, K, thresh,
+                              &d, &aw, &ah);
+  const size_t plane = (size_t)H * W;
+  uchar4 m = make_uchar4(0, 0, 0, 0);
+  if (fx != nullptr) {
+    const float4 f0 = *reinterpret_cast<const float4*>(fx + (size_t)y * W + x);
+    const float4 f1 = *reinterpret_cast<const float4*>(fx + plane + (size_t)y * W + x);
+    const float row = __fmul_rn((float)y, inv_h);
+    const float gy0 = sample(f1.x, ah, row), gy1 = sample(f1.y, ah, row);
+    const float gy2 = sample(f1.z, ah, row), gy3 = sample(f1.w, ah, row);
+    m.x = inside(sample(f0.x, aw, __fmul_rn((float)x, inv_w)), gy0, d);
+    m.y = inside(sample(f0.y, aw, __fmul_rn((float)(x + 1), inv_w)), gy1, d);
+    m.z = inside(sample(f0.z, aw, __fmul_rn((float)(x + 2), inv_w)), gy2, d);
+    m.w = inside(sample(f0.w, aw, __fmul_rn((float)(x + 3), inv_w)), gy3, d);
+  }
+  const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
+  reinterpret_cast<uchar4*>(out + bk * plane)[q] = m;
+}
+
+__global__ void __launch_bounds__(kDetThreads)
+bitpacked_kernel(const float* __restrict__ field, const float* __restrict__ boxes,
+                 const float* __restrict__ anchor_wh, const int* __restrict__ anchor_idx,
+                 uint8_t* __restrict__ out, int A, int H, int W, int K, float thresh,
+                 float inv_w, float inv_h) {
+  const int W8 = W >> 3;
+  const int t = blockIdx.x * kDetThreads + threadIdx.x;  // output byte
+  if (t >= H * W8) return;
+  const int y = t / W8, x8 = t - y * W8;
+  float4 d;
+  float aw, ah;
+  const float* fx = det_setup(field, boxes, anchor_wh, anchor_idx, A, H, W, K, thresh,
+                              &d, &aw, &ah);
+  unsigned byte = 0u;
+  if (fx != nullptr) {
+    const float* px = fx + (size_t)y * W + x8 * 8;
+    const float* py = px + (size_t)H * W;
+    const float4 x0 = *reinterpret_cast<const float4*>(px);
+    const float4 x1 = *reinterpret_cast<const float4*>(px + 4);
+    const float4 y0 = *reinterpret_cast<const float4*>(py);
+    const float4 y1 = *reinterpret_cast<const float4*>(py + 4);
+    const float fxs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const float fys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+    const float row = __fmul_rn((float)y, inv_h);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float col = __fmul_rn((float)(x8 * 8 + i), inv_w);
+      byte |= (unsigned)inside(sample(fxs[i], aw, col), sample(fys[i], ah, row), d)
+              << (7 - i);
+    }
+  }
+  const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
+  out[bk * H * W8 + t] = (uint8_t)byte;
+}
+
+}  // namespace
+
+extern "C" int omt_assemble_masks_packed(const float* field, const float* boxes,
+                                         const int* anchor_idx, const float* table,
+                                         const uint8_t* valid, uint8_t* out, int B, int A,
+                                         int H, int W, int K, float thresh, float inv_w,
+                                         float inv_h, int row0, void* stream) {
+  const int nw = (W + kTileW - 1) / kTileW;
+  const size_t smem = (size_t)kBandRows * (2 * W * sizeof(float)
+                                          + nw * (kTileW * sizeof(float2) + sizeof(float4)))
+                      + (size_t)K * (sizeof(float4) + sizeof(int));
+  if (A > kMaxAnchors || B > 65535 || W % 8 || smem > kMaxDynamicSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((H + kBandRows - 1) / kBandRows, B);
+  mask_kernel<<<grid, kMaskThreads, smem, (cudaStream_t)stream>>>(
+      field, boxes, anchor_idx, table, valid, out, A, H, W, K, thresh, inv_w, inv_h, row0);
+  return (int)cudaGetLastError();
+}
+
+// The per-detection kernels: grid (pixel runs, K, B).
+static cudaError_t per_detection_grid(int units, int B, int K, dim3* grid) {
+  if (K > 65535 || B > 65535) return cudaErrorInvalidValue;
+  *grid = dim3((units + kDetThreads - 1) / kDetThreads, K, B);
+  return cudaSuccess;
+}
+
+extern "C" int omt_assemble_masks(const float* field, const float* boxes,
+                                  const float* anchor_wh, const int* anchor_idx,
+                                  uint8_t* out, int B, int A, int H, int W, int K,
+                                  float thresh, float inv_w, float inv_h, void* stream) {
+  dim3 grid;
+  if (W % 8) return (int)cudaErrorInvalidValue;
+  cudaError_t err = per_detection_grid(H * (W / 4), B, K, &grid);
+  if (err != cudaSuccess) return (int)err;
+  unpacked_kernel<<<grid, kDetThreads, 0, (cudaStream_t)stream>>>(
+      field, boxes, anchor_wh, anchor_idx, out, A, H, W, K, thresh, inv_w, inv_h);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int omt_assemble_masks_bitpacked(const float* field, const float* boxes,
+                                            const float* anchor_wh, const int* anchor_idx,
+                                            uint8_t* out, int B, int A, int H, int W,
+                                            int K, float thresh, float inv_w, float inv_h,
+                                            void* stream) {
+  dim3 grid;
+  if (W % 8) return (int)cudaErrorInvalidValue;
+  cudaError_t err = per_detection_grid(H * (W / 8), B, K, &grid);
+  if (err != cudaSuccess) return (int)err;
+  bitpacked_kernel<<<grid, kDetThreads, 0, (cudaStream_t)stream>>>(
+      field, boxes, anchor_wh, anchor_idx, out, A, H, W, K, thresh, inv_w, inv_h);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* omt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -8,21 +8,33 @@ differs from x / W by one ulp in 31 of its columns, which a narrow test
 width would hide.  The CUDA kernels' parity with the plain versions is
 checked on the card by chip_smoke.py."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
 from orienmask_tpu.ops import pallas_masks
 from orienmask_tpu.ops.pallas_masks import assemble_masks_anchor_resident
 from orienmask_tpu_torch.ops.masks import (
+    ALL_IN,
+    ALL_OUT,
+    EMPTY,
+    TILE_W,
     assemble_masks,
     assemble_masks_bitpacked,
     assemble_masks_bitpacked_plain,
     assemble_masks_packed,
     assemble_masks_packed_plain,
     assemble_masks_plain,
+    classify_tiles,
+    tile_bounds,
+    tile_classes,
 )
 
 A, W, K = 9, 544, 20
@@ -97,6 +109,171 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert torch.equal(
         assemble_masks_packed(field, boxes, anchor_idx, table, 0.3),
         assemble_masks_packed_plain(field, boxes, anchor_idx, table, 0.3))
+
+
+VALID_PATTERNS = {
+    "all": lambda rng, b, k: np.ones((b, k), bool),
+    "none": lambda rng, b, k: np.zeros((b, k), bool),
+    "sparse": lambda rng, b, k: rng.uniform(size=(b, k)) < 0.3,
+}
+
+
+@pytest.mark.parametrize("pattern", list(VALID_PATTERNS))
+def test_plain_masks_with_valid_match_pallas_times_valid(pattern):
+    """Kernel 2's plain version with the validity row equals the JAX
+    kernel's masks multiplied by ``valid``, as JAX's postprocess does
+    (``orienmask_tpu/ops/postprocess.py:404``)."""
+    torch.set_num_threads(1)
+    h = 16
+    field, boxes, anchor_idx, table = _inputs(4, 2, h)
+    valid = VALID_PATTERNS[pattern](np.random.default_rng(5), 2, K)
+    if pattern == "sparse":
+        assert 0 < valid.sum() < valid.size
+    got = _port(field, boxes, anchor_idx, table, valid=torch.from_numpy(valid))
+    for b in range(2):
+        want = _jax(field[b], boxes[b], anchor_idx[b], table, block_h=h)
+        np.testing.assert_array_equal(got[b], want * valid[b][:, None, None].astype(np.uint8))
+    assert got.any() == (pattern != "none")
+
+
+def test_wrapper_passes_valid_on_cpu():
+    torch.set_num_threads(1)
+    field, boxes, anchor_idx, table = (torch.from_numpy(a) for a in _inputs(6, 2, 8))
+    valid = torch.from_numpy(np.random.default_rng(6).uniform(size=(2, K)) < 0.5)
+    got = assemble_masks_packed(field, boxes, anchor_idx, table, 0.3, valid=valid)
+    assert torch.equal(got, assemble_masks_packed_plain(field, boxes, anchor_idx, table, 0.3,
+                                                        valid=valid))
+    whole = assemble_masks_packed(field, boxes, anchor_idx, table, 0.3)
+    assert torch.equal(got, whole * valid[..., None, None])
+    assert got[valid].any() and not got[~valid].any()
+
+
+# --------------------------------------------- kernel 2's tile culling
+
+def _predicate(gx, gy, c, tb):
+    """The plain per-pixel predicate |g - c| < t*b in both axes."""
+    return ((gx - c[0]).abs() < tb[0]) & ((gy - c[1]).abs() < tb[1])
+
+
+SPECIAL = [0.0, -0.0, np.inf, -np.inf, np.nan, 0.5, -0.5, 1.0, 0.25, 1e-38, 3e38]
+f32s = st.one_of(st.sampled_from(SPECIAL),
+                 st.floats(-2, 2, width=32, allow_nan=False, allow_infinity=False))
+
+
+@st.composite
+def tile_and_detection(draw):
+    """A tile of 1-32 pixels (the rule holds for any set of pixels; the
+    kernel's tiles hold TILE_W) and a detection.  Each axis draws its pixels
+    inside [c - |tb|, c + |tb|], then replaces up to three of them with a
+    special value (+-inf, NaN, -0.0, ...), g exactly at c +- tb, or a value
+    near c; tb = 0 and negative tb are among the draws."""
+    n = draw(st.integers(1, 32))
+    finite = st.floats(-2, 2, width=32)
+    c = [draw(st.one_of(finite, f32s)) for _ in range(2)]
+    positive = st.floats(2.0 ** -10, 1, width=32)
+    tb = [draw(st.one_of(positive, positive, st.sampled_from([0.0, -0.0, -0.25, np.inf, np.nan]),
+                         st.floats(-1, 1, width=32))) for _ in range(2)]
+    axes = []
+    with np.errstate(invalid="ignore", over="ignore"):
+        for ci, ti in zip(np.float32(c), np.float32(tb)):
+            inside = st.floats(-1, 1, width=32).map(
+                lambda f, ci=ci, ti=ti: float(ci + np.float32(f) * abs(ti)))
+            near = st.floats(-1, 1, width=32).map(lambda f, ci=ci: float(ci + np.float32(f)))
+            vals = draw(st.lists(inside, min_size=n, max_size=n))
+            for _ in range(draw(st.integers(0, 3))):
+                vals[draw(st.integers(0, n - 1))] = draw(st.one_of(
+                    f32s, st.just(np.nan), st.sampled_from([float(ci + ti), float(ci - ti)]),
+                    near))
+            axes.append(vals)
+    return [torch.tensor(v, dtype=torch.float32) for v in (*axes, c, tb)]
+
+
+@settings(max_examples=400, deadline=None, derandomize=True, database=None)
+@given(tile_and_detection())
+def test_tile_rule_never_contradicts_the_predicate(case):
+    """No tile classed all out holds a set pixel of the plain predicate, and
+    no tile classed all in holds an unset one."""
+    gx, gy, c, tb = case
+    cls = int(classify_tiles(tile_bounds(gx, gy), c, tb))
+    inside = _predicate(gx, gy, c, tb)
+    if cls == ALL_OUT:
+        assert not inside.any()
+    elif cls == ALL_IN:
+        assert inside.all()
+
+
+def test_tile_rule_at_exact_ties():
+    """g with |g - c| == t*b exactly is outside (the compare is one-sided):
+    a tile whose bounds reach the edge is mixed or all out, never all in."""
+    c = torch.tensor([0.5, 0.5])
+    tb = torch.tensor([0.25, 0.25])
+    edge = torch.tensor([0.25, 0.5, 0.75])  # both ends exactly at c -+ tb
+    inner = torch.tensor([0.5, 0.5, 0.5])
+    assert int(classify_tiles(tile_bounds(edge, inner), c, tb)) == 2
+    assert int(classify_tiles(tile_bounds(inner, inner), c, tb)) == ALL_IN
+    assert int(classify_tiles(tile_bounds(torch.tensor([0.75, 0.8]), inner[:2]), c, tb)) \
+        == ALL_OUT
+    nan_tile = torch.tensor([0.5, float("nan")])
+    assert int(classify_tiles(tile_bounds(nan_tile, inner[:2]), c, tb)) == 2
+
+
+@pytest.mark.parametrize("w", [544, 40])
+def test_tile_classes_agree_with_the_plain_masks(w):
+    """Every tile classed all out is a zero word of kernel 2's plain output,
+    every tile classed all in a word of ones, every EMPTY detection zero:
+    at W = 544 and at a width that ends in a partial tile, with a box over
+    the whole image, NaN and inf in the field, and invalid detections."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(w)
+    b, h, k = 2, 12, 16
+    field = (rng.standard_normal((b, A, 2, h, w)) * 0.05).astype(np.float32)
+    field[0, 3, 0, 2, 5], field[1, 3, 1, 7, 9], field[0, 3, 0, 4, 30] = np.nan, np.inf, -np.inf
+    boxes = np.concatenate([rng.uniform(0.2, 0.8, (b, k, 2)),
+                            rng.uniform(0.05, 0.6, (b, k, 2))], -1).astype(np.float32)
+    boxes[:, 0] = [0.5, 0.5, 4.0, 4.0]  # covers the image: all-in tiles
+    boxes[:, -2] = 0.0
+    boxes[:, -1] = [0.5, 0.5, -1.0, 1.0]  # negative side: never inside
+    anchor_idx = rng.integers(0, A, (b, k)).astype(np.int32)
+    anchor_idx[:, :6] = 3
+    anchor_idx[0, 7] = A  # off the table
+    table = rng.uniform(0.05, 0.7, (A, 2)).astype(np.float32)
+    valid = rng.uniform(size=(b, k)) < 0.8
+    args = [torch.from_numpy(a) for a in (field, boxes, anchor_idx, table)]
+    kw = dict(valid=torch.from_numpy(valid))
+    cls = tile_classes(*args, 0.3, **kw)
+    nw = -(-w // TILE_W)
+    assert cls.shape == (b, k, h, nw)
+    packed = assemble_masks_packed_plain(*args, 0.3, **kw).numpy()
+    per = TILE_W // 8  # bytes a tile
+    words = np.pad(packed, [(0, 0)] * 3 + [(0, nw * per - w // 8)]).reshape(b, k, h, nw, per)
+    absent = (np.arange(nw * per) >= w // 8).reshape(nw, per)  # past the row's last byte
+    zero, ones = ((words == 0) | absent).all(-1), ((words == 255) | absent).all(-1)
+    cls = cls.numpy()
+    assert zero[cls == ALL_OUT].all() and zero[cls == EMPTY].all()
+    assert ones[cls == ALL_IN].all()
+    assert (cls == ALL_IN).any() and (cls == ALL_OUT).any() and (cls == 2).any()
+    assert (cls[~valid] == EMPTY).all() and (cls[0, 7] == EMPTY).all()
+    assert not (cls[:, -1] == ALL_IN).any()
+
+
+def test_tile_classes_agree_with_the_plain_masks_on_a_painted_field():
+    """The same agreement on chip_smoke.py's case (e) at 544²: the field that
+    OrientationPainter paints for 8 instances (what a model that fits its
+    targets predicts) and 100 detections drawn from them.  Most tiles there
+    are all out, and the instances' interiors give all-in tiles."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    torch.set_num_threads(1)
+    args, thresh = chip_smoke.painted_inputs(np.random.default_rng(8), 1, device="cpu")
+    assert args[0].shape == (1, A, 2, W, W) and torch.isfinite(args[0]).all()
+    cls = tile_classes(*args, thresh).numpy()
+    words = assemble_masks_packed_plain(*args, thresh).numpy().reshape(1, 100, W, -1, TILE_W // 8)
+    assert (words[cls == ALL_OUT] == 0).all()
+    assert (words[cls == ALL_IN] == 255).all()
+    n = {c: (cls == c).sum() for c in (ALL_OUT, ALL_IN, 2)}
+    assert n[ALL_OUT] > 0.9 * cls.size and n[ALL_IN] > 0 and n[2] > 0
 
 
 def test_pack_bits_matches_jax_maskops():

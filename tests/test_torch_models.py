@@ -231,3 +231,22 @@ def test_unfolded_forward_matches_jax(models, train, monkeypatch):
         assert gb.shape == wb.shape and go.shape == wo.shape
         np.testing.assert_allclose(gb.numpy(), np.asarray(wb), rtol=tol, atol=tol)
         np.testing.assert_allclose(go.numpy(), np.asarray(wo), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("key,value", [("freeze_backbone", 2), ("backbone_batchnorm_eval", True)])
+def test_build_model_refuses_unported_trainer_keys(key, value):
+    """The JAX package honours both keys (``trainer/builder.py::_freeze_mask``
+    freezes the backbone stages; DarkNet53 keeps its BatchNorms in eval
+    mode); the port does not implement them yet, so ``build_model`` refuses
+    a config that sets either instead of training every parameter."""
+    from orienmask_tpu_torch.models import build_model
+
+    model_cfg = dict(train_cfg["model"], **{key: value})
+    jm = JaxModel(num_anchors=3, num_classes=80, backbone_stage_blocks=SLIM,
+                  **{key: value})
+    if key == "freeze_backbone":
+        assert jm.frozen_param_paths()
+    with pytest.raises(ValueError, match=key):
+        build_model(model_cfg, backbone_stage_blocks=SLIM)
+    assert isinstance(build_model(dict(model_cfg, **{key: False}), backbone_stage_blocks=SLIM),
+                      OrienMaskYOLOFPNPlus)
