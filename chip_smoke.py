@@ -7,9 +7,10 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
 
 1. build the hand-written kernels of ``orienmask_tpu_torch/csrc`` with nvcc
    for sm_90a; print the card, the build time and ptxas's registers, shared
-   memory and spills for kernel 1;
+   memory and spills for kernels 1–4;
 2. kernel 1 (exact top-k) against its plain version on the card: values and
-   indices bit-identical on every case, each with its launch plan (C, chunk);
+   indices bit-identical on every case, each with its launch plan (C, chunk),
+   batch rows at every cluster size from 3 to 8 among them;
    rows its cluster cannot hold, and a cluster past 16 CTAs, refused;
 3. kernel 2 (packed mask assembly) against its plain version on the card:
    bytes bit-identical on every case;
@@ -20,7 +21,8 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    versions and must give identical outputs;
 5. timings at the main path's shapes: each kernel, its plain version and
    the library call (CUDA events between CUDA-graph replays, median of 50),
-   kernel 1 at cluster sizes 4, 8 and 16, and e2e FPS at 544² batch 1 (10
+   kernel 1 at cluster sizes 4, 8 and 16 and on batch rows (B = 22 and
+   40, clusters of 6 and 3), and e2e FPS at 544² batch 1 (10
    warm-ups, 5 windows of 200 frames, one synchronize per window, median
    window);
 6. kernel 5 (orientation painting) against its plain version on the card:
@@ -38,11 +40,15 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    steps, one synchronize per window, median), with peak memory;
 9. kernels 3 and 4 (per-detection mask assembly, unpacked and packed), the
    path of the JAX package's on-chip validation: at its shapes (544², A = 9,
-   K = 100, B = 2, per-detection anchor sizes off any table) and on edge
-   cases (K = 1, one anchor, coord_h != H, zero-sized and off-table
-   detections, W = 8), each bit-identical to its plain version, with launch
-   counts read around the run; on table sizes pack_bits(kernel 3) ==
-   kernel 4 == kernel 2;
+   K = 100, B = 2, per-detection anchor sizes off any table) and on 13 more
+   cases (K = 1, one anchor, coord_h != H, off-table detections, W = 8, a
+   painted field with sizes within 5% of the anchors' rows, half sizes of
+   zero, -0.0, negative, NaN, inf and subnormal, NaN and +-inf fields, ties
+   on pixel coordinates, K = 2,048 and 2,100, A = 40 and 10,000), each
+   bit-identical to its plain version with pack_bits(kernel 3) == kernel 4
+   and its tile classes printed, with launch counts read around the run; on
+   table sizes (random and painted fields) pack_bits(kernel 3) == kernel 4
+   == kernel 2;
 10. the eval path: the published test config (f32, batch 16, the exact
    selection) at full width with seeded random weights saved as a
    reference-layout .pth and read by ``load_checkpoint``; ``Tester`` runs
@@ -51,10 +57,12 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    the postprocess with the plain versions on the same heads must give
    identical device outputs and identical 12-stat bbox and segm vectors;
    one batch with spread head logits must match too;
-11. eval timings: kernels 3 and 4 and the exact selection (two levels of
-   kernel 1 at (16, 1,456,560)) beside their plain versions, the library
-   calls and their bounds; ``Tester``'s ms/image per stage, the loop's
-   images per second and the seconds of ``coco_eval``.
+11. eval timings: kernels 3 and 4 on phase 9's main case and on a painted
+   field, each beside its plain version, its bound recounted from the tile
+   classes, the unculled count and the per-detection grid's time; the exact
+   selection (two levels of kernel 1 at (16, 1,456,560)) beside its plain
+   version, the library call and its bound; ``Tester``'s ms/image per
+   stage, the loop's images per second and the seconds of ``coco_eval``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
@@ -197,7 +205,16 @@ def topk_cases(rng):
         ("last 10 bits, negative", -(np.uint32(0x3f000000) | rng.integers(
             0, 1024, (1, 32000), dtype=np.uint32)).view(np.float32), 1024),
     ]
+    # batch inference's detect-stage rows: clusters of 7, 6, 5, 4 and 3 CTAs
+    for b in BATCH_CLUSTERS:
+        cases.append((f"batch rows B={b} P=18207", normal(b, 18207), 400))
+    cases.append(("batch rows B=22, quantized ties", rng.choice(levels, (22, 18207)), 400))
     return cases
+
+
+# rows of 18,207 keys (the detect stage's) -> the cluster size launch_plan
+# gives them: the sizes batch inference reaches besides 4, 8 and 16
+BATCH_CLUSTERS = {17: 7, 22: 6, 26: 5, 27: 4, 40: 3}
 
 
 def check_topk():
@@ -217,6 +234,9 @@ def check_topk():
                                  f"'{name}' (rows {bad})")
         err = torch.where(v == pv, 0.0, (v - pv).abs()).max().item()
         max_err = max(max_err, err)
+        if name.startswith("batch rows") and launch_plan(*x.shape)[0] != BATCH_CLUSTERS[x.shape[0]]:
+            raise AssertionError(f"'{name}': launch plan {launch_plan(*x.shape)}, expected "
+                                 f"C = {BATCH_CLUSTERS[x.shape[0]]}")
         log(f"  exact_topk {name:34s} B={x.shape[0]} P={x.shape[1]} k={k} "
             f"(C, chunk) {launch_plan(*x.shape)}: identical")
     check_topk_limits()
@@ -297,15 +317,22 @@ def painted_inputs(rng, b, n=8, k=100, device="cuda"):
         table)], pc["orien_thresh"]
 
 
-def tile_counts(args, thresh, valid=None, **kw):
-    """Kernel 2's (detection, tile) classes for one call, counted with the
-    plain mirror of its rule: {all out, all in, mixed, empty}."""
+def class_counts(cls):
+    """{all out, all in, mixed, empty}: the counts of (detection, tile)
+    classes from a plain mirror of the culling rule."""
     from orienmask_tpu_torch.ops import masks
 
-    cls = masks.tile_classes(*args, thresh, valid=valid, **kw)
     return {name: int((cls == v).sum()) for name, v in (
         ("all_out", masks.ALL_OUT), ("all_in", masks.ALL_IN), ("mixed", masks.MIXED),
         ("empty", masks.EMPTY))}
+
+
+def tile_counts(args, thresh, valid=None, **kw):
+    """Kernel 2's (detection, tile) classes for one call, counted with the
+    plain mirror of its rule."""
+    from orienmask_tpu_torch.ops import masks
+
+    return class_counts(masks.tile_classes(*args, thresh, valid=valid, **kw))
 
 
 def mask_cases(rng):
@@ -700,6 +727,7 @@ def time_kernels(pipe, image):
                                           topk_by_cluster(x, k, (4, 8, 16)))
         for x, k in calls["topk"]))
     res["exact_topk"]["bound_ms"], res["exact_topk"]["bound_by"] = bound(n_bytes, n_ops)
+    res["exact_topk"]["batch_rows"] = time_batch_rows()
 
     field, boxes, anchor_idx, valid = calls["masks"][0]
     main_args = (field, boxes, anchor_idx, pp.norm_anchors)
@@ -722,6 +750,28 @@ def time_kernels(pipe, image):
     res["assemble_masks_packed"].update(ms=a["ms"], plain_ms=tp, library_ms=None,
                                         bound_ms=a["bound_ms"], bound_by=a["bound_by"])
     return res
+
+
+def time_batch_rows(k=400):
+    """Kernel 1 on batch inference's detect-stage rows (B = 22 and 40 rows
+    of 18,207 keys: clusters of 6 and 3 CTAs) beside its plain version and
+    torch.topk."""
+    from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain, launch_plan
+
+    rng = np.random.default_rng(SEED + 11)
+    out = {}
+    for b in (22, 40):
+        x = torch.from_numpy(rng.standard_normal((b, 18207)).astype(np.float32)).cuda()
+        t = time_ms(lambda: exact_topk(x, k))
+        tp = time_ms(lambda: exact_topk_plain(x, k))
+        tl = time_ms(lambda: torch.topk(x, k))
+        bound_ms, bound_by = bound(*topk_work(b, 18207, k))
+        log(f"  exact_topk batch rows B={b} P=18207 k={k}, (C, chunk) {launch_plan(b, 18207)}: "
+            f"kernel {t:.4f} ms, plain {tp:.4f} ms, torch.topk {tl:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        out[b] = dict(ms=t, plain_ms=tp, library_ms=tl, bound_ms=bound_ms, bound_by=bound_by,
+                      clusters=launch_plan(b, 18207)[0])
+    return out
 
 
 def mask_work(field, boxes, anchor_idx, valid=None):
@@ -1072,23 +1122,81 @@ def per_detection_inputs(rng, b, a=9, h=544, w=544, k=100):
     return [torch.from_numpy(t).cuda() for t in (field, boxes, anchor_wh, anchor_idx)]
 
 
+def painted_per_detection_inputs(rng, b, k=100, device="cuda"):
+    """``painted_inputs`` for kernels 3 and 4: each detection's anchor size
+    is its anchor's row of the table jittered by up to 5%.  Returns
+    ([field, boxes, anchor_wh, anchor_idx], orien_thresh, table)."""
+    (field, boxes, anchor_idx, table), thresh = painted_inputs(rng, b, k=k, device=device)
+    jitter = torch.from_numpy(1 + rng.uniform(-0.05, 0.05, (b, k, 2)).astype(np.float32))
+    anchor_wh = (table[anchor_idx.long()] * jitter.to(device)).contiguous()
+    return [field, boxes, anchor_wh, anchor_idx], thresh, table
+
+
 def per_detection_cases(rng):
-    """(name, (field, boxes, anchor_wh, anchor_idx), coord_h)."""
-    cases = [("B=2 A=9 K=100 544x544", per_detection_inputs(rng, 2), None)]
+    """(name, (field, boxes, anchor_wh, anchor_idx), orien_thresh, coord_h)."""
+    cases = [("B=2 A=9 K=100 544x544", per_detection_inputs(rng, 2), 0.3, None)]
     args = per_detection_inputs(rng, 1, k=1)
-    cases.append(("K=1", args, None))
+    cases.append(("K=1", args, 0.3, None))
     args = per_detection_inputs(rng, 2, k=40)
     args[3].fill_(4)
-    cases.append(("all detections on anchor 4", args, None))
+    cases.append(("all detections on anchor 4", args, 0.3, None))
     args = per_detection_inputs(rng, 1, h=136)
-    cases.append(("rows 0..135 with coord_h=544", args, 544))
+    cases.append(("rows 0..135 with coord_h=544", args, 0.3, 544))
     args = per_detection_inputs(rng, 2, h=16, w=8, k=7)
-    cases.append(("W=8 H=16", args, None))
+    cases.append(("W=8 H=16", args, 0.3, None))
     args = per_detection_inputs(rng, 1, k=6)
     args[1][:] = torch.tensor([0.5, 0.5, 2.0, 2.0])  # covers the image
     args[3][0, 1], args[3][0, 2] = 9, -1  # off the table: empty masks
-    cases.append(("anchors off the table", args, None))
+    cases.append(("anchors off the table", args, 0.3, None))
+    args, thresh, _ = painted_per_detection_inputs(rng, 2)
+    cases.append(("painted field, sizes within 5% of the rows", args, thresh, None))
+    # half sizes of zero, -0.0, negative, NaN, +-inf and subnormal, on
+    # either axis, with some boxes over the whole image
+    args = per_detection_inputs(rng, 1, k=64)
+    wh = args[2][0]
+    specials = torch.tensor([0.0, -0.0, -0.3, float("nan"), float("inf"), float("-inf"), 1e-40,
+                             -0.05], device="cuda")
+    wh[:8, 0], wh[8:16, 1], wh[16:24] = specials, specials, specials[:, None]
+    args[1][0, ::3] = torch.tensor([0.5, 0.5, 4.0, 4.0], device="cuda")
+    cases.append(("sizes zero, negative, NaN, inf, subnormal", args, 0.3, None))
+    # NaN and +-inf in the field of every anchor, under small and covering boxes
+    args = per_detection_inputs(rng, 1)
+    f = args[0].view(-1)
+    spots = torch.from_numpy(rng.choice(f.numel(), 30000, replace=False)).cuda()
+    f[spots] = torch.tensor([np.nan, np.inf, -np.inf], device=f.device).repeat(10000)
+    args[1][0, :20] = torch.tensor([0.5, 0.5, 4.0, 4.0], device="cuda")
+    cases.append(("NaN and +-inf in the field", args, 0.3, None))
+    # a zero field: g is the pixel's own coordinate; with t = 1 each box's
+    # edges sit exactly on column (row) coordinates: ties
+    h = w = 544
+    k = 100
+    cols = np.arange(w, dtype=np.float32) * np.float32(1.0 / w)
+    i, j = rng.integers(0, w, (2, 1, k))
+    boxes = np.stack([cols[i], cols[j], np.abs(cols[rng.integers(0, w, (1, k))] - cols[i]),
+                      np.abs(cols[rng.integers(0, w, (1, k))] - cols[j])], -1)
+    cases.append(("zero field, box edges on pixel coordinates (ties)", [
+        torch.from_numpy(np.ascontiguousarray(t)).cuda() for t in (
+            np.zeros((1, 3, 2, h, w), np.float32), boxes.astype(np.float32),
+            rng.uniform(0.02, 0.7, (1, k, 2)).astype(np.float32),
+            rng.integers(0, 3, (1, k)).astype(np.int32))], 1.0, None))
+    # past one block's detections (1,024): two and three chunks
+    for k in (2048, 2100):
+        cases.append((f"K={k}, rows 0..135 with coord_h=544",
+                      per_detection_inputs(rng, 1, h=136, k=k), 0.3, 544))
+    # more anchors than one warp's scan takes, and so many that the block's
+    # shared memory passes 48 KiB
+    cases.append(("A=40", per_detection_inputs(rng, 1, a=40, h=136), 0.3, None))
+    cases.append(("A=10,000 K=1,024 H=W=8", per_detection_inputs(rng, 1, a=10000, h=8, w=8,
+                                                                 k=1024), 0.3, None))
     return cases
+
+
+def per_detection_tiles(args, thresh, coord_h=None):
+    """Kernels 3 and 4's (detection, tile) classes for one call, counted
+    with the plain mirror of their rule."""
+    from orienmask_tpu_torch.ops import masks
+
+    return class_counts(masks.tile_classes_per_detection(*args, thresh, coord_h=coord_h))
 
 
 def run_validation_path(cases):
@@ -1100,11 +1208,31 @@ def run_validation_path(cases):
 
     torch.cuda.synchronize()
     kernels.reset_launches()
-    outs = [(assemble_masks(*args, 0.3, coord_h=coord_h),
-             assemble_masks_bitpacked(*args, 0.3, coord_h=coord_h))
-            for _, args, coord_h in cases]
+    outs = [(assemble_masks(*args, thresh, coord_h=coord_h),
+             assemble_masks_bitpacked(*args, thresh, coord_h=coord_h))
+            for _, args, thresh, coord_h in cases]
     torch.cuda.synchronize()
     return dict(kernels.launches), outs
+
+
+def check_table_sizes(name, field, boxes, anchor_idx, table, thresh):
+    """On sizes that are rows of a per-anchor table: pack_bits(kernel 3) ==
+    kernel 4 == kernel 2."""
+    from orienmask_tpu_torch.ops.maskops import pack_bits
+    from orienmask_tpu_torch.ops.masks import (
+        assemble_masks,
+        assemble_masks_bitpacked,
+        assemble_masks_packed,
+    )
+
+    anchor_wh = table[anchor_idx.long()].contiguous()
+    k3 = pack_bits(assemble_masks(field, boxes, anchor_wh, anchor_idx, thresh).bool())
+    k4 = assemble_masks_bitpacked(field, boxes, anchor_wh, anchor_idx, thresh)
+    k2 = assemble_masks_packed(field, boxes, anchor_idx, table, thresh)
+    if not (torch.equal(k3, k4) and torch.equal(k4, k2)):
+        raise AssertionError(f"table sizes, {name}: pack_bits(kernel 3), kernel 4 and kernel 2 "
+                             "differ")
+    log(f"  table sizes, {name}: pack_bits(kernel 3) == kernel 4 == kernel 2")
 
 
 def check_per_detection():
@@ -1112,10 +1240,7 @@ def check_per_detection():
     and against kernel 2 on table sizes."""
     from orienmask_tpu_torch.ops.maskops import pack_bits
     from orienmask_tpu_torch.ops.masks import (
-        assemble_masks,
-        assemble_masks_bitpacked,
         assemble_masks_bitpacked_plain,
-        assemble_masks_packed,
         assemble_masks_plain,
     )
 
@@ -1128,45 +1253,79 @@ def check_per_detection():
     if counts["assemble_masks"] != n or counts["assemble_masks_bitpacked"] != n \
             or sum(counts.values()) != 2 * n:
         raise AssertionError(f"expected {n} launches of each per-detection kernel, got {counts}")
-    for (name, args, coord_h), (got, got_packed) in zip(cases, outs):
-        want = assemble_masks_plain(*args, 0.3, coord_h=coord_h)
-        want_packed = assemble_masks_bitpacked_plain(*args, 0.3, coord_h=coord_h)
+    for (name, args, thresh, coord_h), (got, got_packed) in zip(cases, outs):
+        want = assemble_masks_plain(*args, thresh, coord_h=coord_h)
         if not torch.equal(got, want):
             raise AssertionError(f"assemble_masks '{name}': {(got != want).sum().item()} "
                                  "pixels differ from the plain version")
+        max_err = max(max_err, (got.int() - want.int()).abs().max().item())
+        del want  # K = 2,100's plain versions hold several GB: one at a time
+        want_packed = assemble_masks_bitpacked_plain(*args, thresh, coord_h=coord_h)
         if not torch.equal(got_packed, want_packed):
             raise AssertionError(f"assemble_masks_bitpacked '{name}': "
                                  f"{(got_packed != want_packed).sum().item()} bytes differ")
         if not torch.equal(pack_bits(got.bool()), got_packed):
             raise AssertionError(f"'{name}': pack_bits(kernel 3) != kernel 4")
-        max_err = max(max_err, (got.int() - want.int()).abs().max().item(),
-                      (got_packed.int() - want_packed.int()).abs().max().item())
-        log(f"  assemble_masks, assemble_masks_bitpacked {name:30s} field "
+        max_err = max(max_err, (got_packed.int() - want_packed.int()).abs().max().item())
+        log(f"  assemble_masks, assemble_masks_bitpacked {name:50s} field "
             f"{tuple(args[0].shape)} K={args[1].shape[1]}: identical "
-            f"({got.float().mean().item():.4f} of pixels set)")
+            f"({got.float().mean().item():.4f} of pixels set; tiles "
+            f"{per_detection_tiles(args, thresh, coord_h)})")
     got = outs[0][0]
     if not got[0, :95].any() or got[:, -5:].any():
         raise AssertionError("kernel 3: masks empty, or a zero-sized box has pixels")
-    off = outs[-1][0]
+    off = outs[5][0]
     if off[0, 1:3].any() or not off[0, 0].any():
         raise AssertionError("kernel 3: a detection off the table has pixels")
+    del outs
 
     # per-detection sizes that are rows of a per-anchor table: kernel 2 applies
     field, boxes, _, anchor_idx = per_detection_inputs(rng, 2)
     table = torch.from_numpy(rng.uniform(0.02, 0.5, (9, 2)).astype(np.float32)).cuda()
-    anchor_wh = table[anchor_idx.long()].contiguous()
-    k3 = pack_bits(assemble_masks(field, boxes, anchor_wh, anchor_idx, 0.3).bool())
-    k4 = assemble_masks_bitpacked(field, boxes, anchor_wh, anchor_idx, 0.3)
-    k2 = assemble_masks_packed(field, boxes, anchor_idx, table, 0.3)
-    if not (torch.equal(k3, k4) and torch.equal(k4, k2)):
-        raise AssertionError("on table sizes pack_bits(kernel 3), kernel 4 and kernel 2 differ")
-    log("  table sizes, B=2 K=100 544x544: pack_bits(kernel 3) == kernel 4 == kernel 2")
-    return counts, float(max_err), cases[0][1]
+    check_table_sizes("B=2 K=100 544x544", field, boxes, anchor_idx, table, 0.3)
+    (field, boxes, _, anchor_idx), thresh, table = painted_per_detection_inputs(rng, 2)
+    check_table_sizes("painted field, B=2 K=100", field, boxes, anchor_idx, table, thresh)
+    painted, thresh, _ = painted_per_detection_inputs(np.random.default_rng(SEED + 9), 2)
+    return counts, float(max_err), {"main": (cases[0][1], 0.3), "painted": (painted, thresh)}
 
 
-def time_per_detection(args):
-    """Kernels 3 and 4 per launch at the validation path's main shapes,
-    beside their plain versions and bounds."""
+# Kernels 3 and 4 before the tiled design, as a per-detection grid (one
+# block per image, detection and run of pixels; probe/designs/unculled.cu),
+# on the main case, as this script measured them then (NVIDIA H100 80GB
+# HBM3, 700.00 W).  probe/perdet.py times both designs in one call.
+GRID_US = {"assemble_masks": 107.5, "assemble_masks_bitpacked": 75.2}
+
+
+def per_detection_work(args, thresh, packed):
+    """(bytes, operations, unculled) that a call of kernel 3 or 4 needs:
+    the field planes of the anchors each image's detections use, the boxes,
+    sizes and indices read once and the masks written once; per used anchor
+    and pixel 4 operations for the field's tile bounds (2 min, 2 max); per
+    classed (tile, detection) pair 16 for its position bounds and class
+    (4 multiplies, 4 adds, 4 subtracts, 4 compares); per pixel of a mixed
+    pair 10 (2 multiplies, 2 adds, 2 subtracts, 2 compares, a select and an
+    or), counted by ``tile_classes_per_detection``.  ``unculled``: 10 per
+    detection and pixel, the predicate everywhere, as the TPU kernels and
+    the per-detection grid evaluate it."""
+    from orienmask_tpu_torch.ops.masks import TILE_W
+
+    field, boxes, anchor_wh, anchor_idx = args
+    b, a, _, h, w = field.shape
+    k = boxes.shape[1]
+    on = (anchor_idx >= 0) & (anchor_idx < a)
+    used = sum(len(set(row[m].tolist())) for row, m in zip(anchor_idx, on))
+    out_bytes = b * k * h * w // (8 if packed else 1)
+    n_bytes = used * 2 * h * w * 4 + b * k * (16 + 8 + 4) + out_bytes
+    tiles = per_detection_tiles(args, thresh)
+    classed = tiles["all_out"] + tiles["all_in"] + tiles["mixed"]
+    n_ops = 4 * used * h * w + 16 * classed + 10 * TILE_W * tiles["mixed"]
+    return n_bytes, n_ops, 10 * b * k * h * w, tiles
+
+
+def time_per_detection(cases):
+    """Kernels 3 and 4 per launch on the validation path's main case and on
+    the painted field, beside their plain versions, the recounted bounds,
+    the unculled counts and the per-detection grid's times."""
     from orienmask_tpu_torch.ops.masks import (
         assemble_masks,
         assemble_masks_bitpacked,
@@ -1174,28 +1333,29 @@ def time_per_detection(args):
         assemble_masks_plain,
     )
 
-    field, boxes, _, anchor_idx = args
-    b, a, _, h, w = field.shape
-    k = boxes.shape[1]
-    det_px = b * k * h * w
-    # each image reads the field planes of the anchors its detections use
-    used = sum(len(set(row.tolist())) for row in anchor_idx)
-    in_bytes = used * 2 * h * w * 4 + b * k * (16 + 8 + 4)
     res = {}
-    # per detection and pixel: 2 multiplies and 2 adds for the sample
-    # position, 2 subtracts and 2 compares; then a select and the byte's
-    # placement in its word (kernel 3) or a select and an or (kernel 4)
-    for name, fn, plain, out_bytes, ops in (
-            ("assemble_masks", assemble_masks, assemble_masks_plain, det_px, 10 * det_px),
+    for name, fn, plain, packed in (
+            ("assemble_masks", assemble_masks, assemble_masks_plain, False),
             ("assemble_masks_bitpacked", assemble_masks_bitpacked,
-             assemble_masks_bitpacked_plain, det_px // 8, 10 * det_px)):
-        t = time_ms(lambda: fn(*args, 0.3))
-        tp = time_ms(lambda: plain(*args, 0.3))
-        bound_ms, bound_by = bound(in_bytes + out_bytes, ops)
-        log(f"  {name} field {tuple(field.shape)} K={k}: kernel {t:.4f} ms, plain {tp:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {(in_bytes + out_bytes) / 1e6:.1f} MB, "
-            f"{ops / 1e6:.0f} M ops)")
-        res[name] = dict(ms=t, plain_ms=tp, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+             assemble_masks_bitpacked_plain, True)):
+        per_case = {}
+        for case, (args, thresh) in cases.items():
+            t = time_ms(lambda: fn(*args, thresh))
+            tp = time_ms(lambda: plain(*args, thresh))
+            n_bytes, n_ops, unculled, tiles = per_detection_work(args, thresh, packed)
+            bound_ms, bound_by = bound(n_bytes, n_ops)
+            log(f"  {name} ({case}) field {tuple(args[0].shape)} K={args[1].shape[1]}: kernel "
+                f"{t:.4f} ms, plain {tp:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e6:.1f} M ops; unculled "
+                f"{unculled / 1e6:.0f} M instructions, "
+                f"{unculled / SCALAR_OPS_PER_S * 1e3:.4f} ms); tiles {tiles}"
+                + (f"; per-detection grid {GRID_US[name] / 1e3:.4f} ms"
+                   if case == "main" else ""))
+            per_case[case] = dict(ms=t, plain_ms=tp, bound_ms=bound_ms, bound_by=bound_by,
+                                  tiles=tiles)
+        main = per_case["main"]
+        res[name] = dict(ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                         bound_by=main["bound_by"], library_ms=None, cases=per_case)
     return res
 
 
@@ -1457,9 +1617,11 @@ def main(argv=None):
     log(f"  card: {card_line()} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     log(f"  kernels built and loaded in {time.perf_counter() - t:.2f} s "
         f"(nvcc: {kernels.build_seconds if kernels.build_seconds is not None else 0:.2f} s)")
-    for line in kernels.build_log.get("topk", "topk.cu not rebuilt here").splitlines():
-        if "topk_kernel" in line or "registers" in line or "spill" in line or "rebuilt" in line:
-            log(f"  ptxas (topk.cu): {line.strip()}")
+    for lib in ("topk", "masks"):
+        for line in kernels.build_log.get(lib, f"{lib}.cu not rebuilt here").splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line \
+                    or "rebuilt" in line:
+                log(f"  ptxas ({lib}.cu): {line.strip()}")
 
     log("[2] kernel 1: exact_topk vs its plain version")
     topk_err = check_topk()
@@ -1503,7 +1665,7 @@ def main(argv=None):
     del tp
 
     log("[9] kernels 3 and 4: assemble_masks, assemble_masks_bitpacked vs plain versions")
-    per_det_counts, per_det_err, per_det_args = check_per_detection()
+    per_det_counts, per_det_err, per_det_cases = check_per_detection()
 
     with tempfile.TemporaryDirectory() as workdir:
         log("[10] eval path: orienmask_yolo_coco_544_anchor4_fpn_plus_test, Tester, B=16")
@@ -1514,7 +1676,7 @@ def main(argv=None):
         eval_counts = check_eval_path(ev)
 
         log("[11] eval timings")
-        times.update(time_per_detection(per_det_args))
+        times.update(time_per_detection(per_det_cases))
         selection, times["assemble_masks_packed"]["cases"]["d"], eval_times = time_eval(ev)
         del ev
 

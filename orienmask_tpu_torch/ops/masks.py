@@ -30,8 +30,9 @@ import torch
 from .. import kernels
 from .maskops import pack_bits
 
-MAX_DETS = 2048  # detections an image in shared memory (csrc/masks.cu)
-MAX_ANCHORS = 64  # per-anchor detection lists in shared memory (csrc/masks.cu)
+# kernel 2's limits (csrc/masks.cu); kernels 3 and 4 take any K and A
+MAX_DETS = 2048  # detections an image in shared memory
+MAX_ANCHORS = 64  # the used anchors are one 64-bit mask
 
 
 def _f32(v):
@@ -78,27 +79,50 @@ def assemble_masks_packed_plain(field, boxes, anchor_idx, anchor_table,
     return pack_bits(m)
 
 
-# Kernel 2's tile culling (csrc/masks.cu), op by op, for the tests and for
-# counting a call's tile classes: a tile is one row by TILE_W columns, two
-# bytes of the packed output.
+# The tile culling of kernels 2, 3 and 4 (csrc/masks.cu), op by op, for the
+# tests and for counting a call's tile classes: a tile is one row by TILE_W
+# columns, two bytes of the packed output.
 TILE_W = 16
 ALL_OUT, ALL_IN, MIXED, EMPTY = 0, 1, 2, -1
 
 
-def tile_bounds(gx, gy):
-    """The kernel's bounds of tiles of pixels (..., n): (gx min, gx max,
-    gy min, gy max), each (...).  A min or max ignores NaN (NaN only when
-    every value is), and gx max is NaN where any pixel's gx or gy is NaN,
-    which refuses all in."""
+def field_bounds(fx, fy):
+    """Bounds of tiles of values (..., n): ((x min, x max, y min, y max),
+    (any x NaN, any y NaN)), each (...).  A min or max ignores NaN (NaN
+    only when every value is)."""
     def reduce(g, fn, neutral):
         nan = torch.isnan(g)
         out = fn(torch.where(nan, neutral, g), dim=-1)
         return torch.where(nan.all(-1), torch.nan, out)
 
-    xhi = reduce(gx, torch.amax, -torch.inf)
-    xhi = torch.where(torch.isnan(gx).any(-1) | torch.isnan(gy).any(-1), torch.nan, xhi)
-    return (reduce(gx, torch.amin, torch.inf), xhi, reduce(gy, torch.amin, torch.inf),
-            reduce(gy, torch.amax, -torch.inf))
+    return ((reduce(fx, torch.amin, torch.inf), reduce(fx, torch.amax, -torch.inf),
+             reduce(fy, torch.amin, torch.inf), reduce(fy, torch.amax, -torch.inf)),
+            (torch.isnan(fx).any(-1), torch.isnan(fy).any(-1)))
+
+
+def tile_bounds(gx, gy):
+    """Kernel 2's bounds of tiles of sample positions (..., n): (gx min,
+    gx max, gy min, gy max), each (...), NaN ignored; gx max is NaN where
+    any pixel's gx or gy is NaN, which refuses all in."""
+    (xlo, xhi, ylo, yhi), (nan_x, nan_y) = field_bounds(gx, gy)
+    return xlo, torch.where(nan_x | nan_y, torch.nan, xhi), ylo, yhi
+
+
+def position_bounds(lims, nan, s, col0, col1, row):
+    """Kernels 3 and 4's bounds of a tile's sample positions for half
+    anchor sizes ``s`` = (sx, sy), from the bounds ``lims`` and NaN flags
+    ``nan`` of its field values (``field_bounds``) and its first and last
+    column coordinates and its row coordinate: (gx min, gx max, gy min,
+    gy max) with gx min = fl(fl(fx min * sx) + col0) and gx max =
+    fl(fl(fx max * sx) + col1), min and max swapped for s < 0 (round-to-
+    nearest multiply and add are monotone in each argument).  An axis's max
+    is NaN where its plane holds a NaN, which refuses that axis all in."""
+    fxlo, fxhi, fylo, fyhi = lims
+    nx, ny = s[0] < 0, s[1] < 0
+    xhi = torch.where(nx, fxlo, fxhi) * s[0] + col1
+    yhi = torch.where(ny, fylo, fyhi) * s[1] + row
+    return (torch.where(nx, fxhi, fxlo) * s[0] + col0, torch.where(nan[0], torch.nan, xhi),
+            torch.where(ny, fyhi, fylo) * s[1] + row, torch.where(nan[1], torch.nan, yhi))
 
 
 def classify_tiles(bounds, c, tb):
@@ -128,6 +152,35 @@ def tile_classes(field, boxes, anchor_idx, anchor_table, orien_thresh=0.3, coord
     keep, sel = _on_table(anchor_idx, a, valid)
     batch = torch.arange(b, device=field.device)[:, None]
     bounds = [t[batch, sel] for t in tile_bounds(gx, gy)]  # (B, K, H, nw)
+    c, tb = _per_detection_boxes(boxes, orien_thresh)
+    cls = classify_tiles(bounds, (c[..., 0, None, None], c[..., 1, None, None]),
+                         (tb[..., 0, None, None], tb[..., 1, None, None]))
+    return torch.where(keep[..., None, None], cls, EMPTY).to(torch.int8)
+
+
+def tile_classes_per_detection(field, boxes, anchor_wh, anchor_idx, orien_thresh=0.3,
+                               coord_h=None):
+    """Each (detection, tile)'s class in kernels 3 and 4 for these inputs:
+    (B, K, H, ceil(W/TILE_W)) int8, EMPTY for a detection whose anchor is
+    off the table.  The tile's field bounds come from its anchor's field,
+    the position bounds from the detection's own anchor size
+    (``position_bounds``), the class from ``classify_tiles``."""
+    b, a, _, h, w = field.shape
+    nw = -(-w // TILE_W)
+    # the last tile of a row: past W is no pixel, as the edge
+    f = torch.nn.functional.pad(field.reshape(b * a * 2, h, w), (0, nw * TILE_W - w),
+                                mode="replicate").reshape(b, a, 2, h, nw, TILE_W)
+    lims, nan = field_bounds(f[:, :, 0], f[:, :, 1])  # (B, A, H, nw)
+    keep, sel = _on_table(anchor_idx, a, None)
+    batch = torch.arange(b, device=field.device)[:, None]
+    lims, nan = [t[batch, sel] for t in lims], [t[batch, sel] for t in nan]  # (B, K, H, nw)
+    dev = field.device
+    cols = torch.arange(w, device=dev).float() * _f32(1.0 / w)
+    last = (torch.arange(nw, device=dev) * TILE_W + TILE_W - 1).clamp(max=w - 1)
+    row = (torch.arange(h, device=dev).float() * _f32(1.0 / (coord_h or h)))[:, None]
+    half = anchor_wh * 0.5
+    bounds = position_bounds(lims, nan, (half[..., 0, None, None], half[..., 1, None, None]),
+                             cols[::TILE_W], cols[last], row)
     c, tb = _per_detection_boxes(boxes, orien_thresh)
     cls = classify_tiles(bounds, (c[..., 0, None, None], c[..., 1, None, None]),
                          (tb[..., 0, None, None], tb[..., 1, None, None]))

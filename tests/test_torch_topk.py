@@ -120,6 +120,12 @@ PLAN_CASES = [
     ("one_past_max_p", 1, MAX_P + 1, (None, 21846)),
     ("many_short_rows", 1000, 1000, (1, None)),
     ("many_long_rows", 200, 3 * KEYS_PER_CTA, (3, None)),
+    # batch inference's detect-stage rows: the cluster sizes between 3 and 8
+    ("batch_17_rows", 17, 18207, (7, None)),
+    ("batch_22_rows", 22, 18207, (6, None)),
+    ("batch_26_rows", 26, 18207, (5, None)),
+    ("batch_27_rows", 27, 18207, (4, None)),
+    ("batch_40_rows", 40, 18207, (3, None)),
 ]
 
 
