@@ -62,9 +62,38 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    classes, the unculled count and the per-detection grid's time; the exact
    selection (two levels of kernel 1 at (16, 1,456,560)) beside its plain
    version, the library call and its bound; ``Tester``'s ms/image per
-   stage, the loop's images per second and the seconds of ``coco_eval``.
+   stage, the loop's images per second and the seconds of ``coco_eval``;
+12. the infer CLI at 544²: ``orienmask_tpu_torch.infer.main`` in this
+   process with ``--random-weights -d <8 seeded 480x640 PNGs> -j <images
+   json> -o <dir>``, for ``orienmask_yolo_coco_544_anchor4_fpn_plus_infer``
+   and for the base model's ``orienmask_yolo_coco_544_anchor4_infer``; each
+   image's device outputs identical to the plain-version postprocess on its
+   heads, the dumped bbox and segm jsons one entry per valid detection,
+   launch counts read around each run (kernel 1 twice, kernel 2 once an
+   image);
+13. the 736² stream: ``--video <24 seeded 720x1280 PNG frames>`` with
+   ``orienmask_yolo_coco_736_anchor4_fpn_plus_infer`` at depth 2, each
+   frame's device outputs and streamed host lists identical to the plain
+   versions'; kernel 1 at (1, 33,327) and (1, 32,000) and kernel 2 at 736²
+   bit for bit against their plain versions, each timed beside its plain
+   version, its bound and (kernel 1) torch.topk; streamed FPS at depth 1
+   and 2 (frames decoded in host memory, 10 warm-ups, 5 windows of 200
+   frames, the median window, with the host's ms a frame inside ``submit``
+   and ``retrieve``) and ``run_device`` alone on a frame staged on the card;
+14. batched inference at 544², B = 8 and 16: launch counts of one call at
+   each, outputs identical to the plain-version postprocess on the same
+   heads, kernel 1's launch plans, kernels 1 and 2 at the batch shapes as in
+   phase 13, images/s with ``tools/bench_batched.py``'s method (the batch
+   staged on the card, 6 warm-ups, max(1, 200 // B) calls a window, 5
+   windows, one synchronize a window, the median).
 
-The line before the last is the kernels' JSON record; the last line is
+The last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
+``train_544_b8``, ``eval_544_b16``); ``{"infer_544_b8": ...,
+"infer_544_b16": ..., "stream_736": {"depth1": ..., "depth2": ...,
+"staged_fps": ...}}``; the card's name and power limit; the kernels' JSON
+record: kernels 1 and 2 carry per-path launch counts (``paths``: infer,
+eval, cli, stream_736, batch) and their times at the 736² and batch shapes
+(``shapes_736``, ``batch``); the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
 torch.profiler tables of 20 frames and of 3 train steps in each dtype to
 DIR.
@@ -522,13 +551,15 @@ def check_paint(trainer):
 
 # -------------------------------------------------------------- main path
 
-def build_pipeline():
-    from orienmask_tpu_torch.config import orienmask_yolo_coco_544_anchor4_fpn_plus_infer as cfg
+def build_pipeline(name="orienmask_yolo_coco_544_anchor4_fpn_plus_infer"):
+    """The named infer config's pipeline on the card, seeded random weights."""
+    import orienmask_tpu_torch.config as configs
     from orienmask_tpu_torch.data import FastCOCOTransform
     from orienmask_tpu_torch.models import build_model, init_random
     from orienmask_tpu_torch.ops import OrienMaskYOLOPostProcess
     from orienmask_tpu_torch.pipeline import InferencePipeline
 
+    cfg = getattr(configs, name)
     model = init_random(build_model(cfg["model"]), SEED)
     transform = FastCOCOTransform(cfg["transform"]["pipeline"])
     pp_kw = {k: v for k, v in cfg["postprocess"].items() if k != "type"}
@@ -555,9 +586,9 @@ def plain_postprocess(pp_kw):
     return Plain(**pp_kw, pack_masks=True, device="cuda")
 
 
-def check_outputs(out, b):
+def check_outputs(out, b, size=544):
     want = {"bbox": ((b, 100, 5), torch.float32), "cls": ((b, 100), torch.int32),
-            "mask": ((b, 100, 544, 68), torch.uint8), "valid": ((b, 100), torch.bool)}
+            "mask": ((b, 100, size, size // 8), torch.uint8), "valid": ((b, 100), torch.bool)}
     for key, (shape, dtype) in want.items():
         t = out[key]
         if tuple(t.shape) != shape or t.dtype != dtype or t.device.type != "cuda":
@@ -704,29 +735,21 @@ def topk_by_cluster(x, k, sizes):
 
 def time_kernels(pipe, image):
     from orienmask_tpu_torch.ops.masks import assemble_masks_packed_plain
-    from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain, launch_plan
 
     pp = pipe.postprocess
     calls = main_path_inputs(pipe, image)
 
     res = {"exact_topk": {}, "assemble_masks_packed": {}}
-    ms = plain = lib = n_bytes = n_ops = 0.0
-    for x, k in calls["topk"]:
-        b, p = x.shape
-        t = time_ms(lambda: exact_topk(x, k))
-        tp = time_ms(lambda: exact_topk_plain(x, k))
-        tl = time_ms(lambda: torch.topk(x, k))
-        log(f"  exact_topk B={b} P={p} k={k}, (C, chunk) {launch_plan(b, p)}: kernel {t:.4f} ms, "
-            f"plain {tp:.4f} ms, torch.topk {tl:.4f} ms")
-        ms, plain, lib = ms + t, plain + tp, lib + tl
-        b_, o_ = topk_work(b, p, k)
-        n_bytes, n_ops = n_bytes + b_, n_ops + o_
-    res["exact_topk"].update(ms=ms, plain_ms=plain, library_ms=lib)
+    rows = [check_topk_call("main path", x, k) for x, k in calls["topk"]]
+    res["exact_topk"].update({key: sum(r[key] for r in rows)
+                              for key in ("ms", "plain_ms", "library_ms")})
+    works = [topk_work(*x.shape, k) for x, k in calls["topk"]]
+    res["exact_topk"]["bound_ms"], res["exact_topk"]["bound_by"] = bound(
+        sum(w[0] for w in works), sum(w[1] for w in works))
     log("  exact_topk by cluster size C, the same rows: " + "; ".join(
         f"P={x.shape[1]}: " + ", ".join(f"C={c} {ms:.4f} ms" for c, ms in
                                           topk_by_cluster(x, k, (4, 8, 16)))
         for x, k in calls["topk"]))
-    res["exact_topk"]["bound_ms"], res["exact_topk"]["bound_by"] = bound(n_bytes, n_ops)
     res["exact_topk"]["batch_rows"] = time_batch_rows()
 
     field, boxes, anchor_idx, valid = calls["masks"][0]
@@ -756,22 +779,9 @@ def time_batch_rows(k=400):
     """Kernel 1 on batch inference's detect-stage rows (B = 22 and 40 rows
     of 18,207 keys: clusters of 6 and 3 CTAs) beside its plain version and
     torch.topk."""
-    from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain, launch_plan
-
     rng = np.random.default_rng(SEED + 11)
-    out = {}
-    for b in (22, 40):
-        x = torch.from_numpy(rng.standard_normal((b, 18207)).astype(np.float32)).cuda()
-        t = time_ms(lambda: exact_topk(x, k))
-        tp = time_ms(lambda: exact_topk_plain(x, k))
-        tl = time_ms(lambda: torch.topk(x, k))
-        bound_ms, bound_by = bound(*topk_work(b, 18207, k))
-        log(f"  exact_topk batch rows B={b} P=18207 k={k}, (C, chunk) {launch_plan(b, 18207)}: "
-            f"kernel {t:.4f} ms, plain {tp:.4f} ms, torch.topk {tl:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
-        out[b] = dict(ms=t, plain_ms=tp, library_ms=tl, bound_ms=bound_ms, bound_by=bound_by,
-                      clusters=launch_plan(b, 18207)[0])
-    return out
+    return {b: check_topk_call("batch rows", torch.from_numpy(
+        rng.standard_normal((b, 18207)).astype(np.float32)).cuda(), k) for b in (22, 40)}
 
 
 def mask_work(field, boxes, anchor_idx, valid=None):
@@ -1594,6 +1604,316 @@ def time_eval(ev):
                        "passes": passes, "coco_eval_s": med["coco_eval"]}
 
 
+# ---------------------------------------------------- CLI, stream, batches
+
+CLI_IMAGES = 8
+STREAM_FRAMES = 24
+BATCHES = (8, 16)
+
+
+def record_run_batch(fn):
+    """Run ``fn()`` with ``OrienMaskYOLOPostProcess._run_batch`` and
+    ``StreamingPipeline.retrieve`` wrapped to keep each call's head tensors
+    and device outputs, and each retrieved host list; returns (fn's result,
+    [(postprocess, heads, outputs)], [host lists], launch counts of the
+    run alone)."""
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.ops import OrienMaskYOLOPostProcess
+    from orienmask_tpu_torch.stream import StreamingPipeline
+
+    run_batch, retrieve = OrienMaskYOLOPostProcess._run_batch, StreamingPipeline.retrieve
+    calls, retrieved = [], []
+
+    def recording_run_batch(pp, predict):
+        out = run_batch(pp, predict)
+        calls.append((pp, tuple((b.clone(), o.clone()) for b, o in predict),
+                      {k: v.clone() for k, v in out.items()}))
+        return out
+
+    def recording_retrieve(stream):
+        retrieved.append(retrieve(stream))
+        return retrieved[-1]
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with mock.patch.object(OrienMaskYOLOPostProcess, "_run_batch", recording_run_batch), \
+            mock.patch.object(StreamingPipeline, "retrieve", recording_retrieve):
+        result = fn()
+    torch.cuda.synchronize()
+    return result, calls, retrieved, dict(kernels.launches)
+
+
+def run_cli(argv):
+    """``infer.main(argv)`` in this process, its report captured; (report
+    lines, recorded calls, retrieved host lists, launch counts)."""
+    from orienmask_tpu_torch import infer
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc, calls, retrieved, counts = record_run_batch(lambda: infer.main(argv))
+    if rc != 0:
+        raise AssertionError(f"infer.main({argv}) returned {rc}")
+    return text.getvalue().splitlines(), calls, retrieved, counts
+
+
+def check_against_plain(name, calls, pp_kw, size):
+    """Each recorded call's outputs against the plain-version postprocess of
+    ``pp_kw`` on the same heads: identical device outputs.  Returns the
+    plain postprocess and its outputs."""
+    plain = plain_postprocess(pp_kw)
+    wants = []
+    for _, heads, got in calls:
+        want = plain._run_batch(heads)
+        torch.cuda.synchronize()
+        check_outputs(got, heads[0][0].shape[0], size)
+        for key in got:
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"{name}: '{key}' differs from the plain-version "
+                                     "postprocess on the same heads")
+        wants.append(want)
+    return plain, wants
+
+
+def write_cli_inputs(workdir):
+    """Eight seeded 480x640 PNGs and their COCO images json."""
+    from orienmask_tpu_torch.data.image_io import write_png
+
+    images = workdir / "images"
+    images.mkdir()
+    rng = np.random.default_rng(SEED + 12)
+    entries = []
+    for i in range(CLI_IMAGES):
+        write_png(images / f"{i:012d}.png", rng.integers(0, 256, (480, 640, 3), np.uint8))
+        entries.append({"file_name": f"{i:012d}.png", "height": 480, "width": 640, "id": i + 1})
+    (workdir / "images.json").write_text(json.dumps({"images": entries}))
+    return images, workdir / "images.json"
+
+
+def check_cli(workdir):
+    """Phase 12: the port's infer CLI over eight PNGs with -j -o, for the
+    published model and the base model."""
+    import orienmask_tpu_torch.config as configs
+
+    images, images_json = write_cli_inputs(workdir)
+    counts = {}
+    for name in ("orienmask_yolo_coco_544_anchor4_fpn_plus_infer",
+                 "orienmask_yolo_coco_544_anchor4_infer"):
+        out = workdir / name
+        t = time.perf_counter()
+        lines, calls, _, launched = run_cli(["-c", name, "--random-weights", "-d", str(images),
+                                             "-j", str(images_json), "-o", str(out)])
+        log(f"  {name}: {len(calls)} images in {time.perf_counter() - t:.2f} s (model build "
+            f"included), launches: {launched}")
+        log("  report: " + "; ".join(lines))
+        if len(calls) != CLI_IMAGES or launched["exact_topk"] != 2 * CLI_IMAGES \
+                or launched["assemble_masks_packed"] != CLI_IMAGES:
+            raise AssertionError(f"{name}: expected {CLI_IMAGES} images, kernel 1 twice and "
+                                 f"kernel 2 once an image; got {len(calls)}, {launched}")
+        check_against_plain(name, calls, _kw(getattr(configs, name)["postprocess"]), 544)
+        n_valid = sum(int(c[2]["valid"].sum()) for c in calls)
+        for kind in ("bbox", "segm"):
+            dumped = json.loads((out / f"{kind}_prediction.json").read_text())
+            if len(dumped) != n_valid or {d["image_id"] for d in dumped} != \
+                    set(range(1, CLI_IMAGES + 1)):
+                raise AssertionError(f"{name}: {kind} json holds {len(dumped)} entries for "
+                                     f"{n_valid} valid detections")
+        log(f"  {name}: every image identical to the plain-version postprocess on its heads; "
+            f"bbox and segm json hold {n_valid} entries each")
+        for key, value in launched.items():
+            counts[key] = counts.get(key, 0) + value
+    return counts
+
+
+def stream_window(stream, frames, n):
+    """Submit ``n`` frames (cycling ``frames``), retrieving as the queue
+    fills, then drain; (seconds, host seconds in submit, in retrieve)."""
+    t_submit = t_retrieve = 0.0
+    start = time.perf_counter()
+    for i in range(n):
+        t = time.perf_counter()
+        stream.submit(frames[i % len(frames)])
+        t_submit += time.perf_counter() - t
+        if stream.ready():
+            t = time.perf_counter()
+            stream.retrieve()
+            t_retrieve += time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in stream.drain():
+        pass
+    t_retrieve += time.perf_counter() - t
+    return time.perf_counter() - start, t_submit, t_retrieve
+
+
+def stream_fps(pipe, frames, depth):
+    """Streamed FPS at ``depth``: frames decoded in host memory, 10
+    warm-ups, 5 windows of 200 frames, the median window; with the host's
+    ms a frame inside ``submit`` and ``retrieve`` in that window."""
+    from orienmask_tpu_torch.stream import StreamingPipeline
+
+    stream = StreamingPipeline(pipe, depth=depth)
+    stream_window(stream, frames, 10)
+    windows = [stream_window(stream, frames, 200) for _ in range(5)]
+    rates = [200 / w[0] for w in windows]
+    mid = windows[int(np.argsort(rates)[2])]
+    return dict(fps=float(np.median(rates)), windows=rates,
+                submit_ms=mid[1] / 200 * 1e3, retrieve_ms=mid[2] / 200 * 1e3)
+
+
+def check_topk_call(name, x, k):
+    """Kernel 1 on rows one run handed it: bit for bit against its plain
+    version, timed beside it, its bound and torch.topk."""
+    from orienmask_tpu_torch.ops.topk import exact_topk, exact_topk_plain, launch_plan
+
+    b, p = x.shape
+    v, i = exact_topk(x, k)
+    pv, pi = exact_topk_plain(x, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)):
+        raise AssertionError(f"{name}: exact_topk differs from its plain version at ({b}, {p})")
+    t = time_ms(lambda: exact_topk(x, k))
+    tp = time_ms(lambda: exact_topk_plain(x, k))
+    tl = time_ms(lambda: torch.topk(x, k))
+    bound_ms, bound_by = bound(*topk_work(b, p, k))
+    log(f"  {name} exact_topk B={b} P={p} k={k}, (C, chunk) {launch_plan(b, p)}: identical; "
+        f"kernel {t:.4f} ms, plain {tp:.4f} ms, torch.topk {tl:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(shape=[b, p], k=k, plan=list(launch_plan(b, p)), ms=t, plain_ms=tp,
+                library_ms=tl, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_mask_call(name, args, thresh, valid):
+    """Kernel 2 on the arguments one run handed it: bit for bit against its
+    plain version, timed beside it and its bound."""
+    from orienmask_tpu_torch.ops.masks import assemble_masks_packed, assemble_masks_packed_plain
+
+    got = assemble_masks_packed(*args, thresh, valid=valid)
+    want = assemble_masks_packed_plain(*args, thresh, valid=valid)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: assemble_masks_packed differs from its plain version")
+    res = time_mask_case(f"{name} (identical)", args, thresh, valid)
+    res["plain_ms"] = time_ms(lambda: assemble_masks_packed_plain(*args, thresh, valid=valid))
+    log(f"  {name} assemble_masks_packed: plain {res['plain_ms']:.4f} ms")
+    return res
+
+
+def check_kernels_at(name, pipe, image):
+    """Kernels 1 and 2 on what one call of ``pipe`` on ``image`` hands them."""
+    pp = pipe.postprocess
+    calls = main_path_inputs(pipe, image)
+    field, boxes, anchor_idx, valid = calls["masks"][0]
+    return {"exact_topk": [check_topk_call(name, x, k) for x, k in calls["topk"]],
+            "assemble_masks_packed": check_mask_call(
+                name, (field, boxes, anchor_idx, pp.norm_anchors), pp.orien_thresh, valid)}
+
+
+def check_stream(workdir):
+    """Phase 13: the CLI's --video over 24 seeded 720x1280 PNG frames with
+    the 736² config at depth 2, kernels 1 and 2 at 736², streamed FPS."""
+    import orienmask_tpu_torch.config as configs
+    from orienmask_tpu_torch.data.image_io import read_image, write_png
+
+    name = "orienmask_yolo_coco_736_anchor4_fpn_plus_infer"
+    frames_dir = workdir / "frames"
+    frames_dir.mkdir()
+    rng = np.random.default_rng(SEED + 13)
+    for i in range(STREAM_FRAMES):
+        write_png(frames_dir / f"frame_{i:04d}.png",
+                  rng.integers(0, 256, (720, 1280, 3), np.uint8))
+    t = time.perf_counter()
+    lines, calls, retrieved, counts = run_cli(["-c", name, "--random-weights", "--video",
+                                               str(frames_dir)])
+    log(f"  --video: {len(calls)} frames in {time.perf_counter() - t:.2f} s (model build "
+        f"included), launches: {counts}; report: " + "; ".join(lines))
+    if len(calls) != STREAM_FRAMES or len(retrieved) != STREAM_FRAMES \
+            or counts["exact_topk"] != 2 * STREAM_FRAMES \
+            or counts["assemble_masks_packed"] != STREAM_FRAMES:
+        raise AssertionError(f"--video: expected {STREAM_FRAMES} frames, kernel 1 twice and "
+                             f"kernel 2 once a frame; got {len(calls)}, {counts}")
+    plain, wants = check_against_plain("--video", calls,
+                                       _kw(getattr(configs, name)["postprocess"]), 736)
+    for want, host in zip(wants, retrieved):
+        for got_r, want_r in zip(host, plain.to_host_list(want)):
+            for key in want_r:
+                if not np.array_equal(got_r[key], want_r[key]):
+                    raise AssertionError(f"--video: the streamed host '{key}' differs from "
+                                         "the plain version's")
+    log(f"  --video: every streamed frame identical to the plain-version postprocess on its "
+        f"heads, device outputs and host lists ({sum(len(h[0]['bbox']) for h in retrieved)} "
+        "detections)")
+
+    pipe, _ = build_pipeline(name)
+    frames = [read_image(p)[None] for p in sorted(frames_dir.iterdir())]
+    times = check_kernels_at("736x736", pipe, torch.from_numpy(frames[0]).cuda())
+    fps = {f"depth{d}": stream_fps(pipe, frames, d) for d in (1, 2)}
+    staged, _ = e2e_fps(pipe, torch.from_numpy(frames[0]).cuda())
+    for key, r in fps.items():
+        log(f"  streamed 736x736 {key}: {r['fps']:.2f} FPS (median; windows "
+            f"{', '.join(f'{w:.2f}' for w in r['windows'])}); host in submit "
+            f"{r['submit_ms']:.3f} ms, in retrieve {r['retrieve_ms']:.3f} ms a frame")
+    log(f"  736x736 bs1 with the frame staged on the card (bench.py's method): {staged:.2f} FPS")
+    fps["staged_fps"] = staged
+    return counts, times, fps
+
+
+def check_batches():
+    """Phase 14: batched inference at 544², B = 8 and 16: outputs against
+    the plain-version postprocess, launch counts, kernels at the batch
+    shapes, images/s with tools/bench_batched.py's method."""
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.ops.topk import launch_plan
+
+    pipe, pp_kw = build_pipeline()
+    plain = plain_postprocess(pp_kw)
+    images = torch.from_numpy(np.random.default_rng(SEED + 14).integers(
+        0, 256, (max(BATCHES), 480, 640, 3), dtype=np.uint8)).cuda()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = {b: pipe.run_device(images[:b]) for b in BATCHES}
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    log(f"  one call at each of B = {BATCHES}, launches: {counts}")
+    if counts["exact_topk"] != 2 * len(BATCHES) \
+            or counts["assemble_masks_packed"] != len(BATCHES):
+        raise AssertionError(f"expected kernel 1 twice and kernel 2 once a call, got {counts}")
+    times, rates = {}, {}
+    for b in BATCHES:
+        check_outputs(outs[b], b)
+        heads = pipe.heads(images[:b])
+        got, want = pipe.postprocess.apply_device(heads), plain.apply_device(heads)
+        torch.cuda.synchronize()
+        for key in got:
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"B={b}: '{key}' differs from the plain-version postprocess")
+        log(f"  B={b}: kernels == plain versions on the same heads ({int(got['valid'].sum())} "
+            f"valid detections); kernel 1's plans (C, chunk): P=18207 {launch_plan(b, 18207)}, "
+            f"P=32000 {launch_plan(b, 32000)}")
+        times[b] = check_kernels_at(f"B={b}", pipe, images[:b])
+        rates[b] = batched_rate(pipe, images[:b])
+        log(f"  B={b}: {rates[b]['images_per_s']:.2f} images/s (median; windows "
+            f"{', '.join(f'{w:.2f}' for w in rates[b]['windows'])})")
+    return counts, times, rates
+
+
+def batched_rate(pipe, image):
+    """tools/bench_batched.py's method: the batch staged on the card, 6
+    warm-ups, max(1, 200 // B) calls a window with outputs left on the
+    card, one synchronize a window, 5 windows; the median."""
+    b = image.shape[0]
+    for _ in range(6):
+        pipe.run_device(image)
+    torch.cuda.synchronize()
+    n = max(1, 200 // b)
+    rates = []
+    for _ in range(5):
+        start = time.perf_counter()
+        for _ in range(n):
+            pipe.run_device(image)
+        torch.cuda.synchronize()
+        rates.append(n * b / (time.perf_counter() - start))
+    return dict(images_per_s=float(np.median(rates)), windows=rates, calls_per_window=n)
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -1680,12 +2000,24 @@ def main(argv=None):
         selection, times["assemble_masks_packed"]["cases"]["d"], eval_times = time_eval(ev)
         del ev
 
+        log("[12] the infer CLI at 544x544: -d -j -o, published and base model")
+        cli_counts = check_cli(Path(workdir))
+        log("[13] the 736x736 stream: --video, kernels 1 and 2 at 736x736, streamed FPS")
+        stream_counts, shapes_736, stream_fps = check_stream(Path(workdir))
+    log("[14] batched inference at 544x544, B = 8 and 16")
+    batch_counts, batch_shapes, batch_rates = check_batches()
+
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
     # path's exact selection beside them (kernel 1), the validation path's
-    # (kernels 3, 4) and the train path's (kernel 5)
-    paths = {name: {"infer": counts[name], "eval": eval_counts[name]}
+    # (kernels 3, 4) and the train path's (kernel 5); kernels 1 and 2 also
+    # at the 736² stream's and the batches' shapes
+    paths = {name: {"infer": counts[name], "eval": eval_counts[name], "cli": cli_counts[name],
+                    "stream_736": stream_counts[name], "batch": batch_counts[name]}
              for name in ("exact_topk", "assemble_masks_packed")}
+    for name in paths:
+        times[name]["shapes_736"] = shapes_736[name]
+        times[name]["batch"] = {b: batch_shapes[b][name] for b in BATCHES}
     kernels_line = {"kernels": [
         dict(name="exact_topk", route="cuda", source="orienmask_tpu_torch/csrc/topk.cu",
              replaces="orienmask_tpu/ops/pallas_topk.py:157",
@@ -1714,6 +2046,8 @@ def main(argv=None):
     log(f"  total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train,
                     "eval_544_b16": eval_times}))
+    log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
+                    "stream_736": stream_fps}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

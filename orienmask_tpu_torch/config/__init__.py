@@ -1,5 +1,5 @@
-"""The port's own copy of what the 544² inference, train and test configs
-need.
+"""The port's own copy of the named inference (544² and 736²), train and
+test configs.
 
 Same dicts and names as ``orienmask_tpu.config`` (``config/base.py``,
 ``config/config_infer.py``, ``config/config_train.py`` and
@@ -48,8 +48,7 @@ def construct_config(config, update=None, pop=None):
     return out
 
 
-# The base model: the type is not ported yet (build_model refuses it); the
-# configs below name it.
+# The base model (models/orienmask_yolo.py).
 orienmask_yolo_coco = dict(
     type="OrienMaskYOLO",
     num_anchors=3,
@@ -96,6 +95,32 @@ orienmask_yolo_coco_544_postprocess = dict(
 orienmask_yolo_coco_544_anchor4_postprocess = dict(
     copy.deepcopy(orienmask_yolo_coco_544_postprocess), anchors=ANCHORS_YOLOV4)
 
+# The 736² streaming/video variant: its own grid and image size.
+transform_infer_736 = construct_config(
+    transform_infer_544,
+    update=dict(pipeline=[
+        dict(type="Resize", size=(736, 736), interpolation="bilinear",
+             align_corners=False),
+        dict(type="Normalize", mean=(0, 0, 0), std=(255, 255, 255)),
+    ]),
+)
+
+orienmask_yolo_coco_736_anchor4_postprocess = construct_config(
+    orienmask_yolo_coco_544_anchor4_postprocess,
+    update=dict(grid_size=[[23, 23], [46, 46], [92, 92]], image_size=[736, 736]),
+)
+
+# The visualizer block, data only: the visualizer is not ported (it draws
+# with cv2), and the infer CLI refuses -v and -s.
+coco_visualizer = dict(
+    type="InferenceVisualizer",
+    dataset="COCO",
+    with_mask=True,
+    conf_thresh=0.3,
+    alpha=0.6,
+    line_thickness=1,
+)
+
 # The published model (anchor-v4 priors + FPN-plus orientation path) with the
 # twostage candidate selection of the speed-headline infer configs.
 orienmask_yolo_coco_544_anchor4_fpn_plus_infer = dict(
@@ -105,6 +130,7 @@ orienmask_yolo_coco_544_anchor4_fpn_plus_infer = dict(
     transform=transform_infer_544,
     postprocess=dict(orienmask_yolo_coco_544_anchor4_postprocess,
                      topk_mode="twostage"),
+    visualizer=coco_visualizer,
 )
 
 # ------------------------------------------------------------------- train
@@ -277,4 +303,28 @@ orienmask_yolo_coco_544_anchor4_test = construct_config(
 orienmask_yolo_coco_544_test = construct_config(
     orienmask_yolo_coco_544_anchor4_test,
     update=dict(postprocess=orienmask_yolo_coco_544["postprocess"]),
+)
+
+# ----------------------------------------------------------- more infer
+
+orienmask_yolo_coco_544_anchor4_infer = construct_config(
+    orienmask_yolo_coco_544_anchor4_fpn_plus_infer,
+    update=dict(model=orienmask_yolo_coco_544_anchor4["model"]),
+)
+
+orienmask_yolo_coco_544_infer = construct_config(
+    orienmask_yolo_coco_544_anchor4_infer,
+    update=dict(postprocess=dict(orienmask_yolo_coco_544["postprocess"],
+                                 topk_mode="twostage")),
+)
+
+# Streaming (video) inference at 736², two frames in flight (stream.py).
+orienmask_yolo_coco_736_anchor4_fpn_plus_infer = construct_config(
+    orienmask_yolo_coco_544_anchor4_fpn_plus_infer,
+    update=dict(
+        transform=transform_infer_736,
+        postprocess=dict(orienmask_yolo_coco_736_anchor4_postprocess,
+                         topk_mode="twostage"),
+        stream_depth=2,
+    ),
 )

@@ -1,0 +1,192 @@
+"""Image files without cv2 or PIL: the port's replacement for the JAX CLI's
+``cv2.imread`` + ``cvtColor`` and ``cv2.VideoCapture`` (``infer.py``).
+
+Reads, as (H, W, 3) uint8 RGB:
+
+* 8-bit non-interlaced PNG of colour type 0 (grey), 2 (RGB), 4 (grey and
+  alpha) and 6 (RGBA), alpha dropped as ``cv2.imread`` drops it, every
+  filter type (None, Sub, Up, Average, Paeth), decoded with ``zlib``;
+* binary PPM (P6, maxval 255);
+* ``.npy`` arrays of shape (H, W, 3) and dtype uint8.
+
+Anything else (JPEG, a video file, 16-bit, palette or interlaced PNG) is
+refused with ``UnsupportedImage``, whose message names what is read.
+Nothing tries another decoder.  ``write_png`` writes (H, W, 3) uint8
+arrays; a directory of readable files, sorted, is a video source
+(``frame_paths``).  Directories are filtered by ``IMAGE_EXTENSIONS``.
+"""
+
+import os
+import struct
+import zlib
+
+import numpy as np
+
+READABLE = ("8-bit non-interlaced PNG (grey, RGB, grey+alpha, RGBA), binary PPM (P6) "
+            "and .npy (H, W, 3) uint8")
+# What a directory of images or frames is filtered to: the JAX CLI's image
+# extensions and the port's own.  A JPEG among them is refused when read.
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp", ".ppm", ".npy")
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
+
+
+class UnsupportedImage(ValueError):
+    def __init__(self, path, why):
+        super().__init__(f"cannot read {path}: {why}; this build reads {READABLE} only "
+                         "(no JPEG or video decoder: ROADMAP Queue 1, 'What the infer CLI "
+                         "still refuses')")
+
+
+def read_image(path):
+    """The file at ``path`` as an (H, W, 3) uint8 RGB array."""
+    path = str(path)
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".npy":
+        return _read_npy(path)
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data.startswith(_PNG_SIGNATURE):
+        return _read_png(path, data)
+    if data[:2] == b"P6":
+        return _read_ppm(path, data)
+    if data[:3] == b"\xff\xd8\xff":
+        raise UnsupportedImage(path, "a JPEG")
+    raise UnsupportedImage(path, "not a PNG, PPM or .npy file")
+
+
+def image_names(directory):
+    """The names of ``directory``'s image files (by extension), sorted."""
+    return sorted(n for n in os.listdir(directory)
+                  if n.lower().endswith(IMAGE_EXTENSIONS)
+                  and os.path.isfile(os.path.join(directory, n)))
+
+
+def frame_paths(source, limit=None):
+    """A video source: the image files of directory ``source``, sorted, the
+    first ``limit`` of them.  A video file is refused."""
+    if not os.path.isdir(source):
+        raise UnsupportedImage(source, "a video file; pass a directory of frames")
+    return [os.path.join(source, n) for n in image_names(source)[:limit]]
+
+
+def _read_npy(path):
+    image = np.load(path, allow_pickle=False)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise UnsupportedImage(path, f"a {image.dtype} array of shape {image.shape}")
+    return np.ascontiguousarray(image)
+
+
+def _read_ppm(path, data):
+    fields, pos = [], 2
+    while len(fields) < 3:
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":  # a comment runs to the end of its line
+            pos = data.index(b"\n", pos)
+            continue
+        end = pos
+        while end < len(data) and data[end:end + 1].isdigit():
+            end += 1
+        if end == pos:
+            raise UnsupportedImage(path, "a malformed PPM header")
+        fields.append(int(data[pos:end]))
+        pos = end
+    width, height, maxval = fields
+    if maxval != 255:
+        raise UnsupportedImage(path, f"a PPM with maxval {maxval}")
+    pixels = np.frombuffer(data, np.uint8, height * width * 3, pos + 1)
+    return pixels.reshape(height, width, 3).copy()
+
+
+def _png_chunks(path, data):
+    pos = len(_PNG_SIGNATURE)
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        yield kind, data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IEND":
+            return
+    raise UnsupportedImage(path, "a truncated PNG")
+
+
+def _read_png(path, data):
+    header, idat = None, []
+    for kind, body in _png_chunks(path, data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise UnsupportedImage(path, "a PNG without a header")
+    width, height, depth, colour, _, _, interlace = header
+    if depth != 8:
+        raise UnsupportedImage(path, f"a {depth}-bit PNG")
+    if colour not in _CHANNELS:
+        raise UnsupportedImage(path, f"a PNG of colour type {colour} (palette)")
+    if interlace:
+        raise UnsupportedImage(path, "an interlaced PNG")
+    bpp = _CHANNELS[colour]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = raw[:height * (width * bpp + 1)].reshape(height, width * bpp + 1)
+    pixels = _unfilter(rows[:, 1:], rows[:, 0], bpp).reshape(height, width, bpp)
+    if bpp <= 2:  # grey, with or without alpha
+        return np.repeat(pixels[..., :1], 3, axis=2)
+    return np.ascontiguousarray(pixels[..., :3])
+
+
+def _unfilter(filtered, kinds, bpp):
+    """Undo PNG's per-row filters: (H, W*bpp) filtered bytes -> raw bytes."""
+    out = np.empty_like(filtered)
+    prev = np.zeros(filtered.shape[1], np.uint8)
+    for y, kind in enumerate(kinds):
+        line = filtered[y]
+        if kind == 0:
+            cur = line
+        elif kind == 1:  # Sub: a running sum, per channel, modulo 256
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            cur = line + prev
+        elif kind in (3, 4):  # Average, Paeth: sequential along the row
+            cur = _unfilter_sequential(line, prev, bpp, kind)
+        else:
+            raise ValueError(f"PNG filter type {kind} is not one of 0-4")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def _unfilter_sequential(line, prev, bpp, kind):
+    cur = bytearray(line.tobytes())
+    up = prev.tobytes()
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if kind == 3:
+            pred = (a + b) >> 1
+        else:
+            c = up[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
+        cur[i] = (cur[i] + pred) & 0xFF
+    return np.frombuffer(bytes(cur), np.uint8)
+
+
+def write_png(path, image):
+    """Write an (H, W, 3) uint8 RGB array as an 8-bit PNG (filter type 0 on
+    every row, fast zlib compression)."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"write_png takes (H, W, 3) uint8, got {image.dtype} {image.shape}")
+    height, width = image.shape[:2]
+    body = np.concatenate([np.zeros((height, 1), np.uint8), image.reshape(height, -1)], axis=1)
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    with open(path, "wb") as fh:
+        fh.write(_PNG_SIGNATURE + chunk(b"IHDR", ihdr)
+                 + chunk(b"IDAT", zlib.compress(body.tobytes(), 1)) + chunk(b"IEND", b""))

@@ -1,5 +1,8 @@
 from .convert import init_random, load_reference_state_dict, variables_from_jax
+from .orienmask_yolo import OrienMaskYOLO
 from .orienmask_yolo_fpnplus import OrienMaskYOLOFPNPlus
+
+MODELS = {"OrienMaskYOLO": OrienMaskYOLO, "OrienMaskYOLOFPNPlus": OrienMaskYOLOFPNPlus}
 
 
 def build_model(model_cfg, **overrides):
@@ -15,10 +18,10 @@ def build_model(model_cfg, **overrides):
           if k not in ("type", "pretrained", "freeze_backbone",
                        "backbone_batchnorm_eval")}
     kw.update(overrides)
-    if model_cfg["type"] != "OrienMaskYOLOFPNPlus":
+    if model_cfg["type"] not in MODELS:
         raise ValueError(f"model {model_cfg['type']!r} is not ported yet")
-    return OrienMaskYOLOFPNPlus(**kw)
+    return MODELS[model_cfg["type"]](**kw)
 
 
-__all__ = ["OrienMaskYOLOFPNPlus", "build_model", "init_random",
+__all__ = ["OrienMaskYOLO", "OrienMaskYOLOFPNPlus", "build_model", "init_random",
            "load_reference_state_dict", "variables_from_jax"]

@@ -7,6 +7,8 @@ shared orientation head.  ``apply_folded`` returns three (bbox_s, orien_s)
 NCHW tuples at strides 32/16/8 (channels_last in memory on the card, so
 ``.permute(0, 2, 3, 1)`` gives the JAX (B, H, W, C) layout as a view);
 ``forward``, the unfolded train/eval path, returns them in that layout.
+``BaseOrienMask`` holds what the base variant (``orienmask_yolo.py``)
+shares with this one.
 """
 
 import torch
@@ -45,34 +47,20 @@ def build_orien_head(cin, cout):
     )
 
 
-class OrienMaskYOLOFPNPlus(nn.Module):
-    HEAD_NAMES = (
-        "neck32", "neck16", "neck8", "neck4", "route32", "route16",
-        "bbox_head8", "bbox_head16", "bbox_head32",
-        "skip32", "skip16", "skip8", "skip4", "orien_head",
-    )
+class BaseOrienMask(nn.Module):
+    """What the two OrienMask variants share: the DarkNet-53 backbone, the
+    YOLOv3 bbox path over three scales, and ``fold``/``apply_folded``/
+    ``forward``.  A variant builds its heads in ``__init__`` in the order of
+    its ``HEAD_NAMES`` (the JAX variant's module order, which ``init_random``
+    draws in) and runs its orientation path in ``_orientation``."""
+
+    HEAD_NAMES = ()
 
     def __init__(self, num_anchors, num_classes, backbone_stage_blocks=None):
         super().__init__()
         self.num_anchors = num_anchors
         self.num_classes = num_classes
-        a, c = num_anchors, num_classes
-        bbox_dim = a * (5 + c)
         self.backbone = DarkNet53(stage_blocks=backbone_stage_blocks)
-        self.neck32 = build_neck(1024, 512)
-        self.neck16 = build_neck(768, 256)
-        self.neck8 = build_neck(384, 128)
-        self.neck4 = build_neck(256, 128)
-        self.route32 = build_route(512, 256, 2)
-        self.route16 = build_route(256, 128, 2)
-        self.bbox_head8 = build_bbox_head(128, bbox_dim)
-        self.bbox_head16 = build_bbox_head(256, bbox_dim)
-        self.bbox_head32 = build_bbox_head(512, bbox_dim)
-        self.skip32 = build_route(512, 64, 8)
-        self.skip16 = build_route(256, 64, 4)
-        self.skip8 = build_route(128, 64, 2)
-        self.skip4 = ConvBNLeaky(128, 64, 1)
-        self.orien_head = build_orien_head(128, a * 6)
 
     def module_names(self):
         return ("backbone",) + self.HEAD_NAMES
@@ -105,13 +93,41 @@ class OrienMaskYOLOFPNPlus(nn.Module):
         bbox32 = run("bbox_head32", neck32)
         bbox16 = run("bbox_head16", neck16)
         bbox8 = run("bbox_head8", neck8)
-        oriens = run("neck4", torch.cat(
-            [run("skip32", neck32), run("skip16", neck16), run("skip8", neck8),
-             run("skip4", x4)], dim=1))
-        oriens = run("orien_head", oriens)
+        oriens = run("orien_head", self._orientation(run, neck32, neck16, neck8, x4))
         a2 = self.num_anchors * 2
         return (
             (bbox32, oriens[:, :a2]),
             (bbox16, oriens[:, a2:2 * a2]),
             (bbox8, oriens[:, 2 * a2:]),
         )
+
+
+class OrienMaskYOLOFPNPlus(BaseOrienMask):
+    HEAD_NAMES = (
+        "neck32", "neck16", "neck8", "neck4", "route32", "route16",
+        "bbox_head8", "bbox_head16", "bbox_head32",
+        "skip32", "skip16", "skip8", "skip4", "orien_head",
+    )
+
+    def __init__(self, num_anchors, num_classes, backbone_stage_blocks=None):
+        super().__init__(num_anchors, num_classes, backbone_stage_blocks)
+        bbox_dim = num_anchors * (5 + num_classes)
+        self.neck32 = build_neck(1024, 512)
+        self.neck16 = build_neck(768, 256)
+        self.neck8 = build_neck(384, 128)
+        self.neck4 = build_neck(256, 128)
+        self.route32 = build_route(512, 256, 2)
+        self.route16 = build_route(256, 128, 2)
+        self.bbox_head8 = build_bbox_head(128, bbox_dim)
+        self.bbox_head16 = build_bbox_head(256, bbox_dim)
+        self.bbox_head32 = build_bbox_head(512, bbox_dim)
+        self.skip32 = build_route(512, 64, 8)
+        self.skip16 = build_route(256, 64, 4)
+        self.skip8 = build_route(128, 64, 2)
+        self.skip4 = ConvBNLeaky(128, 64, 1)
+        self.orien_head = build_orien_head(128, num_anchors * 6)
+
+    def _orientation(self, run, neck32, neck16, neck8, x4):
+        return run("neck4", torch.cat(
+            [run("skip32", neck32), run("skip16", neck16), run("skip8", neck8),
+             run("skip4", x4)], dim=1))

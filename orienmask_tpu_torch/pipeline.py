@@ -31,7 +31,7 @@ def folded_to_device(tree, device, dtype):
 class InferencePipeline:
     def __init__(self, model, transform, postprocess, compute_dtype="bfloat16",
                  device=None):
-        """``model``: an ``OrienMaskYOLOFPNPlus`` holding its weights (on the
+        """``model``: an OrienMask model (either variant) holding its weights (on the
         CPU is fine: only its folded copy moves to ``device``).
         ``postprocess`` must live on the same device."""
         self.device = resolve_device(device)

@@ -38,7 +38,7 @@ def _pipe_table(headers, rows):
 class Tester:
     def __init__(self, model, state, postprocess, test_loader, checkpoint_dir, gt_file,
                  compute_dtype="float32", device=None):
-        """``model``: an ``OrienMaskYOLOFPNPlus``; ``state``: its state dict
+        """``model``: an OrienMask model (either variant); ``state``: its state dict
         to load (strict), or None when it already holds its weights (for
         example through ``load_checkpoint``).  ``postprocess`` must live on
         ``device`` (None: the card).  ``test_loader`` yields batches

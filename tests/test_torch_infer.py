@@ -1,0 +1,204 @@
+"""The port's infer CLI (``python -m orienmask_tpu_torch.infer``) against the
+JAX package's ``infer.py``, and its own behaviour.
+
+One ``.ckpt`` from JAX variables (the bbox heads' logits spread as in
+``test_torch_pipeline.py``), a JSON config of the slim model at 128², f32,
+and four 96x128 PNGs: both CLIs run in subprocesses with the same arguments
+(``-w -c -d -j -o``; the port's with ``--device cpu``) and dump the same
+image ids and categories, boxes and scores to 1e-4 pixels and 1e-6
+(measured 9.5e-7 pixels and 5.4e-7 over 400 detections), and segm RLEs
+whose masks agree on at least 99.9% of the pixels (the port resizes masks
+with torch's bilinear resize, JAX with OpenCV's: measured 100% here)."""
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from orienmask_tpu.eval import rle
+from orienmask_tpu.models import OrienMaskYOLOFPNPlus as JaxModel
+from orienmask_tpu.utils.envs import cpu_subprocess_env
+from orienmask_tpu_torch import infer
+from test_torch_pipeline import SLIM, TRANSFORM, _postprocess_kwargs, _variables
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _config():
+    pp = dict(_postprocess_kwargs(), type="OrienMaskYOLOPostProcess")
+    pp.pop("pack_masks")
+    return {
+        "n_device": 1,
+        "compute_dtype": "float32",
+        "stream_depth": 2,
+        "model": {"type": "OrienMaskYOLOFPNPlus", "num_anchors": 3, "num_classes": 80,
+                  "pretrained": None, "freeze_backbone": False,
+                  "backbone_batchnorm_eval": False, "backbone_stage_blocks": list(SLIM)},
+        "transform": {"type": "FastCOCOTransform", "pipeline": TRANSFORM},
+        "postprocess": pp,
+    }
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("infer")
+    v = _variables(JaxModel(3, 80, backbone_stage_blocks=SLIM))
+    with open(root / "weights.ckpt", "wb") as fh:
+        pickle.dump({"epoch": 0, "params": v["params"], "batch_stats": v["batch_stats"],
+                     "config": _config()}, fh)
+    (root / "config.json").write_text(json.dumps(_config()))
+    images = root / "images"
+    images.mkdir()
+    rng = np.random.default_rng(7)
+    entries = []
+    for i in range(4):
+        cv2.imwrite(str(images / f"im{i}.png"),
+                    rng.integers(0, 256, (96, 128, 3), dtype=np.uint8))
+        entries.append({"file_name": f"im{i}.png", "height": 96, "width": 128, "id": 10 + i})
+    (root / "images.json").write_text(json.dumps({"images": entries}))
+    return root
+
+
+def _args(root, out):
+    return ["-w", str(root / "weights.ckpt"), "-c", str(root / "config.json"),
+            "-d", str(root / "images"), "-j", str(root / "images.json"), "-o", str(out)]
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, cwd=REPO, env=cpu_subprocess_env(), capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    return proc.stdout
+
+
+@pytest.fixture(scope="module")
+def dumps(inputs):
+    out = {}
+    for name, cmd in (("jax", [sys.executable, "infer.py"]),
+                      ("port", [sys.executable, "-m", "orienmask_tpu_torch.infer",
+                                "--device", "cpu"])):
+        stdout = _run(cmd + _args(inputs, inputs / name))
+        assert "The average inference time is" in stdout
+        out[name] = {kind: json.loads((inputs / name / f"{kind}_prediction.json").read_text())
+                     for kind in ("bbox", "segm")}
+    return out
+
+
+def test_cli_dumps_the_same_detections_as_the_jax_cli(dumps):
+    want, got = dumps["jax"]["bbox"], dumps["port"]["bbox"]
+    assert len(got) == len(want) > 0
+    assert [(d["image_id"], d["category_id"]) for d in got] == \
+        [(d["image_id"], d["category_id"]) for d in want]
+    np.testing.assert_allclose([d["bbox"] for d in got], [d["bbox"] for d in want],
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose([d["score"] for d in got], [d["score"] for d in want],
+                               rtol=0, atol=1e-6)
+    assert {d["image_id"] for d in got} == {10, 11, 12, 13}
+
+
+def test_cli_segm_agrees_with_the_jax_cli(dumps):
+    want, got = dumps["jax"]["segm"], dumps["port"]["segm"]
+    assert len(got) == len(want) == len(dumps["port"]["bbox"])
+    same = total = 0
+    for g, w in zip(got, want):
+        assert (g["image_id"], g["category_id"]) == (w["image_id"], w["category_id"])
+        mg, mw = rle.decode(g["segmentation"]), rle.decode(w["segmentation"])
+        assert mg.shape == mw.shape == (96, 128)
+        same += int((mg == mw).sum())
+        total += mg.size
+    assert same / total >= 0.999, same / total
+
+
+@pytest.fixture
+def frames(tmp_path):
+    from orienmask_tpu_torch.data.image_io import write_png
+
+    rng = np.random.default_rng(8)
+    for i in range(3):
+        write_png(tmp_path / f"f{i:03d}.png", rng.integers(0, 256, (96, 128, 3), np.uint8))
+    return tmp_path
+
+
+def test_video_over_a_frame_directory_prints_the_streaming_report(inputs, frames, capsys):
+    torch.set_num_threads(1)
+    assert infer.main(["--device", "cpu", "-c", str(inputs / "config.json"), "-w",
+                       str(inputs / "weights.ckpt"), "--video", str(frames),
+                       "--stream-depth", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "Streamed 3 frames (depth=1)" in out and "fps)" in out
+
+
+def test_image_mode_prints_the_timer_report(inputs, capsys):
+    torch.set_num_threads(1)
+    assert infer.main(["--device", "cpu", "-c", str(inputs / "config.json"), "-w",
+                       str(inputs / "weights.ckpt"), "-i",
+                       str(inputs / "images" / "im0.png")]) == 0
+    out = capsys.readouterr().out
+    assert "The inference takes" in out
+    assert "Forward & Postprocess: " in out and "ms (" in out
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["-v"], "visualizer"),
+    (["-s"], "visualizer"),
+    (["--spatial", "2"], "--spatial is not ported"),
+])
+def test_refused_flags_exit_with_their_message(inputs, extra, message):
+    with pytest.raises(SystemExit) as err:
+        infer.main(["--device", "cpu", "-c", str(inputs / "config.json"),
+                    "--random-weights", "-i", "x.png"] + extra)
+    assert message in str(err.value.code)
+
+
+def test_video_output_implies_visualize_then_refuses(inputs, capsys):
+    """As the JAX CLI does, ``--video -o`` turns on the visualizer, which is
+    then refused."""
+    with pytest.raises(SystemExit) as err:
+        infer.main(["--device", "cpu", "-c", str(inputs / "config.json"),
+                    "--random-weights", "--video", "frames", "-o", "out"])
+    assert "--output implies --visualize" in capsys.readouterr().out
+    assert "visualizer" in str(err.value.code)
+
+
+def test_jpeg_input_exits_with_the_formats_read(inputs, tmp_path):
+    cv2.imwrite(str(tmp_path / "a.jpg"), np.zeros((8, 8, 3), np.uint8))
+    proc = subprocess.run(
+        [sys.executable, "-m", "orienmask_tpu_torch.infer", "--device", "cpu", "-c",
+         str(inputs / "config.json"), "--random-weights", "-i", str(tmp_path / "a.jpg")],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "a JPEG" in proc.stderr and "reads 8-bit non-interlaced PNG" in proc.stderr
+
+
+def test_json_without_output_warns(inputs, capsys, tmp_path, monkeypatch):
+    torch.set_num_threads(1)
+    monkeypatch.chdir(tmp_path)  # the empty dumps go to the working directory
+    infer.main(["--device", "cpu", "-c", str(inputs / "config.json"), "--random-weights",
+                "-d", str(inputs / "images"), "-j", str(inputs / "images.json"), "-n", "1"])
+    assert "WARNING: -j without -o" in capsys.readouterr().out
+    assert json.loads((tmp_path / "bbox_prediction.json").read_text()) == []
+
+
+def test_class_tables_match_jax():
+    from orienmask_tpu.data.dataset import COCODataset as JaxCOCO
+    from orienmask_tpu.data.dataset import VOCDataset as JaxVOC
+    from orienmask_tpu_torch.data.dataset import COCODataset, VOCDataset
+
+    for port, ref in ((COCODataset, JaxCOCO), (VOCDataset, JaxVOC)):
+        assert port.CAT2LABEL == ref.CAT2LABEL and port.CLASSES == ref.CLASSES
+
+
+def test_profile_writes_a_trace_of_the_main_loop(inputs, tmp_path, capsys):
+    torch.set_num_threads(1)
+    infer.main(["--device", "cpu", "-c", str(inputs / "config.json"), "--random-weights",
+                "-i", str(inputs / "images" / "im0.png"), "--profile", str(tmp_path / "prof")])
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("conv" in n for n in names)
+    assert "Self CPU" in (tmp_path / "prof" / "ops.txt").read_text()

@@ -56,11 +56,13 @@ def test_sources_import_no_host_package_the_card_machine_lacks(path):
 
 def test_pipeline_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['orienmask_tpu'] = None\n"
-            "for m in ('cv2', 'tabulate', 'tqdm', 'pycocotools'): sys.modules[m] = None\n"
+            "for m in ('cv2', 'PIL', 'tabulate', 'tqdm', 'pycocotools'): sys.modules[m] = None\n"
             "import orienmask_tpu_torch.pipeline, orienmask_tpu_torch.ops, "
             "orienmask_tpu_torch.models, orienmask_tpu_torch.data, "
             "orienmask_tpu_torch.optim, orienmask_tpu_torch.trainer, "
-            "orienmask_tpu_torch.eval, orienmask_tpu_torch.utils.timer\n"
+            "orienmask_tpu_torch.eval, orienmask_tpu_torch.utils.timer, "
+            "orienmask_tpu_torch.infer, orienmask_tpu_torch.stream, "
+            "orienmask_tpu_torch.utils.profiler, orienmask_tpu_torch.data.image_io\n"
             "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "
             "for m, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -86,6 +88,28 @@ def test_postprocess_and_pipeline_default_to_the_card(monkeypatch):
     kw = {k: v for k, v in cfg["postprocess"].items() if k != "type"}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         OrienMaskYOLOPostProcess(**kw)
+
+
+def test_infer_cli_and_stream_default_to_the_card(monkeypatch):
+    """The CLI's ``--device`` defaults to ``cuda`` and raises here before
+    anything is built; ``InferencePipeline`` and ``StreamingPipeline``
+    without ``device`` ask for the card too."""
+    from orienmask_tpu_torch import infer
+    from orienmask_tpu_torch.pipeline import InferencePipeline
+    from orienmask_tpu_torch.stream import StreamingPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer.main(["-c", "orienmask_yolo_coco_544_anchor4_fpn_plus_infer",
+                    "--random-weights", "-i", "x.png"])
+
+    class OnTheCpu:
+        device = torch.device("cpu")
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingPipeline(OnTheCpu())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferencePipeline(None, None, OnTheCpu())
 
 
 def test_loss_and_train_step_default_to_the_card(monkeypatch):

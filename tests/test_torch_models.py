@@ -119,12 +119,24 @@ def test_train_config_copy_matches_jax_config():
 @pytest.mark.parametrize("name", [
     "orienmask_yolo_coco_544_anchor4_fpn_plus_test", "orienmask_yolo_coco_544_anchor4_test",
     "orienmask_yolo_coco_544_test", "orienmask_yolo_coco_544_anchor4", "orienmask_yolo_coco_544",
+    "orienmask_yolo_coco_544_anchor4_fpn_plus_infer", "orienmask_yolo_coco_544_anchor4_infer",
+    "orienmask_yolo_coco_544_infer", "orienmask_yolo_coco_736_anchor4_fpn_plus_infer",
 ])
 def test_test_config_copies_match_jax_configs(name):
     import orienmask_tpu.config as jax_config
     import orienmask_tpu_torch.config as config
 
     assert getattr(config, name) == getattr(jax_config, name)
+
+
+@pytest.mark.parametrize("name", [
+    "transform_infer_736", "orienmask_yolo_coco_736_anchor4_postprocess", "coco_visualizer",
+])
+def test_infer_blocks_match_jax_base(name):
+    import orienmask_tpu.config.base as jax_base
+    import orienmask_tpu_torch.config as config
+
+    assert getattr(config, name) == getattr(jax_base, name)
 
 
 def test_construct_config_matches_jax():
