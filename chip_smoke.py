@@ -85,14 +85,27 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    heads, kernel 1's launch plans, kernels 1 and 2 at the batch shapes as in
    phase 13, images/s with ``tools/bench_batched.py``'s method (the batch
    staged on the card, 6 warm-ups, max(1, 200 // B) calls a window, 5
-   windows, one synchronize a window, the median).
+   windows, one synchronize a window, the median);
+15. JPEG and the visualizer: the committed fixtures of ``probe/jpeg_fixtures``
+   (480x640 and odd-sized scenes at 4:4:4, 4:2:2, 4:4:0, 4:2:0, progressive,
+   a restart interval, grey, an EXIF rotation) decoded by the port's reader
+   (its C++ scan decoder built with g++ here) and each held to the SHA-256 of
+   cv2's decode recorded beside it, with the decode ms per 480x640 image;
+   the infer CLI at 544² over them with -j -o and with -v -o, and
+   ``--video <the fixtures> -o`` at 736² (depth 2): every image's device
+   outputs identical to the plain-version postprocess on its heads, kernel 1
+   twice and kernel 2 once an image, the JSONs' entry counts, every written
+   PNG identical to the port's visualizer on the plain-version host list
+   under the same ``random.seed``; a host list with spread scores drawn too
+   (random weights put nothing above conf_thresh 0.3); the reports' Load
+   data, Forward & Postprocess and Visualize ms an image.
 
 The last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``train_544_b8``, ``eval_544_b16``); ``{"infer_544_b8": ...,
 "infer_544_b16": ..., "stream_736": {"depth1": ..., "depth2": ...,
-"staged_fps": ...}}``; the card's name and power limit; the kernels' JSON
+"staged_fps": ...}, "jpeg": {...}}``; the card's name and power limit; the kernels' JSON
 record: kernels 1 and 2 carry per-path launch counts (``paths``: infer,
-eval, cli, stream_736, batch) and their times at the 736² and batch shapes
+eval, cli, stream_736, batch, jpeg_cli) and their times at the 736² and batch shapes
 (``shapes_736``, ``batch``); the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
 torch.profiler tables of 20 frames and of 3 train steps in each dtype to
@@ -104,6 +117,7 @@ import contextlib
 import copy
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1914,6 +1928,207 @@ def batched_rate(pipe, image):
     return dict(images_per_s=float(np.median(rates)), windows=rates, calls_per_window=n)
 
 
+# ------------------------------------------------ JPEG and the visualizer
+
+FIXTURES = Path(__file__).resolve().parent / "probe" / "jpeg_fixtures"
+DECODE_REPEATS = 5
+
+
+def check_jpeg_decoder():
+    """Phase 15 (a): the committed JPEG fixtures through the port's reader
+    (the compiled scan decoder, built here), each against the SHA-256 of
+    cv2's RGB decode recorded with it; decode ms per 480x640 image."""
+    import hashlib
+
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.data import jpeg
+    from orienmask_tpu_torch.data.image_io import read_image
+
+    t = time.perf_counter()
+    kernels.host_library("jpeg_host")  # g++, at first use
+    build_s = time.perf_counter() - t
+    digests = json.loads((FIXTURES / "digests.json").read_text())
+    for name, want in digests.items():
+        image = read_image(FIXTURES / name)
+        if list(image.shape) != want["shape"] or \
+                hashlib.sha256(image.tobytes()).hexdigest() != want["sha256"]:
+            raise AssertionError(f"{name}: the decode differs from cv2's recorded digest")
+    # round robin over the 480x640 files, each read as the CLI reads it
+    sized = [n for n, want in digests.items() if want["shape"][:2] == [480, 640]]
+    runs, scans = {n: [] for n in sized}, {n: [] for n in sized}
+    for _ in range(DECODE_REPEATS):
+        for name in sized:
+            t = time.perf_counter()
+            read_image(FIXTURES / name)
+            runs[name].append(1e3 * (time.perf_counter() - t))
+            data = (FIXTURES / name).read_bytes()
+            t = time.perf_counter()
+            jpeg.parse(data, jpeg.decode_scan_native)
+            scans[name].append(1e3 * (time.perf_counter() - t))
+    per_file = {n: float(np.median(v)) for n, v in runs.items()}
+    entropy = {n: float(np.median(v)) for n, v in scans.items()}
+    mean = float(np.mean(list(per_file.values())))
+    log(f"  {len(digests)} fixtures decoded identically to cv2's recorded digests (decoder "
+        f"built in {build_s:.2f} s); decode {mean:.2f} ms per 480x640 image (mean over "
+        f"{len(per_file)} files of the median of {DECODE_REPEATS} reads; markers and scans alone "
+        f"{np.mean(list(entropy.values())):.2f} ms) on the host; card: {card_line()}")
+    log("  per file (ms): " + ", ".join(f"{n} {v:.2f}" for n, v in per_file.items()))
+    return {"fixtures": len(digests), "identical": len(digests), "build_s": build_s,
+            "decode_ms_480x640": mean, "scans_ms_480x640": float(np.mean(list(entropy.values()))),
+            "per_file_ms": per_file}
+
+
+def report_ms(lines):
+    """The infer CLI's timer report: {stage: ms an image}."""
+    import re
+
+    out = {}
+    for line in lines:
+        m = re.match(r"^(.+): ([0-9.]+)ms \(", line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def check_drawings(name, out_dir, written, wants, plain, paths, config, seed):
+    """Each PNG the CLI wrote equals the port's visualizer drawing the
+    plain-version host list of the same image under the same seed."""
+    import random
+
+    from orienmask_tpu_torch.data.image_io import read_image
+    from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer
+
+    vis = InferenceVisualizer(**_kw(config["visualizer"]))
+    size = config["transform"]["pipeline"][0]["size"]
+    pad_info = (0, 0, 0, 0, *size)
+    random.seed(seed)
+    drawn = 0
+    for want, path, out in zip(wants, paths, written):
+        host = plain.to_host_list(want)[0]
+        drawn += int((host["bbox"][:, 4] > vis.conf_thresh).sum())
+        expected = vis(host, read_image(path).astype(np.float32), pad_info)
+        if not np.array_equal(read_image(out_dir / out), expected):
+            raise AssertionError(f"{name}: {out} differs from the visualizer on the "
+                                 "plain-version host list")
+    log(f"  {name}: {len(written)} PNGs identical to the visualizer on the plain-version "
+        f"host lists ({drawn} detections above conf_thresh {vis.conf_thresh})")
+    return vis, pad_info
+
+
+def check_jpeg_cli(workdir):
+    """Phase 15 (b)-(d): the infer CLI over the JPEG fixtures at 544² with
+    -j -o and with -v -o, then --video -o at 736²: every image identical to
+    the plain-version postprocess on its heads, kernel 1 twice and kernel 2
+    once an image, the JSON entry counts, each written PNG identical to the
+    visualizer on the plain-version host list; a host list with spread
+    scores drawn too, since random weights put nothing above conf_thresh."""
+    import random
+
+    import orienmask_tpu_torch.config as configs
+    from orienmask_tpu_torch.data.image_io import image_names, read_image
+
+    names = image_names(FIXTURES)
+    paths = [FIXTURES / n for n in names]
+    n = len(names)
+    counts, reports = {}, {}
+
+    def expect(tag, calls, launched, frames):
+        if len(calls) != frames or launched["exact_topk"] != 2 * frames \
+                or launched["assemble_masks_packed"] != frames:
+            raise AssertionError(f"{tag}: expected {frames} images, kernel 1 twice and kernel "
+                                 f"2 once an image; got {len(calls)}, {launched}")
+        for key, value in launched.items():
+            counts[key] = counts.get(key, 0) + value
+
+    name = "orienmask_yolo_coco_544_anchor4_fpn_plus_infer"
+    config = getattr(configs, name)
+    out = workdir / "json"
+    t = time.perf_counter()
+    lines, calls, _, launched = run_cli(["-c", name, "--random-weights", "-d", str(FIXTURES),
+                                         "-j", str(FIXTURES / "images.json"), "-o", str(out)])
+    log(f"  -j -o: {len(calls)} JPEGs in {time.perf_counter() - t:.2f} s (model build "
+        f"included), launches: {launched}; report: " + "; ".join(lines))
+    expect("-j -o", calls, launched, n)
+    check_against_plain("-j -o", calls, _kw(config["postprocess"]), 544)
+    n_valid = sum(int(c[2]["valid"].sum()) for c in calls)
+    for kind in ("bbox", "segm"):
+        dumped = json.loads((out / f"{kind}_prediction.json").read_text())
+        if len(dumped) != n_valid or {d["image_id"] for d in dumped} != set(range(1, n + 1)):
+            raise AssertionError(f"-j -o: {kind} json holds {len(dumped)} entries for "
+                                 f"{n_valid} valid detections")
+    log(f"  -j -o: every image identical to the plain-version postprocess on its heads; bbox "
+        f"and segm json hold {n_valid} entries each")
+    reports["json"] = report_ms(lines)
+
+    out = workdir / "drawn"
+    random.seed(SEED)
+    t = time.perf_counter()
+    lines, calls, _, launched = run_cli(["-c", name, "--random-weights", "-d", str(FIXTURES),
+                                         "-v", "-o", str(out)])
+    log(f"  -v -o: {len(calls)} JPEGs in {time.perf_counter() - t:.2f} s, launches: "
+        f"{launched}; report: " + "; ".join(lines))
+    expect("-v -o", calls, launched, n)
+    plain, wants = check_against_plain("-v -o", calls, _kw(config["postprocess"]), 544)
+    written = [os.path.splitext(p)[0] + ".png" for p in names]
+    vis, pad_info = check_drawings("-v -o", out, written, wants, plain, paths, config, SEED)
+    reports["visualize"] = report_ms(lines)
+
+    # spread scores: 100 detections above conf_thresh, boxes, labels and masks
+    host = plain.to_host_list(wants[0])[0]
+    host["bbox"] = host["bbox"].copy()
+    host["bbox"][:, 4] = np.linspace(0.99, 0.31, len(host["bbox"]), dtype=np.float32)
+    host["bbox"][:, :4] = np.random.default_rng(SEED + 15).uniform(
+        0.1, 0.9, (len(host["bbox"]), 4)).astype(np.float32) * [1, 1, 0.4, 0.4]
+    src = read_image(paths[0]).astype(np.float32)
+    times = []
+    for _ in range(2):
+        random.seed(SEED)
+        t = time.perf_counter()
+        show = vis(host, src, pad_info)
+        times.append(1e3 * (time.perf_counter() - t))
+    changed = int((show != np.round(src).astype(np.uint8)).any(axis=2).sum())
+    if show.shape != src.shape or show.dtype != np.uint8 or changed == 0:
+        raise AssertionError("the spread-score drawing changed nothing")
+    spread_ms = float(np.median(times))
+    log(f"  spread scores: {len(host['bbox'])} detections drawn on {names[0]} "
+        f"({src.shape[1]}x{src.shape[0]}) in {spread_ms:.1f} ms (median of 2), "
+        f"{changed} pixels changed")
+
+    name = "orienmask_yolo_coco_736_anchor4_fpn_plus_infer"
+    config = getattr(configs, name)
+    out = workdir / "frames"
+    random.seed(SEED + 1)
+    t = time.perf_counter()
+    lines, calls, retrieved, launched = run_cli(["-c", name, "--random-weights", "--video",
+                                                 str(FIXTURES), "-o", str(out)])
+    log(f"  --video -o: {len(calls)} frames in {time.perf_counter() - t:.2f} s (model build "
+        f"included), launches: {launched}; report: " + "; ".join(lines))
+    expect("--video -o", calls, launched, n)
+    if len(retrieved) != n:
+        raise AssertionError(f"--video -o: {len(retrieved)} frames retrieved of {n}")
+    plain, wants = check_against_plain("--video -o", calls, _kw(config["postprocess"]), 736)
+    for want, host in zip(wants, retrieved):
+        for got_r, want_r in zip(host, plain.to_host_list(want)):
+            for key in want_r:
+                if not np.array_equal(got_r[key], want_r[key]):
+                    raise AssertionError(f"--video -o: the streamed host '{key}' differs")
+    written = sorted(p.name for p in out.iterdir())
+    if written != [f"frame_{i:06d}.png" for i in range(n)]:
+        raise AssertionError(f"--video -o wrote {written}")
+    check_drawings("--video -o", out, written, wants, plain, paths, config, SEED + 1)
+    stream_line = [ln for ln in lines if ln.startswith("The average streaming time")]
+    fps = float(stream_line[0].split("(")[1].split(" fps")[0])
+    for key in ("json", "visualize"):
+        log(f"  report ({'-j -o' if key == 'json' else '-v -o'}), ms an image: " + ", ".join(
+            f"{k} {reports[key][k]:.2f}" for k in ("Load data", "Forward & Postprocess",
+                                                   "Convert Format", "Visualize")
+            if k in reports[key]) + f"; card: {card_line()}")
+    log(f"  --video -o at 736x736: {n} frames at {fps:.2f} FPS (the CLI's report, model "
+        f"warm-up and first-frame algorithm choice included)")
+    return counts, {"fixtures": n, "reports_ms": reports, "spread_draw_ms": spread_ms,
+                    "video_736_fps": fps}
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -2006,6 +2221,12 @@ def main(argv=None):
         stream_counts, shapes_736, stream_fps = check_stream(Path(workdir))
     log("[14] batched inference at 544x544, B = 8 and 16")
     batch_counts, batch_shapes, batch_rates = check_batches()
+    log("[15] JPEG and the visualizer: the fixtures' decode, the CLI over JPEG at 544x544 "
+        "(-j -o, -v -o) and --video -o at 736x736")
+    jpeg = check_jpeg_decoder()
+    with tempfile.TemporaryDirectory() as workdir:
+        jpeg_counts, jpeg_cli = check_jpeg_cli(Path(workdir))
+    jpeg.update(jpeg_cli)
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -2013,7 +2234,8 @@ def main(argv=None):
     # (kernels 3, 4) and the train path's (kernel 5); kernels 1 and 2 also
     # at the 736² stream's and the batches' shapes
     paths = {name: {"infer": counts[name], "eval": eval_counts[name], "cli": cli_counts[name],
-                    "stream_736": stream_counts[name], "batch": batch_counts[name]}
+                    "stream_736": stream_counts[name], "batch": batch_counts[name],
+                    "jpeg_cli": jpeg_counts[name]}
              for name in ("exact_topk", "assemble_masks_packed")}
     for name in paths:
         times[name]["shapes_736"] = shapes_736[name]
@@ -2047,7 +2269,7 @@ def main(argv=None):
     log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train,
                     "eval_544_b16": eval_times}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
-                    "stream_736": stream_fps}))
+                    "stream_736": stream_fps, "jpeg": jpeg}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -110,8 +110,8 @@ orienmask_yolo_coco_736_anchor4_postprocess = construct_config(
     update=dict(grid_size=[[23, 23], [46, 46], [92, 92]], image_size=[736, 736]),
 )
 
-# The visualizer block, data only: the visualizer is not ported (it draws
-# with cv2), and the infer CLI refuses -v and -s.
+# The visualizer block: the infer CLI's -v (and --video -o) builds
+# utils/visualizer.py::InferenceVisualizer from it.
 coco_visualizer = dict(
     type="InferenceVisualizer",
     dataset="COCO",

@@ -1,19 +1,24 @@
 """Image files without cv2 or PIL: the port's replacement for the JAX CLI's
 ``cv2.imread`` + ``cvtColor`` and ``cv2.VideoCapture`` (``infer.py``).
 
-Reads, as (H, W, 3) uint8 RGB:
+Reads, as (H, W, 3) uint8 RGB, what ``cv2.imread(IMREAD_COLOR)`` gives:
 
-* 8-bit non-interlaced PNG of colour type 0 (grey), 2 (RGB), 4 (grey and
-  alpha) and 6 (RGBA), alpha dropped as ``cv2.imread`` drops it, every
-  filter type (None, Sub, Up, Average, Paeth), decoded with ``zlib``;
+* PNG of every colour type and bit depth: grey at 1, 2, 4, 8 and 16 bits
+  (1-4 bits scaled to 8 as libpng expands them), palette at 1-8 bits, RGB,
+  grey and alpha, and RGBA at 8 and 16 bits (16 bits reduced to their high
+  byte, as libpng's ``png_set_strip_16`` reduces them), interlaced (Adam7)
+  or not, every filter type; alpha and ``tRNS`` dropped, grey replicated;
+  decoded with ``zlib``;
+* JPEG, through ``data/jpeg.py`` (baseline, extended and progressive
+  Huffman, 8-bit, 1 or 3 components, EXIF orientation applied);
 * binary PPM (P6, maxval 255);
 * ``.npy`` arrays of shape (H, W, 3) and dtype uint8.
 
-Anything else (JPEG, a video file, 16-bit, palette or interlaced PNG) is
-refused with ``UnsupportedImage``, whose message names what is read.
-Nothing tries another decoder.  ``write_png`` writes (H, W, 3) uint8
-arrays; a directory of readable files, sorted, is a video source
-(``frame_paths``).  Directories are filtered by ``IMAGE_EXTENSIONS``.
+Anything else (BMP, TIFF, WebP, a video file, the JPEG forms ``data/jpeg.py``
+refuses) is refused with ``UnsupportedImage``, whose message names the form
+and what is read.  Nothing tries another decoder.  ``write_png`` writes
+(H, W, 3) uint8 arrays; a directory of readable files, sorted, is a video
+source (``frame_paths``).  Directories are filtered by ``IMAGE_EXTENSIONS``.
 """
 
 import os
@@ -22,20 +27,32 @@ import zlib
 
 import numpy as np
 
-READABLE = ("8-bit non-interlaced PNG (grey, RGB, grey+alpha, RGBA), binary PPM (P6) "
+from .jpeg import UnsupportedJpeg
+from .jpeg import decode as decode_jpeg
+
+READABLE = ("PNG (every colour type and bit depth, interlaced or not), JPEG (baseline, "
+            "extended or progressive Huffman, 8-bit, 1 or 3 components), binary PPM (P6) "
             "and .npy (H, W, 3) uint8")
 # What a directory of images or frames is filtered to: the JAX CLI's image
-# extensions and the port's own.  A JPEG among them is refused when read.
+# extensions and the port's own.  BMP, TIFF and WebP among them are refused
+# when read.
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp", ".ppm", ".npy")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+# files refused by name, by their first bytes
+_REFUSED_MAGIC = ((b"BM", 0, "a BMP file"), (b"II*\x00", 0, "a TIFF file"),
+                  (b"MM\x00*", 0, "a TIFF file"), (b"WEBP", 8, "a WebP file"),
+                  (b"ftyp", 4, "a video file"), (b"AVI ", 8, "a video file"))
 
 
 class UnsupportedImage(ValueError):
     def __init__(self, path, why):
         super().__init__(f"cannot read {path}: {why}; this build reads {READABLE} only "
-                         "(no JPEG or video decoder: ROADMAP Queue 1, 'What the infer CLI "
-                         "still refuses')")
+                         "(ROADMAP Queue 1, 'What the infer CLI still refuses')")
 
 
 def read_image(path):
@@ -51,8 +68,14 @@ def read_image(path):
     if data[:2] == b"P6":
         return _read_ppm(path, data)
     if data[:3] == b"\xff\xd8\xff":
-        raise UnsupportedImage(path, "a JPEG")
-    raise UnsupportedImage(path, "not a PNG, PPM or .npy file")
+        try:
+            return decode_jpeg(data)
+        except UnsupportedJpeg as e:
+            raise UnsupportedImage(path, str(e)) from None
+    for magic, at, what in _REFUSED_MAGIC:
+        if data[at:at + len(magic)] == magic:
+            raise UnsupportedImage(path, what)
+    raise UnsupportedImage(path, "not an image file this build reads")
 
 
 def image_names(directory):
@@ -66,7 +89,9 @@ def frame_paths(source, limit=None):
     """A video source: the image files of directory ``source``, sorted, the
     first ``limit`` of them.  A video file is refused."""
     if not os.path.isdir(source):
-        raise UnsupportedImage(source, "a video file; pass a directory of frames")
+        raise UnsupportedImage(source, "a video file (the JAX CLI reads it with "
+                               "cv2.VideoCapture, which is not ported); pass a directory "
+                               "of frames")
     return [os.path.join(source, n) for n in image_names(source)[:limit]]
 
 
@@ -111,28 +136,62 @@ def _png_chunks(path, data):
 
 
 def _read_png(path, data):
-    header, idat = None, []
+    header, idat, palette = None, [], None
     for kind, body in _png_chunks(path, data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise UnsupportedImage(path, "a PNG without a header")
     width, height, depth, colour, _, _, interlace = header
-    if depth != 8:
-        raise UnsupportedImage(path, f"a {depth}-bit PNG")
-    if colour not in _CHANNELS:
-        raise UnsupportedImage(path, f"a PNG of colour type {colour} (palette)")
-    if interlace:
-        raise UnsupportedImage(path, "an interlaced PNG")
-    bpp = _CHANNELS[colour]
+    if colour not in _CHANNELS or depth not in _DEPTHS[colour]:
+        raise UnsupportedImage(path, f"a PNG of colour type {colour} at {depth} bits")
+    if interlace > 1:
+        raise UnsupportedImage(path, f"a PNG of interlace method {interlace}")
+    if colour == 3 and palette is None:
+        raise UnsupportedImage(path, "a palette PNG without a palette")
+    channels = _CHANNELS[colour]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = raw[:height * (width * bpp + 1)].reshape(height, width * bpp + 1)
-    pixels = _unfilter(rows[:, 1:], rows[:, 0], bpp).reshape(height, width, bpp)
-    if bpp <= 2:  # grey, with or without alpha
-        return np.repeat(pixels[..., :1], 3, axis=2)
-    return np.ascontiguousarray(pixels[..., :3])
+    samples = np.zeros((height, width, channels), np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass has no bytes, not even filter types
+        rowbytes = -(-pw * channels * depth // 8)
+        rows = raw[pos:pos + ph * (rowbytes + 1)]
+        if rows.size != ph * (rowbytes + 1):
+            raise UnsupportedImage(path, "a truncated PNG")
+        rows = rows.reshape(ph, rowbytes + 1)
+        pos += rows.size
+        bpp = max(1, channels * depth // 8)
+        samples[y0::dy, x0::dx] = _samples(_unfilter(rows[:, 1:], rows[:, 0], bpp),
+                                           pw, channels, depth)
+    if colour == 3:  # palette: indices past its end read black, as libpng's
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette)] = palette[:256]
+        return table[samples[..., 0]]
+    if depth < 8:  # png_set_expand_gray_1_2_4_to_8
+        samples = samples * np.uint8(255 // (2 ** depth - 1))
+    if channels <= 2:  # grey, with or without alpha
+        return np.repeat(samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
+
+
+def _samples(raw, width, channels, depth):
+    """Unfiltered rows -> (rows, width, channels) uint8 samples: 16-bit ones
+    reduced to their high byte, 1-4-bit ones unpacked (MSB first) unscaled."""
+    if depth == 16:
+        return raw.reshape(len(raw), -1, 2)[:, :width * channels, 0].reshape(
+            len(raw), width, channels)
+    if depth == 8:
+        return raw[:, :width * channels].reshape(len(raw), width, channels)
+    bits = np.unpackbits(raw, axis=1).reshape(len(raw), -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[:, :width, None]
 
 
 def _unfilter(filtered, kinds, bpp):

@@ -2,17 +2,24 @@
 
     python -m orienmask_tpu_torch.infer -c <config name or .json> \\
         (-w <.pth or .ckpt> | --random-weights) \\
-        (-i <image> | -d <dir> [-l <list>] [-j <images json> -o <dir>] | --video <frames dir>)
+        (-i <image> | -d <dir> [-l <list>] [-j <images json>] | --video <frames dir>) \\
+        [-v] [-s] [-o <dir>]
 
 Input modes: one image (-i), a directory (-d, optionally a list file -l),
 COCO images json (-j, with -d; -o keeps the bbox and segm prediction json
 files), a frame directory streamed through ``StreamingPipeline`` (--video,
 ``--stream-depth`` or the config's ``stream_depth``).  Images are read by
-``data/image_io.py`` (PNG, PPM, .npy; no JPEG or video decoder).  Runs on
-the card (``--device cuda``, the default) unless ``--device cpu`` is asked
-for.  Refused until ported: the visualizer (-v, -s; it draws with cv2) and
-row sharding over several devices (--spatial).  ``main(argv)`` is the entry
-point that tests and ``chip_smoke.py`` call in-process.
+``data/image_io.py`` (JPEG, PNG, PPM, .npy).  -v draws each image with
+``utils/visualizer.py::InferenceVisualizer`` (the config's visualizer block);
+with -o it writes each drawing to ``<output>/<file name>`` with the extension
+``.png`` (the JAX CLI writes JPEG under the file's own name; the port has no
+JPEG encoder), and -s shows it with matplotlib.  --video with -o turns on -v
+and writes ``frame_%06d.png``.  Runs on the card (``--device cuda``, the
+default) unless ``--device cpu`` is asked for.  Refused until ported: video
+files in and out (``cv2.VideoCapture``/``VideoWriter`` in the JAX CLI) and
+row sharding over several devices (--spatial N > 1; --spatial 0 and 1 run
+the plain pipeline, as the JAX CLI does).  ``main(argv)`` is the entry point
+that tests and ``chip_smoke.py`` call in-process.
 """
 
 import argparse
@@ -20,12 +27,13 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from . import config as config_module
 from .data import FastCOCOTransform
 from .data.dataset import COCODataset
-from .data.image_io import UnsupportedImage, frame_paths, image_names, read_image
+from .data.image_io import UnsupportedImage, frame_paths, image_names, read_image, write_png
 from .device import resolve_device
 from .eval import COCOMetrics
 from .models import build_model, init_random
@@ -35,12 +43,13 @@ from .stream import StreamingPipeline
 from .trainer.checkpoint import load_checkpoint
 from .utils import timer
 from .utils.profiler import trace
+from .utils.visualizer import InferenceVisualizer
 
 REFUSED = {
-    "visualize": "-v/--visualize and -s/--show are not ported yet: the visualizer draws "
-                 "with cv2, which the card's machine lacks (ROADMAP Queue 1, 'What the "
-                 "infer CLI still refuses')",
-    "spatial": "--spatial is not ported yet: row sharding over several devices "
+    "video_output": "-o *.mp4/*.avi is not ported yet: the JAX CLI writes video files with "
+                    "cv2.VideoWriter; pass a directory for frame_%06d.png files (ROADMAP "
+                    "Queue 1, 'What the infer CLI still refuses')",
+    "spatial": "--spatial is not ported yet for N > 1: row sharding over several devices "
                "(ROADMAP Queue 1, 'What the infer CLI still refuses')",
 }
 
@@ -107,7 +116,7 @@ def load_image(path):
         raise SystemExit(str(e)) from None
 
 
-def run_video(args, config, pipeline):
+def run_video(args, config, pipeline, visualizer):
     """Streaming mode: depth frames stay submitted but not fetched."""
     depth = args.stream_depth or config.get("stream_depth", 2)
     stream = StreamingPipeline(pipeline, depth=depth, device=pipeline.device)
@@ -115,7 +124,20 @@ def run_video(args, config, pipeline):
         paths = frame_paths(args.video, args.num_images)
     except UnsupportedImage as e:
         raise SystemExit(str(e)) from None
-    n_frames = 0
+    if args.output:
+        os.makedirs(args.output, exist_ok=True)
+    src_frames = []  # parallel to the in-flight queue
+    n_frames = n_out = 0
+
+    def emit(predictions):
+        nonlocal n_out
+        src = src_frames.pop(0)
+        if visualizer is not None:
+            show = visualizer(predictions[0], src.astype(np.float32), pipeline.pad_info)
+            if args.output:
+                write_png(os.path.join(args.output, f"frame_{n_out:06d}.png"), show)
+        n_out += 1
+
     t_start = time.perf_counter()
     with trace(args.profile):
         for path in paths:
@@ -127,11 +149,12 @@ def run_video(args, config, pipeline):
                     torch.cuda.synchronize(pipeline.device)
                 t_start = time.perf_counter()
             stream.submit(frame[None])
+            src_frames.append(frame)
             n_frames += 1
             if stream.ready():
-                stream.retrieve()
-        for _ in stream.drain():
-            pass
+                emit(stream.retrieve())
+        for predictions in stream.drain():
+            emit(predictions)
     elapsed = time.perf_counter() - t_start
     if n_frames == 0:
         raise SystemExit(f"no frames decoded from {args.video}")
@@ -167,7 +190,17 @@ def resolve_inputs(args):
     raise ValueError("Either image or image_dir should be given.")
 
 
-def run_images(args, pipeline):
+def pyplot():
+    """matplotlib.pyplot for -s, or the exit that names what is missing."""
+    try:
+        import matplotlib.pyplot as plt
+    except ImportError:
+        raise SystemExit("-s/--show needs matplotlib, which is not installed here; "
+                         "use -v -o <dir> to write the drawings instead") from None
+    return plt
+
+
+def run_images(args, pipeline, visualizer):
     names, paths, infos, metrics = resolve_inputs(args)
     if args.output:
         os.makedirs(args.output, exist_ok=True)
@@ -189,6 +222,17 @@ def run_images(args, pipeline):
                 with timer.timer("Convert Format"):
                     info = [dict(infos[idx], collate_pad=pipeline.pad_info)]
                     metrics.update_results(metrics.to_coco_format(info, predictions))
+            if visualizer is not None:
+                with timer.timer("Visualize"):
+                    show = visualizer(predictions[0], src_image.astype(np.float32),
+                                      pipeline.pad_info)
+                    if args.show:
+                        plt = pyplot()
+                        plt.imshow(show)
+                        plt.show()
+                    if args.output:  # the image's name, as PNG (the JAX CLI writes JPEG)
+                        name = os.path.splitext(names[idx])[0] + ".png"
+                        write_png(os.path.join(args.output, name), show)
 
     if args.json_file and metrics is not None:
         with open(metrics.bbox_pred_file, "w") as fh:
@@ -212,19 +256,27 @@ def main(argv=None):
     if args.video and args.output and not args.visualize:
         print("--output implies --visualize in --video mode")
         args.visualize = True
-    if args.visualize or args.show:
-        raise SystemExit(REFUSED["visualize"])
-    if args.spatial is not None:
+    if args.video and args.output and args.output.endswith((".mp4", ".avi")):
+        raise SystemExit(REFUSED["video_output"])
+    if args.spatial is not None and args.spatial > 1:
         raise SystemExit(REFUSED["spatial"])
+    if args.visualize and args.show:
+        pyplot()  # exits here, before the model is built, where it is missing
     if args.json_file and not args.output:
         print("WARNING: -j without -o accumulates no detections; the dumped "
               "prediction JSONs will be empty (pass -o to keep them)")
     device = resolve_device(args.device)
     config = load_config(args.config)
+    visualizer = None
+    if args.visualize:
+        if "visualizer" not in config:
+            raise SystemExit(f"-v: config {args.config} has no visualizer block")
+        visualizer = InferenceVisualizer(
+            **{k: v for k, v in config["visualizer"].items() if k != "type"})
     pipeline = build_pipeline(config, args, device)
     if args.video:
-        return run_video(args, config, pipeline)
-    return run_images(args, pipeline)
+        return run_video(args, config, pipeline, visualizer)
+    return run_images(args, pipeline, visualizer)
 
 
 if __name__ == "__main__":

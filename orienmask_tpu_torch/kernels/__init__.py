@@ -10,6 +10,11 @@ Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``launch``
 raises when that is not 0.  ``launches`` holds one count per kernel, which
 its wrapper raises by one where it launches the kernel.
+
+Host code with a C interface, ``csrc/<name>.cc`` (the JPEG entropy
+decoder), is built the same way with the host C++ compiler (``g++``, which
+nvcc itself needs) into ``csrc/build/lib<name>.so`` by ``host_library``; it
+runs on the CPU, so the tests build and call it too.
 """
 
 import ctypes
@@ -51,6 +56,17 @@ SIGNATURES = {
     },
 }
 
+HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+_L = ctypes.c_int64
+HOST_SIGNATURES = {
+    "jpeg_host": {
+        # segment, its length, coefficient buffer, offsets, geometry, scan
+        # components, Huffman tables, tables present, mcux, mcuy, Ss, Se,
+        # Ah, Al, restart interval, progressive
+        "omj_decode_scan": [_P, _L, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+    },
+}
+
 launches = {"exact_topk": 0, "assemble_masks_packed": 0, "assemble_masks": 0,
             "assemble_masks_bitpacked": 0, "paint_orientation": 0}
 
@@ -74,24 +90,26 @@ def _nvcc():
     return nvcc
 
 
-def build_all():
-    """Compile every ``csrc/*.cu`` whose library is missing or older than
-    its source, one ``nvcc`` each, in parallel."""
-    global build_seconds
+def _stale(suffix):
+    """(source, library) of every ``csrc/*<suffix>`` whose library is
+    missing or older than its source."""
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*" + suffix)):
         so = BUILD_DIR / f"lib{src.stem}.so"
         if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
             jobs.append((src, so))
-    if not jobs:
-        return
+    return jobs
+
+
+def _compile(jobs, command):
+    """Build each (source, library) of ``jobs`` with ``command``, one
+    process each, all started together; the seconds it took."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
     for src, so in jobs:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [*command, "-o", str(tmp), str(src)]
         procs.append((src, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -104,8 +122,17 @@ def build_all():
         else:
             os.replace(tmp, so)
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    build_seconds = time.perf_counter() - t0
+        raise RuntimeError(f"{command[0]} failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def build_all():
+    """Compile every ``csrc/*.cu`` whose library is missing or older than
+    its source, one ``nvcc`` each, in parallel."""
+    global build_seconds
+    jobs = _stale(".cu")
+    if jobs:
+        build_seconds = _compile(jobs, [_nvcc(), *NVCC_FLAGS])
 
 
 def library(name):
@@ -118,6 +145,27 @@ def library(name):
             getattr(lib, fn).restype = ctypes.c_int
         lib.omt_error_string.argtypes = [ctypes.c_int]
         lib.omt_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
+
+
+def host_library(name):
+    """The loaded host library ``lib<name>.so`` (from ``csrc/<name>.cc``,
+    built with ``g++`` when missing or older than its source)."""
+    if name not in _libs:
+        jobs = _stale(".cc")
+        if jobs:
+            cxx = shutil.which("g++")
+            if cxx is None:
+                raise RuntimeError("g++ not found: the host libraries of csrc/*.cc are built "
+                                   "at first use with the host C++ compiler")
+            _compile(jobs, [cxx, *HOST_FLAGS])
+        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+        for fn, argtypes in HOST_SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.omj_error_string.argtypes = [ctypes.c_int]
+        lib.omj_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return _libs[name]
 

@@ -1,7 +1,9 @@
 """The port's image reader and writer (``data/image_io.py``) against OpenCV,
 which the JAX CLI reads with (``cv2.imread`` + ``cvtColor``): every PNG
-colour type it reads and every filter type, exactly; PPM and ``.npy``
-round trips; the formats it refuses, with the message."""
+colour type and bit depth, interlaced or not, and every filter type,
+exactly (16 bits reduced to the high byte, as cv2 reduces them); PPM and
+``.npy`` round trips; the formats it refuses, with the message.  JPEG has
+its own file, ``test_torch_jpeg.py``."""
 
 import struct
 import zlib
@@ -128,22 +130,100 @@ def test_ppm_and_npy_round_trip(tmp_path):
 
 def test_refused_formats_name_what_is_read(tmp_path):
     image = np.random.default_rng(6).integers(0, 256, (8, 8, 3), dtype=np.uint8)
-    cv2.imwrite(str(tmp_path / "a.jpg"), image)
-    cv2.imwrite(str(tmp_path / "deep.png"), image.astype(np.uint16) * 257)
-    Image.fromarray(image).convert("P").save(tmp_path / "palette.png")
-    # an interlaced header (the IDAT content is never reached)
-    (tmp_path / "interlaced.png").write_bytes(_png(
-        image.reshape(8, -1), 2, 0, header=struct.pack(">IIBBBBB", 8, 8, 8, 2, 0, 0, 1)))
+    cv2.imwrite(str(tmp_path / "a.bmp"), image)
+    cv2.imwrite(str(tmp_path / "a.tif"), image)
+    cv2.imwrite(str(tmp_path / "a.webp"), image)
+    Image.fromarray(image).convert("CMYK").save(tmp_path / "cmyk.jpg")
+    # a bit depth the colour type does not allow
+    (tmp_path / "rgb4.png").write_bytes(_png(
+        image.reshape(8, -1), 2, 0, header=struct.pack(">IIBBBBB", 8, 8, 4, 2, 0, 0, 0)))
     np.save(tmp_path / "f32.npy", image.astype(np.float32))
     (tmp_path / "clip.mp4").write_bytes(b"\x00\x00\x00\x18ftypmp42")
-    for name, why in (("a.jpg", "a JPEG"), ("deep.png", "16-bit"),
-                      ("palette.png", "colour type 3"), ("interlaced.png", "interlaced"),
-                      ("f32.npy", "float32"), ("clip.mp4", "not a PNG")):
+    (tmp_path / "notes.txt").write_bytes(b"hello")
+    for name, why in (("a.bmp", "a BMP file"), ("a.tif", "a TIFF file"),
+                      ("a.webp", "a WebP file"), ("cmyk.jpg", "4-component JPEG"),
+                      ("rgb4.png", "colour type 2 at 4 bits"), ("f32.npy", "float32"),
+                      ("clip.mp4", "a video file"), ("notes.txt", "not an image file")):
         with pytest.raises(UnsupportedImage, match=why) as err:
             read_image(tmp_path / name)
-        assert "reads 8-bit non-interlaced PNG" in str(err.value), name
+        assert "this build reads PNG (every colour type" in str(err.value), name
     with pytest.raises(UnsupportedImage, match="video file"):
         frame_paths(tmp_path / "clip.mp4")
+
+
+def _pack(samples, depth):
+    """(rows, width, channels) samples -> (rows, bytes) packed as PNG packs
+    them: MSB first below 8 bits, big-endian at 16."""
+    rows = samples.reshape(len(samples), -1)
+    if depth == 16:
+        return rows.astype(">u2").view(np.uint8).reshape(len(rows), -1)
+    if depth == 8:
+        return rows.astype(np.uint8)
+    bits = (rows[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.reshape(len(rows), -1).astype(np.uint8), axis=1)
+
+
+def _png_any(samples, colour, depth, interlace, palette=None, trns=None):
+    """PNG bytes of (H, W, C) samples of any colour type and depth, Adam7
+    interlaced or not, each row filtered with type ``y % 5``."""
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    body = []
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+              (1, 0, 2, 2), (0, 1, 1, 2)) if interlace else ((0, 0, 1, 1),)
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        raw = _pack(sub, depth).astype(np.int16)
+        a, b, cc = np.zeros_like(raw), np.zeros_like(raw), np.zeros_like(raw)
+        a[:, bpp:], b[1:], cc[1:, bpp:] = raw[:, :-bpp], raw[:-1], raw[:-1, :-bpp]
+        p = a + b - cc
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+        preds = [np.zeros_like(raw), a, b, (a + b) >> 1,
+                 np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))]
+        for y in range(len(raw)):
+            f = y % 5
+            body.append(bytes([f]) + ((raw[y] - preds[f][y]) & 0xFF).astype(np.uint8).tobytes())
+    chunks = _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0,
+                                             int(interlace)))
+    if palette is not None:
+        chunks += _png_chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    if trns is not None:
+        chunks += _png_chunk(b"tRNS", trns)
+    return (b"\x89PNG\r\n\x1a\n" + chunks + _png_chunk(b"IDAT", zlib.compress(b"".join(body)))
+            + _png_chunk(b"IEND", b""))
+
+
+_FORMS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
+          (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
+@pytest.mark.parametrize("colour,depth", _FORMS, ids=[f"type{c}_{d}bit" for c, d in _FORMS])
+def test_every_png_form_reads_as_opencv_reads_it(tmp_path, colour, depth, interlace):
+    """Every colour type at every depth it allows, Adam7 or not, all five
+    filter types, at odd sizes (13x11 leaves some Adam7 passes one pixel
+    wide, 1x3 leaves some empty): bit for bit with ``cv2.imread``; a
+    palette shorter than its indices reads black there, tRNS is ignored."""
+    rng = np.random.default_rng(colour * 100 + depth)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[colour]
+    top = 2 ** depth
+    for h, w in ((13, 11), (1, 3), (37, 53)):
+        samples = rng.integers(0, top, (h, w, channels), dtype=np.uint32)
+        palette = trns = None
+        if colour == 3:
+            palette = rng.integers(0, 256, (max(1, top - 1), 3))  # the last index has no entry
+            trns = bytes(rng.integers(0, 256, 2, dtype=np.uint8))
+        elif colour in (0, 2):
+            trns = bytes(2 * channels)
+        path = tmp_path / f"{h}x{w}.png"
+        path.write_bytes(_png_any(samples, colour, depth, interlace, palette, trns))
+        want = _cv2_rgb(path)
+        np.testing.assert_array_equal(read_image(path), want, err_msg=f"{h}x{w}")
+        if depth == 16:  # cv2 keeps the high byte (png_set_strip_16), it does not round
+            first = samples[..., :3] if channels >= 3 else np.repeat(samples[..., :1], 3, 2)
+            np.testing.assert_array_equal(want, (first >> 8).astype(np.uint8))
 
 
 def test_frame_and_image_directories(tmp_path):

@@ -145,11 +145,12 @@ def test_image_mode_prints_the_timer_report(inputs, capsys):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["-v"], "visualizer"),
-    (["-s"], "visualizer"),
+    (["--video", "clip.mp4"], "cv2.VideoCapture"),
+    (["--video", "frames", "-o", "out.mp4"], "cv2.VideoWriter"),
     (["--spatial", "2"], "--spatial is not ported"),
 ])
 def test_refused_flags_exit_with_their_message(inputs, extra, message):
+    torch.set_num_threads(1)
     with pytest.raises(SystemExit) as err:
         infer.main(["--device", "cpu", "-c", str(inputs / "config.json"),
                     "--random-weights", "-i", "x.png"] + extra)
@@ -157,23 +158,135 @@ def test_refused_flags_exit_with_their_message(inputs, extra, message):
 
 
 def test_video_output_implies_visualize_then_refuses(inputs, capsys):
-    """As the JAX CLI does, ``--video -o`` turns on the visualizer, which is
-    then refused."""
+    """As the JAX CLI does, ``--video -o`` turns on the visualizer; a video
+    file for the output is then refused (cv2.VideoWriter is not ported)."""
     with pytest.raises(SystemExit) as err:
         infer.main(["--device", "cpu", "-c", str(inputs / "config.json"),
-                    "--random-weights", "--video", "frames", "-o", "out"])
+                    "--random-weights", "--video", "frames", "-o", "out.avi"])
     assert "--output implies --visualize" in capsys.readouterr().out
-    assert "visualizer" in str(err.value.code)
+    assert "cv2.VideoWriter" in str(err.value.code)
 
 
 def test_jpeg_input_exits_with_the_formats_read(inputs, tmp_path):
-    cv2.imwrite(str(tmp_path / "a.jpg"), np.zeros((8, 8, 3), np.uint8))
+    """A JPEG form the decoder refuses (4-component, as PIL writes CMYK)
+    exits naming the form and what is read."""
+    from PIL import Image
+
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).convert("CMYK").save(tmp_path / "a.jpg")
     proc = subprocess.run(
         [sys.executable, "-m", "orienmask_tpu_torch.infer", "--device", "cpu", "-c",
          str(inputs / "config.json"), "--random-weights", "-i", str(tmp_path / "a.jpg")],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
-    assert "a JPEG" in proc.stderr and "reads 8-bit non-interlaced PNG" in proc.stderr
+    assert "4-component JPEG" in proc.stderr and "reads PNG (every colour type" in proc.stderr
+
+
+def _run_main(argv):
+    torch.set_num_threads(1)
+    assert infer.main(["--device", "cpu"] + argv) == 0
+
+
+@pytest.fixture(scope="module")
+def no_flag_dump(inputs, tmp_path_factory):
+    out = tmp_path_factory.mktemp("no_flag")
+    _run_main(["-c", str(inputs / "config.json"), "--random-weights", "-d",
+               str(inputs / "images"), "-j", str(inputs / "images.json"), "-o", str(out)])
+    return out
+
+
+@pytest.mark.parametrize("spatial", ["0", "1"])
+def test_spatial_0_and_1_dump_what_no_flag_dumps(inputs, no_flag_dump, tmp_path, spatial):
+    """The JAX CLI builds a mesh only for --spatial N > 1 (infer.py:93), so
+    0 and 1 run the plain pipeline: the same JSON files, byte for byte."""
+    _run_main(["-c", str(inputs / "config.json"), "--random-weights", "-d",
+               str(inputs / "images"), "-j", str(inputs / "images.json"), "-o",
+               str(tmp_path), "--spatial", spatial])
+    for kind in ("bbox", "segm"):
+        name = f"{kind}_prediction.json"
+        assert (tmp_path / name).read_bytes() == (no_flag_dump / name).read_bytes()
+    assert json.loads((tmp_path / "bbox_prediction.json").read_text())
+
+
+@pytest.fixture(scope="module")
+def jpeg_dir(tmp_path_factory):
+    """Three JPEGs at 4:2:0, 4:4:4 and progressive, and a JSON config whose
+    visualizer block is the published one."""
+    root = tmp_path_factory.mktemp("jpegs")
+    rng = np.random.default_rng(9)
+    for i, params in enumerate(([], [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                     cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444],
+                                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])):
+        cv2.imwrite(str(root / f"im{i}.jpg"), rng.integers(0, 256, (96, 128, 3), np.uint8),
+                    params)
+    return root
+
+
+def _config_with_visualizer(inputs, conf_thresh=0.3):
+    from orienmask_tpu_torch.config import coco_visualizer
+
+    config = dict(_config(), visualizer=dict(coco_visualizer, conf_thresh=conf_thresh))
+    path = inputs / f"config_vis_{conf_thresh}.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+def test_visualize_over_a_jpeg_directory_writes_one_png_each(inputs, jpeg_dir, tmp_path,
+                                                             capsys):
+    """-d <JPEGs> -v -o: one PNG per image under the image's name with the
+    extension .png, each the JAX visualizer's drawing of the port's
+    detections on cv2's decode of the JPEG (conf_thresh 0 draws every box,
+    label and mask), and Visualize in the timer report."""
+    import random
+
+    from orienmask_tpu.utils.visualizer import InferenceVisualizer as JaxVisualizer
+    from orienmask_tpu_torch.data.image_io import read_image
+    from orienmask_tpu_torch.pipeline import InferencePipeline
+
+    drawn = []
+    run = InferencePipeline.run_device
+
+    def keep(pipe, image):
+        out = run(pipe, image)
+        drawn.append((image[0].copy(), pipe.postprocess.to_host_list(out)[0], pipe.pad_info))
+        return out
+
+    random.seed(5)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(InferencePipeline, "run_device", keep)
+        _run_main(["-c", str(_config_with_visualizer(inputs, 0.0)), "-w",
+                   str(inputs / "weights.ckpt"), "-d", str(jpeg_dir), "-v", "-o", str(tmp_path)])
+    assert "Visualize: " in capsys.readouterr().out
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["im0.png", "im1.png", "im2.png"]
+    from orienmask_tpu_torch.config import coco_visualizer
+
+    ref = JaxVisualizer(**{k: v for k, v in dict(coco_visualizer, conf_thresh=0.0).items()
+                           if k != "type"})
+    random.seed(5)
+    for i, (image, detections, pad_info) in enumerate(drawn):
+        src = cv2.cvtColor(cv2.imread(str(jpeg_dir / f"im{i}.jpg")), cv2.COLOR_BGR2RGB)
+        np.testing.assert_array_equal(np.asarray(image), src)
+        assert len(detections["bbox"]) > 0
+        want = ref(detections, src.astype(np.float32), pad_info)
+        np.testing.assert_array_equal(read_image(tmp_path / f"im{i}.png"), want)
+
+
+def test_video_output_writes_a_png_frame_each(inputs, jpeg_dir, tmp_path, capsys):
+    """--video <JPEG frames> -o <dir>: frame_%06d.png, one a frame."""
+    _run_main(["-c", str(_config_with_visualizer(inputs)), "--random-weights", "--video",
+               str(jpeg_dir), "-o", str(tmp_path), "--stream-depth", "2"])
+    assert "Streamed 3 frames (depth=2)" in capsys.readouterr().out
+    assert sorted(p.name for p in tmp_path.iterdir()) == [f"frame_{i:06d}.png" for i in range(3)]
+
+
+def test_show_without_matplotlib_exits_with_its_message(inputs, monkeypatch):
+    """-v -s where matplotlib is missing (the card's machine): the exit
+    names it, before any model is built."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setitem(sys.modules, "matplotlib.pyplot", None)
+    with pytest.raises(SystemExit) as err:
+        infer.main(["--device", "cpu", "-c", str(inputs / "config.json"), "--random-weights",
+                    "-i", "x.png", "-v", "-s"])
+    assert "matplotlib" in str(err.value.code)
 
 
 def test_json_without_output_warns(inputs, capsys, tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX and nothing of orienmask_tpu in its sources
 or in chip_smoke.py, none of the host packages the card's machine lacks
 (cv2, tabulate, tqdm; pycocotools only inside a guarded function), it
-imports with JAX made unimportable, and it never moves to the CPU on its
+imports with JAX, cv2, PIL and matplotlib made unimportable (the JPEG
+decoder and the visualizer among it), and it never moves to the CPU on its
 own."""
 
 import ast
@@ -41,10 +42,11 @@ def test_sources_import_neither_jax_nor_the_jax_package(path):
 
 @pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_sources_import_no_host_package_the_card_machine_lacks(path):
-    """cv2, tabulate and tqdm nowhere; pycocotools only inside functions,
+    """cv2, PIL, tabulate and tqdm nowhere; pycocotools only inside functions,
     one of which imports it inside a ``try`` (``coco_eval._try_pycocotools``)."""
     for name in _imported_modules(path):
-        assert name.split(".")[0] not in ("cv2", "tabulate", "tqdm"), f"{path.name} imports {name}"
+        assert name.split(".")[0] not in ("cv2", "PIL", "tabulate", "tqdm"), \
+            f"{path.name} imports {name}"
     tree = ast.parse(path.read_text(), filename=str(path))
     in_functions = {id(n) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
                     for n in ast.walk(f)}
@@ -56,13 +58,17 @@ def test_sources_import_no_host_package_the_card_machine_lacks(path):
 
 def test_pipeline_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['orienmask_tpu'] = None\n"
-            "for m in ('cv2', 'PIL', 'tabulate', 'tqdm', 'pycocotools'): sys.modules[m] = None\n"
+            "for m in ('cv2', 'PIL', 'tabulate', 'tqdm', 'pycocotools', 'matplotlib'): "
+            "sys.modules[m] = None\n"
             "import orienmask_tpu_torch.pipeline, orienmask_tpu_torch.ops, "
             "orienmask_tpu_torch.models, orienmask_tpu_torch.data, "
             "orienmask_tpu_torch.optim, orienmask_tpu_torch.trainer, "
             "orienmask_tpu_torch.eval, orienmask_tpu_torch.utils.timer, "
             "orienmask_tpu_torch.infer, orienmask_tpu_torch.stream, "
-            "orienmask_tpu_torch.utils.profiler, orienmask_tpu_torch.data.image_io\n"
+            "orienmask_tpu_torch.utils.profiler, orienmask_tpu_torch.data.image_io, "
+            "orienmask_tpu_torch.data.jpeg, orienmask_tpu_torch.utils.visualizer\n"
+            "from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer\n"
+            "InferenceVisualizer('COCO')\n"
             "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "
             "for m, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
