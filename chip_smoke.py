@@ -6,8 +6,9 @@ It needs one CUDA card and ``nvcc``; without a card it exits non-zero and
 prints no result.  Phases, in order (any failure raises and exits non-zero):
 
 1. build the hand-written kernels of ``orienmask_tpu_torch/csrc`` with nvcc
-   for sm_90a; print the card, the build time and ptxas's registers, shared
-   memory and spills for kernels 1–4;
+   for sm_90a and the host libraries (``csrc/*.cc``: the JPEG scans, the
+   native host library ``omtpu``) with g++; print the card, the build time
+   and ptxas's registers, shared memory and spills for kernels 1–4 and 6;
 2. kernel 1 (exact top-k) against its plain version on the card: values and
    indices bit-identical on every case, each with its launch plan (C, chunk),
    batch rows at every cluster size from 3 to 8 among them;
@@ -53,10 +54,14 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    selection) at full width with seeded random weights saved as a
    reference-layout .pth and read by ``load_checkpoint``; ``Tester`` runs
    over 32 synthetic 544² scenes with COCO ground truth, with launch
-   counts read around the loop (kernel 1 twice a batch, kernel 2 once);
-   the postprocess with the plain versions on the same heads must give
-   identical device outputs and identical 12-stat bbox and segm vectors;
-   one batch with spread head logits must match too;
+   counts read around the loop (kernel 1 twice a batch, kernels 2 and 6
+   once: Convert Format recovers the masks on the card and the native
+   library encodes them); the postprocess with the plain versions on the
+   same heads must give identical device outputs, and the host route of the
+   COCO conversion (``to_host_list``, the numpy resize, the RLE of uint8
+   masks) on them the same JSON files and 12-stat bbox and segm vectors as
+   the card route; one batch with spread head logits must match too, in
+   its outputs and in both routes' COCO dicts;
 11. eval timings: kernels 3 and 4 on phase 9's main case and on a painted
    field, each beside its plain version, its bound recounted from the tile
    classes, the unculled count and the per-detection grid's time; the exact
@@ -68,9 +73,10 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    json> -o <dir>``, for ``orienmask_yolo_coco_544_anchor4_fpn_plus_infer``
    and for the base model's ``orienmask_yolo_coco_544_anchor4_infer``; each
    image's device outputs identical to the plain-version postprocess on its
-   heads, the dumped bbox and segm jsons one entry per valid detection,
-   launch counts read around each run (kernel 1 twice, kernel 2 once an
-   image);
+   heads, the dumped bbox and segm jsons one entry per valid detection and
+   identical to the host route's on the same device outputs (each image's
+   card-route COCO dicts too), launch counts read around each run (kernel 1
+   twice, kernels 2 and 6 once an image);
 13. the 736² stream: ``--video <24 seeded 720x1280 PNG frames>`` with
    ``orienmask_yolo_coco_736_anchor4_fpn_plus_infer`` at depth 2, each
    frame's device outputs and streamed host lists identical to the plain
@@ -94,11 +100,20 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    the infer CLI at 544² over them with -j -o and with -v -o, and
    ``--video <the fixtures> -o`` at 736² (depth 2): every image's device
    outputs identical to the plain-version postprocess on its heads, kernel 1
-   twice and kernel 2 once an image, the JSONs' entry counts, every written
+   twice and kernel 2 once an image (kernel 6 once with -j), the JSONs'
+   entry counts and their identity with the host route's, every written
    PNG identical to the port's visualizer on the plain-version host list
    under the same ``random.seed``; a host list with spread scores drawn too
    (random weights put nothing above conf_thresh 0.3); the reports' Load
-   data, Forward & Postprocess and Visualize ms an image.
+   data, Forward & Postprocess and Visualize ms an image;
+16. kernel 6 (mask recovery, ``csrc/recover.cu``) against its plain version
+   on the card, bit for bit, on noise masks (every pixel a 0.5 tie) at (a)
+   the CLI's 544² to 480x640, 100 masks, (b) an eval batch, B = 16 at 544²
+   to 544², (c) the JPEG fixture's 427x613, (d) 736² to 720x1280, (e)
+   hflip + vflip with asymmetric pads at B = 3, (f) an exact 2x down; each
+   timed beside its plain version and its bound (bytes, and a pass's
+   subtraction and fused multiply-add where its fraction is non-zero and its
+   two values differ, a rint where any pass ran).
 
 The last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``train_544_b8``, ``eval_544_b16``); ``{"infer_544_b8": ...,
@@ -106,7 +121,8 @@ The last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 "staged_fps": ...}, "jpeg": {...}}``; the card's name and power limit; the kernels' JSON
 record: kernels 1 and 2 carry per-path launch counts (``paths``: infer,
 eval, cli, stream_736, batch, jpeg_cli) and their times at the 736² and batch shapes
-(``shapes_736``, ``batch``); the last line is
+(``shapes_736``, ``batch``), kernel 6 its paths (eval, cli, jpeg_cli) and
+phase 16's cases; the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
 torch.profiler tables of 20 frames and of 3 train steps in each dtype to
 DIR.
@@ -1503,9 +1519,9 @@ def check_eval_path(ev):
     log(f"  {EVAL_IMAGES} scenes ({ev.n_gt} ground-truth instances), {n_batches} batches of "
         f"{ev.loader.batch_size} in {time.perf_counter() - t:.2f} s, launches: {counts}")
     if counts["exact_topk"] != 2 * n_batches or counts["assemble_masks_packed"] != n_batches \
-            or sum(counts.values()) != 3 * n_batches:
-        raise AssertionError(f"expected {2 * n_batches} top-k and {n_batches} mask launches "
-                             f"and nothing else, got {counts}")
+            or counts["recover_masks"] != n_batches or sum(counts.values()) != 4 * n_batches:
+        raise AssertionError(f"expected {2 * n_batches} top-k, {n_batches} mask and "
+                             f"{n_batches} recovery launches and nothing else, got {counts}")
     m = tester.coco_metrics
     bbox, segm = np.asarray(m.bbox_eval_stats), np.asarray(m.segm_eval_stats)
     if bbox.shape != (12,) or segm.shape != (12,) or not len(m.bbox_results):
@@ -1517,29 +1533,47 @@ def check_eval_path(ev):
     log(f"  {len(m.bbox_results)} detections; per-stage table: "
         + "; ".join(line for line in text.splitlines() if "ms (" in line))
 
-    # the same heads through the plain-version postprocess, the same host code
+    # the same heads through the plain-version postprocess, then the host
+    # route of the COCO conversion (Tester's on the CPU) on its outputs
     plain = plain_postprocess(ev.pp_kw)
-    metrics = COCOMetrics(str(ev.gt_file), ev.loader.dataset.CAT2LABEL, True, str(ev.workdir))
+    host_dir = ev.workdir / "host_route"
+    host_dir.mkdir(exist_ok=True)
+    metrics = COCOMetrics(str(ev.gt_file), ev.loader.dataset.CAT2LABEL, True, str(host_dir))
+    t = time.perf_counter()
     for (heads, got), batch in zip(calls, ev.loader):
         want = plain.apply_device(heads)
         torch.cuda.synchronize()
         compare_postprocess("batch", got, want)
         metrics.update_results(metrics.to_coco_format(batch["info"], plain.to_host_list(want)))
+    host_s = time.perf_counter() - t
     metrics.coco_eval()
     for key, got, want in (("bbox", bbox, metrics.bbox_eval_stats),
                            ("segm", segm, metrics.segm_eval_stats)):
         if not np.array_equal(got, np.asarray(want)):
             raise AssertionError(f"eval path: {key} stats differ with the plain versions")
+    for kind in ("bbox", "segm"):
+        card = (ev.workdir / f"{kind}_prediction.json").read_text()
+        if card != (host_dir / f"{kind}_prediction.json").read_text():
+            raise AssertionError(f"eval path: the card route's {kind} JSON differs from the "
+                                 "host route's")
     log(f"  postprocess with the plain versions on the same heads: identical outputs in all "
-        f"{n_batches} batches, identical bbox and segm stats")
+        f"{n_batches} batches; the host route of the COCO conversion on them ({host_s:.2f} s): "
+        f"identical bbox and segm JSON files ({len(m.segm_results)} RLE strings) and stats")
 
     heads = spread_heads(ev)
     got, want = pp.apply_device(heads), plain.apply_device(heads)
     torch.cuda.synchronize()
     check_outputs(got, ev.loader.batch_size)
     compare_postprocess("spread batch", got, want)
+    info = next(iter(ev.loader))["info"]
+    card = tester.coco_metrics.to_coco_format_device(info, got, pp.image_w)
+    if json.dumps(card) != json.dumps(tester.coco_metrics.to_coco_format(
+            info, pp.to_host_list(got))):
+        raise AssertionError("spread batch: the card route's COCO dicts differ from the host "
+                             "route's")
     scores = got["bbox"][..., 4][got["valid"]]
-    log(f"  spread head logits, one batch of {ev.loader.batch_size}: identical outputs; "
+    log(f"  spread head logits, one batch of {ev.loader.batch_size}: identical outputs and "
+        f"identical COCO dicts by both routes ({len(card['segm'])} masks); "
         f"{int(got['valid'].sum())} valid detections, {scores.unique().numel()} distinct "
         f"scores in {scores.min().item():.4f}..{scores.max().item():.4f}, "
         f"{got['cls'][got['valid']].unique().numel()} classes")
@@ -1626,17 +1660,20 @@ BATCHES = (8, 16)
 
 
 def record_run_batch(fn):
-    """Run ``fn()`` with ``OrienMaskYOLOPostProcess._run_batch`` and
-    ``StreamingPipeline.retrieve`` wrapped to keep each call's head tensors
-    and device outputs, and each retrieved host list; returns (fn's result,
-    [(postprocess, heads, outputs)], [host lists], launch counts of the
-    run alone)."""
+    """Run ``fn()`` with ``OrienMaskYOLOPostProcess._run_batch``,
+    ``StreamingPipeline.retrieve`` and ``COCOMetrics.to_coco_format_device``
+    wrapped to keep each call's head tensors and device outputs, each
+    retrieved host list and each COCO conversion; returns (fn's result,
+    [(postprocess, heads, outputs)], [host lists], launch counts of the run
+    alone, [(metrics, batch info, device outputs, image_w, COCO dicts)])."""
     from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.eval import COCOMetrics
     from orienmask_tpu_torch.ops import OrienMaskYOLOPostProcess
     from orienmask_tpu_torch.stream import StreamingPipeline
 
     run_batch, retrieve = OrienMaskYOLOPostProcess._run_batch, StreamingPipeline.retrieve
-    calls, retrieved = [], []
+    convert = COCOMetrics.to_coco_format_device
+    calls, retrieved, converted = [], [], []
 
     def recording_run_batch(pp, predict):
         out = run_batch(pp, predict)
@@ -1648,26 +1685,55 @@ def record_run_batch(fn):
         retrieved.append(retrieve(stream))
         return retrieved[-1]
 
+    def recording_convert(metrics, batch_info, device_out, image_w):
+        out = convert(metrics, batch_info, device_out, image_w)
+        converted.append((metrics, copy.deepcopy(batch_info),
+                          {k: v.clone() for k, v in device_out.items()}, image_w, out))
+        return out
+
     torch.cuda.synchronize()
     kernels.reset_launches()
     with mock.patch.object(OrienMaskYOLOPostProcess, "_run_batch", recording_run_batch), \
-            mock.patch.object(StreamingPipeline, "retrieve", recording_retrieve):
+            mock.patch.object(StreamingPipeline, "retrieve", recording_retrieve), \
+            mock.patch.object(COCOMetrics, "to_coco_format_device", recording_convert):
         result = fn()
     torch.cuda.synchronize()
-    return result, calls, retrieved, dict(kernels.launches)
+    return result, calls, retrieved, dict(kernels.launches), converted
 
 
 def run_cli(argv):
     """``infer.main(argv)`` in this process, its report captured; (report
-    lines, recorded calls, retrieved host lists, launch counts)."""
+    lines, recorded calls, retrieved host lists, launch counts, recorded COCO
+    conversions)."""
     from orienmask_tpu_torch import infer
 
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
-        rc, calls, retrieved, counts = record_run_batch(lambda: infer.main(argv))
+        rc, calls, retrieved, counts, converted = record_run_batch(lambda: infer.main(argv))
     if rc != 0:
         raise AssertionError(f"infer.main({argv}) returned {rc}")
-    return text.getvalue().splitlines(), calls, retrieved, counts
+    return text.getvalue().splitlines(), calls, retrieved, counts, converted
+
+
+def check_json_routes(name, out, converted, plain):
+    """The CLI's -j: each image's card-route COCO dicts (kernel 6, then the
+    column-packed encoder) against the host route on the same device outputs
+    (``to_host_list``, the numpy resize, the RLE of uint8 masks): identical
+    JSON; the dumped files hold exactly the host route's dicts.  Returns the
+    host route's seconds."""
+    t = time.perf_counter()
+    host = {"bbox": [], "segm": []}
+    for metrics, info, device_out, image_w, card in converted:
+        want = metrics.to_coco_format(info, plain.to_host_list(device_out))
+        if json.dumps(card) != json.dumps(want):
+            raise AssertionError(f"{name}: image {info[0]['id']}'s card-route COCO dicts differ "
+                                 "from the host route's")
+        for kind in host:
+            host[kind] += want[kind]
+    for kind in host:
+        if (out / f"{kind}_prediction.json").read_text() != json.dumps(host[kind]):
+            raise AssertionError(f"{name}: the dumped {kind} JSON differs from the host route's")
+    return time.perf_counter() - t
 
 
 def check_against_plain(name, calls, pp_kw, size):
@@ -1714,16 +1780,19 @@ def check_cli(workdir):
                  "orienmask_yolo_coco_544_anchor4_infer"):
         out = workdir / name
         t = time.perf_counter()
-        lines, calls, _, launched = run_cli(["-c", name, "--random-weights", "-d", str(images),
-                                             "-j", str(images_json), "-o", str(out)])
+        lines, calls, _, launched, converted = run_cli(
+            ["-c", name, "--random-weights", "-d", str(images), "-j", str(images_json),
+             "-o", str(out)])
         log(f"  {name}: {len(calls)} images in {time.perf_counter() - t:.2f} s (model build "
             f"included), launches: {launched}")
         log("  report: " + "; ".join(lines))
         if len(calls) != CLI_IMAGES or launched["exact_topk"] != 2 * CLI_IMAGES \
-                or launched["assemble_masks_packed"] != CLI_IMAGES:
+                or launched["assemble_masks_packed"] != CLI_IMAGES \
+                or launched["recover_masks"] != CLI_IMAGES or len(converted) != CLI_IMAGES:
             raise AssertionError(f"{name}: expected {CLI_IMAGES} images, kernel 1 twice and "
-                                 f"kernel 2 once an image; got {len(calls)}, {launched}")
-        check_against_plain(name, calls, _kw(getattr(configs, name)["postprocess"]), 544)
+                                 f"kernels 2 and 6 once an image; got {len(calls)}, {launched}")
+        plain, _ = check_against_plain(name, calls, _kw(getattr(configs, name)["postprocess"]),
+                                       544)
         n_valid = sum(int(c[2]["valid"].sum()) for c in calls)
         for kind in ("bbox", "segm"):
             dumped = json.loads((out / f"{kind}_prediction.json").read_text())
@@ -1731,8 +1800,10 @@ def check_cli(workdir):
                     set(range(1, CLI_IMAGES + 1)):
                 raise AssertionError(f"{name}: {kind} json holds {len(dumped)} entries for "
                                      f"{n_valid} valid detections")
+        host_s = check_json_routes(name, out, converted, plain)
         log(f"  {name}: every image identical to the plain-version postprocess on its heads; "
-            f"bbox and segm json hold {n_valid} entries each")
+            f"bbox and segm json hold {n_valid} entries each, identical to the host route's "
+            f"on the same device outputs ({host_s:.2f} s)")
         for key, value in launched.items():
             counts[key] = counts.get(key, 0) + value
     return counts
@@ -1835,8 +1906,8 @@ def check_stream(workdir):
         write_png(frames_dir / f"frame_{i:04d}.png",
                   rng.integers(0, 256, (720, 1280, 3), np.uint8))
     t = time.perf_counter()
-    lines, calls, retrieved, counts = run_cli(["-c", name, "--random-weights", "--video",
-                                               str(frames_dir)])
+    lines, calls, retrieved, counts, _ = run_cli(["-c", name, "--random-weights", "--video",
+                                                  str(frames_dir)])
     log(f"  --video: {len(calls)} frames in {time.perf_counter() - t:.2f} s (model build "
         f"included), launches: {counts}; report: " + "; ".join(lines))
     if len(calls) != STREAM_FRAMES or len(retrieved) != STREAM_FRAMES \
@@ -2032,11 +2103,13 @@ def check_jpeg_cli(workdir):
     n = len(names)
     counts, reports = {}, {}
 
-    def expect(tag, calls, launched, frames):
+    def expect(tag, calls, launched, frames, converted=0):
         if len(calls) != frames or launched["exact_topk"] != 2 * frames \
-                or launched["assemble_masks_packed"] != frames:
-            raise AssertionError(f"{tag}: expected {frames} images, kernel 1 twice and kernel "
-                                 f"2 once an image; got {len(calls)}, {launched}")
+                or launched["assemble_masks_packed"] != frames \
+                or launched["recover_masks"] != converted:
+            raise AssertionError(f"{tag}: expected {frames} images, kernel 1 twice, kernel 2 "
+                                 f"once an image and kernel 6 {converted} times; got "
+                                 f"{len(calls)}, {launched}")
         for key, value in launched.items():
             counts[key] = counts.get(key, 0) + value
 
@@ -2044,27 +2117,30 @@ def check_jpeg_cli(workdir):
     config = getattr(configs, name)
     out = workdir / "json"
     t = time.perf_counter()
-    lines, calls, _, launched = run_cli(["-c", name, "--random-weights", "-d", str(FIXTURES),
-                                         "-j", str(FIXTURES / "images.json"), "-o", str(out)])
+    lines, calls, _, launched, converted = run_cli(
+        ["-c", name, "--random-weights", "-d", str(FIXTURES), "-j",
+         str(FIXTURES / "images.json"), "-o", str(out)])
     log(f"  -j -o: {len(calls)} JPEGs in {time.perf_counter() - t:.2f} s (model build "
         f"included), launches: {launched}; report: " + "; ".join(lines))
-    expect("-j -o", calls, launched, n)
-    check_against_plain("-j -o", calls, _kw(config["postprocess"]), 544)
+    expect("-j -o", calls, launched, n, converted=n)
+    plain, _ = check_against_plain("-j -o", calls, _kw(config["postprocess"]), 544)
     n_valid = sum(int(c[2]["valid"].sum()) for c in calls)
     for kind in ("bbox", "segm"):
         dumped = json.loads((out / f"{kind}_prediction.json").read_text())
         if len(dumped) != n_valid or {d["image_id"] for d in dumped} != set(range(1, n + 1)):
             raise AssertionError(f"-j -o: {kind} json holds {len(dumped)} entries for "
                                  f"{n_valid} valid detections")
+    host_s = check_json_routes("-j -o", out, converted, plain)
     log(f"  -j -o: every image identical to the plain-version postprocess on its heads; bbox "
-        f"and segm json hold {n_valid} entries each")
+        f"and segm json hold {n_valid} entries each, identical to the host route's on the "
+        f"same device outputs ({host_s:.2f} s)")
     reports["json"] = report_ms(lines)
 
     out = workdir / "drawn"
     random.seed(SEED)
     t = time.perf_counter()
-    lines, calls, _, launched = run_cli(["-c", name, "--random-weights", "-d", str(FIXTURES),
-                                         "-v", "-o", str(out)])
+    lines, calls, _, launched, _ = run_cli(["-c", name, "--random-weights", "-d",
+                                            str(FIXTURES), "-v", "-o", str(out)])
     log(f"  -v -o: {len(calls)} JPEGs in {time.perf_counter() - t:.2f} s, launches: "
         f"{launched}; report: " + "; ".join(lines))
     expect("-v -o", calls, launched, n)
@@ -2099,8 +2175,8 @@ def check_jpeg_cli(workdir):
     out = workdir / "frames"
     random.seed(SEED + 1)
     t = time.perf_counter()
-    lines, calls, retrieved, launched = run_cli(["-c", name, "--random-weights", "--video",
-                                                 str(FIXTURES), "-o", str(out)])
+    lines, calls, retrieved, launched, _ = run_cli(["-c", name, "--random-weights",
+                                                    "--video", str(FIXTURES), "-o", str(out)])
     log(f"  --video -o: {len(calls)} frames in {time.perf_counter() - t:.2f} s (model build "
         f"included), launches: {launched}; report: " + "; ".join(lines))
     expect("--video -o", calls, launched, n)
@@ -2129,6 +2205,104 @@ def check_jpeg_cli(workdir):
                     "video_736_fps": fps}
 
 
+# --------------------------------------------------------------- kernel 6
+
+def recover_cases(rng):
+    """Phase 16's cases: (key, label, packed masks (B, K, H, W/8) on the card,
+    infos, valid counts).  Noise bytes: every mask pixel a coin flip, so the
+    resize meets its 0.5 ties everywhere."""
+    def noise(b, k, size):
+        return torch.from_numpy(rng.integers(0, 256, (b, k, size, size // 8),
+                                             dtype=np.uint8)).cuda()
+
+    cli = {"collate_pad": (0, 0, 0, 0, 544, 544)}  # the pipeline's resize has no letterbox
+    flips = [{"height": 500, "width": 700, "collate_pad": (5, 11, 7, 3, 544, 544),
+              "pad": (9, 2, 4, 13, 534, 528), "hflip": True, "vflip": True},
+             {"height": 131, "width": 97, "pad": (30, 0, 0, 51, 544, 544), "hflip": True},
+             {"height": 544, "width": 544}]
+    return [
+        ("a", "the CLI's 544² to 480x640, 100 masks", noise(1, 100, 544),
+         [dict(cli, height=480, width=640)], [100]),
+        ("b", "an eval batch, B = 16 at 544² to 544², 100 masks each", noise(16, 100, 544),
+         [{"height": 544, "width": 544}] * 16, [100] * 16),
+        ("c", "the JPEG fixture's 544² to 427x613", noise(1, 100, 544),
+         [dict(cli, height=427, width=613)], [100]),
+        ("d", "736² to 720x1280", noise(1, 100, 736),
+         [{"height": 720, "width": 1280, "collate_pad": (0, 0, 0, 0, 736, 736)}], [100]),
+        ("e", "hflip + vflip, asymmetric pads, B = 3 (40, 17, 0 masks)", noise(3, 40, 544),
+         flips, [40, 17, 0]),
+        ("f", "an exact 2x down, 544² to 272²", noise(1, 100, 544),
+         [{"height": 272, "width": 272}], [100]),
+    ]
+
+
+def recover_work(packed, geom):
+    """(bytes, operations) kernel 6's function needs on these inputs: the
+    valid detections' packed masks and the tables read once, the words
+    written once.  Operations as the function needs them, not as the kernel
+    spends them: a pass's subtraction and fused multiply-add only where its
+    fraction is non-zero and its two values differ (else its result is the
+    first value; the bottom row's pass only where the rows' fraction is
+    non-zero), and a rint where any pass ran.  An identity resize needs
+    none."""
+    n_bytes = 4 * geom.offsets[-1] + sum(t.numel() * t.element_size() for t in (
+        geom.geom, geom.xtab, geom.xfrac, geom.ytab, geom.yfrac))
+    n_ops = 0
+    shift = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    for i, ((n, (oh, ow)), (xo, yo)) in enumerate(zip(zip(geom.counts, geom.sizes),
+                                                      geom.geom[:, 4:6].tolist())):
+        if not n:
+            continue
+        n_bytes += n * packed.shape[2] * packed.shape[3]
+        bits = ((packed[i, :n, :, :, None] >> shift) & 1).reshape(n, packed.shape[2], -1)
+        x, y = geom.xtab[xo:xo + ow].long(), geom.ytab[yo:yo + oh].long()
+        fx, fy = geom.xfrac[xo:xo + ow].double(), geom.yfrac[yo:yo + oh].double()[:, None]
+        top, bottom = bits[:, y[:, 0]], bits[:, y[:, 1]]
+        a, b, c, d = (t.double() for t in (top[:, :, x[:, 0]], top[:, :, x[:, 1]],
+                                           bottom[:, :, x[:, 0]], bottom[:, :, x[:, 1]]))
+        pass_top = (fx != 0) & (a != b)
+        pass_bottom = (fx != 0) & (fy != 0) & (c != d)
+        pass_rows = (fy != 0) & ((b - a) * fx + a != (d - c) * fx + c)
+        n_ops += 2 * int(pass_top.sum() + pass_bottom.sum() + pass_rows.sum()) + \
+            int((pass_top | pass_bottom | pass_rows).sum())
+    return n_bytes, n_ops
+
+
+def check_recover():
+    """Phase 16: kernel 6 against its plain version on every case, bit for
+    bit, each timed beside its plain version and its bound."""
+    from orienmask_tpu_torch.ops.recover import (recover_geometry, recover_masks,
+                                                 recover_masks_plain)
+
+    rng = np.random.default_rng(SEED + 16)
+    cases, err = {}, 0
+    for key, label, packed, infos, counts in recover_cases(rng):
+        geom = recover_geometry(infos, counts, (packed.shape[2], 8 * packed.shape[3]),
+                                packed.device)
+        got, want = recover_masks(packed, geom), recover_masks_plain(packed, geom)
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"kernel 6 ({key}): {got.shape} words, plain {want.shape}")
+        bad = int((got != want).sum())
+        err = max(err, int(bad > 0))  # the largest pixel difference: bits differ by 1
+        if bad:
+            raise AssertionError(f"kernel 6 ({key}) {label}: {bad} words differ from the "
+                                 "plain version")
+        t = time_ms(lambda: recover_masks(packed, geom))
+        t_plain = eager_ms(lambda: recover_masks_plain(packed, geom), n=3)
+        n_bytes, n_ops = recover_work(packed, geom)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        log(f"  ({key}) {label}: {geom.offsets[-1]} words identical; kernel {t:.4f} ms, plain "
+            f"{t_plain:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.2f} MB, "
+            f"{n_ops / 1e6:.1f} M instructions)")
+        cases[key] = dict(label=label, ms=t, plain_ms=t_plain, bound_ms=bound_ms,
+                          bound_by=bound_by, bytes=n_bytes, ops=n_ops, launches=1,
+                          words=geom.offsets[-1])
+    log(f"  card: {card_line()}")
+    return err, cases
+
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -2149,10 +2323,11 @@ def main(argv=None):
     t = time.perf_counter()
     for name in kernels.SIGNATURES:
         kernels.library(name)  # the first call builds every csrc/*.cu
+    kernels.host_library("omtpu")  # g++: every csrc/*.cc
     log(f"  card: {card_line()} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     log(f"  kernels built and loaded in {time.perf_counter() - t:.2f} s "
         f"(nvcc: {kernels.build_seconds if kernels.build_seconds is not None else 0:.2f} s)")
-    for lib in ("topk", "masks"):
+    for lib in ("topk", "masks", "recover"):
         for line in kernels.build_log.get(lib, f"{lib}.cu not rebuilt here").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line \
                     or "rebuilt" in line:
@@ -2227,6 +2402,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as workdir:
         jpeg_counts, jpeg_cli = check_jpeg_cli(Path(workdir))
     jpeg.update(jpeg_cli)
+    log("[16] kernel 6: recover_masks vs its plain version")
+    recover_err, recover_cases_ = check_recover()
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -2240,6 +2417,9 @@ def main(argv=None):
     for name in paths:
         times[name]["shapes_736"] = shapes_736[name]
         times[name]["batch"] = {b: batch_shapes[b][name] for b in BATCHES}
+    recover_paths = {"eval": eval_counts["recover_masks"], "cli": cli_counts["recover_masks"],
+                     "jpeg_cli": jpeg_counts["recover_masks"]}
+    main_case = recover_cases_["b"]  # the eval batch
     kernels_line = {"kernels": [
         dict(name="exact_topk", route="cuda", source="orienmask_tpu_torch/csrc/topk.cu",
              replaces="orienmask_tpu/ops/pallas_topk.py:157",
@@ -2264,6 +2444,12 @@ def main(argv=None):
              replaces="orienmask_tpu/ops/pallas_paint.py:149",
              launches=train_counts["paint_orientation"], max_abs_err=paint_err,
              **times["paint_orientation"]),
+        dict(name="recover_masks", route="cuda", source="orienmask_tpu_torch/csrc/recover.cu",
+             replaces="orienmask_tpu/eval/coco_eval.py:147",
+             launches=sum(recover_paths.values()), paths=recover_paths,
+             max_abs_err=recover_err, ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
+             cases=recover_cases_),
     ]}
     log(f"  total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train,

@@ -7,20 +7,24 @@ original image coordinates, converted to COCO-format dicts (masks RLE-encoded), 
 scored with the built-in LiteCOCOeval (pycocotools is used instead when importable —
 results are in the official json format either way).
 
-The masks' resize to the original image size is torch's bilinear
-interpolation on the CPU (``align_corners=False``, no antialias) and
-``np.round``, where JAX's package calls OpenCV's ``INTER_LINEAR`` resize:
-both sample at the same half-pixel centres with the same edge clamping;
-``tests/test_torch_eval.py`` states how many pixels differ.
+The masks' resize to the original image size is OpenCV's ``INTER_LINEAR``
+arithmetic, as the JAX package's cv2 call does it (``ops/resize.py``), then
+``np.round``.  Two routes give the same results: ``to_coco_format`` on the
+host lists of ``postprocess.to_host_list`` (numpy), and
+``to_coco_format_device`` on the postprocess's device outputs, which
+recovers the masks where they lie (kernel 6, ``ops/recover.py``) and sends
+only column-major bits of the original size to the host, where the native
+host library encodes them (``native.rle_encode_colpacked``).
 """
 
 import json
 import os
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
+from .. import native
+from ..ops.recover import recover_geometry, recover_masks, source_window
+from ..ops.resize import resize_masks_linear
 from ..utils import timer
 from . import rle as rle_codec
 from .lite_cocoeval import COCOGroundTruth, LiteCOCOeval
@@ -72,6 +76,47 @@ class COCOMetrics:
             out = {"bbox": self._to_bbox_coco_format(batch_info, detections)}
         if self.with_mask:
             out["segm"] = self._to_segm_coco_format(batch_info, detections)
+        return out
+
+    def to_coco_format_device(self, batch_info, device_out, image_w):
+        """``to_coco_format(batch_info, postprocess.to_host_list(device_out))``
+        from the postprocess's device dict (``bbox`` (B, K, 5), ``cls`` (B, K),
+        ``mask`` (B, K, H, W/8) packed, ``valid`` (B, K), valid rows first)
+        for masks ``image_w`` wide: only the boxes, classes and validity are
+        copied whole (one copy a batch); the masks are recovered on their
+        device and reach the host as bits of the original size."""
+        with timer.timer("To Host List"):
+            host = {k: device_out[k].cpu().numpy() for k in ("bbox", "cls", "valid")}
+        counts = [0 if info.get("_pad", False) else int(valid.sum())
+                  for info, valid in zip(batch_info, host["valid"])]
+        kept = [b for b, info in enumerate(batch_info) if not info.get("_pad", False)]
+        detections = [{"bbox": host["bbox"][b, :counts[b]], "cls": host["cls"][b, :counts[b]]}
+                      for b in kept]
+        with timer.timer("COCO Boxes"):
+            out = {"bbox": self._to_bbox_coco_format([batch_info[b] for b in kept], detections)}
+        if not self.with_mask:
+            return out
+        packed = device_out["mask"]
+        with timer.timer("Mask Resize"):
+            geom = recover_geometry(batch_info, counts, (packed.shape[2], image_w),
+                                    packed.device)
+            words = recover_masks(packed, geom).cpu().numpy()
+        results = []
+        with timer.timer("RLE Encode"):
+            for b, det in zip(kept, detections):
+                n, (oh, ow) = counts[b], geom.sizes[b]
+                if not n:
+                    continue
+                strings = native.rle_encode_colpacked(
+                    words[geom.offsets[b]:geom.offsets[b + 1]], n, oh, ow)
+                cats = [self.cat2label[int(c)] for c in det["cls"].flatten()]
+                for counts_str, score, cat in zip(strings, det["bbox"][:, -1], cats):
+                    results.append({
+                        "image_id": batch_info[b]["id"], "category_id": cat,
+                        "segmentation": {"size": [oh, ow], "counts": counts_str},
+                        "score": float(score),
+                    })
+        out["segm"] = results
         return out
 
     def update_results(self, coco_format):
@@ -148,27 +193,13 @@ class COCOMetrics:
 
     @staticmethod
     def _recover_shape_segm(masks, info):
-        """(n, H, W) bool -> (n, oh, ow) uint8 in original image geometry."""
-        if info.get("collate_pad") is not None:
-            left, right, top, down = info["collate_pad"][:4]
-            masks = masks[:, top:masks.shape[1] - down or None,
-                          left:masks.shape[2] - right or None]
-        # flips invert BEFORE the pad (reverse forward order) — see
-        # _recover_shape_bbox.
-        if info.get("hflip", False):
-            masks = masks[:, :, ::-1]
-        if info.get("vflip", False):
-            masks = masks[:, ::-1, :]
-        if info.get("pad") is not None:
-            top, down, left, right = info["pad"][:4]
-            masks = masks[:, top:masks.shape[1] - down or None,
-                          left:masks.shape[2] - right or None]
-        oh, ow = info["height"], info["width"]
-        if masks.shape[0] == 0:
-            return np.zeros((0, oh, ow), np.uint8)
-        m = torch.from_numpy(np.ascontiguousarray(masks, np.float32))[:, None]
-        up = F.interpolate(m, size=(oh, ow), mode="bilinear", align_corners=False)
-        return np.round(up[:, 0].numpy()).astype(np.uint8)
+        """(n, H, W) bool -> (n, oh, ow) uint8 in original image geometry:
+        the crop of ``collate_pad``, the flips (inverted before the pad, in
+        reverse forward order: see _recover_shape_bbox), the crop of
+        ``pad`` (``ops/recover.py::source_window``), OpenCV's INTER_LINEAR
+        resize and ``np.round``."""
+        rows, cols = source_window(info, masks.shape[1], masks.shape[2])
+        return resize_masks_linear(masks[:, rows[:, None], cols], info["width"], info["height"])
 
     # -------------------------------------------------------------- evaluation
 

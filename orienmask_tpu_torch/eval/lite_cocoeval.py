@@ -1,6 +1,8 @@
 """Self-contained COCO-style detection/segmentation evaluator (the port's own
-copy of ``orienmask_tpu/eval/lite_cocoeval.py``, with the Python matching
-loop in place of the C++ matcher).
+copy of ``orienmask_tpu/eval/lite_cocoeval.py``).  The greedy matching runs
+in the port's native host library (``native.coco_match``), as the JAX
+module's does; the Python loop stays as ``_match_plain``, the spec the tests
+hold it to.
 
 It re-implements the COCOeval protocol (bbox + segm) against the documented specification: greedy
 score-ordered matching per (image, category) at IoU thresholds 0.50:0.05:0.95,
@@ -16,6 +18,7 @@ from collections import defaultdict
 
 import numpy as np
 
+from .. import native
 from . import rle as rle_codec
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
@@ -87,6 +90,44 @@ def _bbox_iou_xywh(dt, gt, iscrowd):
     union = np.where(crowd, d_area, d_area + g_area - inter)
     out = np.where((inter > 0) & (union > 0), inter / np.maximum(union, 1e-300), 0.0)
     return out
+
+
+def _native_match(ious, g_order, gi, iscrowd):
+    """C++ greedy matcher (native.coco_match) over all IoU thresholds:
+    (dt_m (nt, nd) sorted-gt index or -1, dt_ig (nt, nd) bool)."""
+    return native.coco_match(ious, g_order, gi, iscrowd, IOU_THRS)
+
+
+def _match_plain(ious, g_order, gi, iscrowd):
+    """``_native_match`` as the Python loop of COCOeval's greedy matching."""
+    nt = len(IOU_THRS)
+    nd, ng = ious.shape
+    dt_m = -np.ones((nt, nd), np.int64)
+    gt_m = -np.ones((nt, ng), np.int64)  # sorted-gt space
+    dt_ig = np.zeros((nt, nd), bool)
+
+    for ti, t in enumerate(IOU_THRS):
+        for di in range(nd):
+            best = min(t, 1 - 1e-10)
+            m = -1  # sorted-gt index of current match
+            for sj in range(ng):
+                gj = g_order[sj]
+                # gt already matched (crowds may rematch)
+                if gt_m[ti, sj] >= 0 and not iscrowd[gj]:
+                    continue
+                # real match made, reached the ignored tail
+                if m > -1 and not gi[m] and gi[sj]:
+                    break
+                if ious[di, gj] < best:
+                    continue
+                best = ious[di, gj]
+                m = sj
+            if m == -1:
+                continue
+            dt_ig[ti, di] = gi[m]
+            dt_m[ti, di] = m
+            gt_m[ti, m] = di
+    return dt_m, dt_ig
 
 
 def _segm_iou(dt_rles, gt_rles, iscrowd):
@@ -168,33 +209,7 @@ class LiteCOCOeval:
             g_order = np.argsort(g_ignore_base, kind="stable")
             gi = g_ignore_base[g_order]
 
-            nt = len(IOU_THRS)
-            nd, ng = len(dts), len(gts)
-            dt_m = -np.ones((nt, nd), np.int64)
-            gt_m = -np.ones((nt, ng), np.int64)  # sorted-gt space
-            dt_ig = np.zeros((nt, nd), bool)
-
-            for ti, t in enumerate(IOU_THRS):
-                for di in range(nd):
-                    best = min(t, 1 - 1e-10)
-                    m = -1  # sorted-gt index of current match
-                    for sj in range(ng):
-                        gj = g_order[sj]
-                        # gt already matched (crowds may rematch)
-                        if gt_m[ti, sj] >= 0 and not iscrowd[gj]:
-                            continue
-                        # real match made, reached the ignored tail
-                        if m > -1 and not gi[m] and gi[sj]:
-                            break
-                        if ious[di, gj] < best:
-                            continue
-                        best = ious[di, gj]
-                        m = sj
-                    if m == -1:
-                        continue
-                    dt_ig[ti, di] = gi[m]
-                    dt_m[ti, di] = m
-                    gt_m[ti, m] = di
+            dt_m, dt_ig = _native_match(ious, g_order, gi, iscrowd)
             # dets unmatched + outside the area range are ignored
             d_out = (d_areas < lo) | (d_areas > hi)
             dt_ig = dt_ig | ((dt_m == -1) & d_out[None, :])

@@ -1,6 +1,9 @@
-"""COCO run-length-encoding codec in numpy (the port's own copy of
-``orienmask_tpu/eval/rle.py``, its numpy paths; the C++ host library of the
-JAX package is not copied).
+"""COCO run-length-encoding codec (the port's own copy of
+``orienmask_tpu/eval/rle.py``): the hot paths (encode, decode of the
+compressed strings, polygons, IoU) go through the port's native host
+library (``orienmask_tpu_torch.native``), as the JAX module's do; the numpy
+bodies stay as ``*_plain`` functions, the spec the tests hold the library
+to.  Nothing falls back to them.
 
 Implements the exact pycocotools ``maskApi`` semantics so our segmentation
 results json interoperates with the official toolchain (and their annotation
@@ -22,6 +25,8 @@ files decode identically):
 """
 
 import numpy as np
+
+from .. import native
 
 
 def _mask_to_counts(mask):
@@ -68,6 +73,10 @@ def _counts_to_string(counts):
 
 
 def _string_to_counts(s):
+    return native.rle_decode_counts(s)
+
+
+def _string_to_counts_plain(s):
     counts = []
     p = 0
     ln = len(s)
@@ -92,12 +101,19 @@ def _string_to_counts(s):
 def encode(mask):
     """HxW {0,1} uint8/bool -> {'size': [h, w], 'counts': str} (compressed RLE)."""
     h, w = mask.shape
+    return {"size": [int(h), int(w)], "counts": native.rle_encode(np.asarray(mask, np.uint8))}
+
+
+def encode_plain(mask):
+    h, w = mask.shape
     return {"size": [int(h), int(w)], "counts": _counts_to_string(_mask_to_counts(mask))}
 
 
 def encode_batch(masks):
     """(n, h, w) masks -> list of RLE dicts."""
-    return [encode(m) for m in masks]
+    _, h, w = masks.shape
+    return [{"size": [int(h), int(w)], "counts": c}
+            for c in native.rle_encode_batch(np.asarray(masks, np.uint8))]
 
 
 def decode(rle):
@@ -259,6 +275,10 @@ def _merge_two(ca, cb, n, intersect):
 
 def polygons_to_counts(polygons, height, width):
     """COCO polygon list -> merged raw counts (pycocotools frPoly+merge)."""
+    return native.poly_merge_counts(polygons, height, width)
+
+
+def polygons_to_counts_plain(polygons, height, width):
     return merge_counts([poly_to_rle_counts(p, height, width) for p in polygons],
                         height, width)
 
@@ -276,6 +296,10 @@ def polygons_to_mask(polygons, height, width):
     fill: the reference's GT masks come from pycocotools both in training
     (reference data/dataset.py:87-100) and eval."""
     return _counts_to_mask(polygons_to_counts(polygons, height, width), height, width)
+
+
+def polygons_to_mask_plain(polygons, height, width):
+    return _counts_to_mask(polygons_to_counts_plain(polygons, height, width), height, width)
 
 
 def _runs_of(counts):
@@ -303,12 +327,7 @@ def _intersection_area(sa, ea, sb, eb):
     return int(np.sum(cov(ea) - cov(sa)))
 
 
-def iou(rles_a, rles_b, iscrowd=None):
-    """Pairwise mask IoU of two RLE lists -> (len_a, len_b) float64, computed
-    in RLE space without decoding (pycocotools ``rleIou`` semantics).
-
-    ``iscrowd[j]`` true makes the union just area(a) (COCO crowd semantics).
-    """
+def _check_sizes(rles_a, rles_b):
     sizes = {tuple(int(v) for v in r["size"]) for r in rles_a} | \
             {tuple(int(v) for v in r["size"]) for r in rles_b}
     if len(sizes) > 1:
@@ -316,6 +335,19 @@ def iou(rles_a, rles_b, iscrowd=None):
         # RLE-space sweep would return plausible-looking garbage.
         raise ValueError(f"rle.iou: mixed mask sizes {sorted(sizes)}")
 
+
+def iou(rles_a, rles_b, iscrowd=None):
+    """Pairwise mask IoU of two RLE lists -> (len_a, len_b) float64, computed
+    in RLE space without decoding (pycocotools ``rleIou`` semantics).
+
+    ``iscrowd[j]`` true makes the union just area(a) (COCO crowd semantics).
+    """
+    _check_sizes(rles_a, rles_b)
+    return native.rle_iou(rles_a, rles_b, iscrowd)
+
+
+def iou_plain(rles_a, rles_b, iscrowd=None):
+    _check_sizes(rles_a, rles_b)
     counts_a = [_raw_counts(r) for r in rles_a]
     counts_b = [_raw_counts(r) for r in rles_b]
     runs_a = [_runs_of(c) for c in counts_a]

@@ -217,12 +217,13 @@ def run_images(args, pipeline, visualizer):
                 src_image = load_image(path)
             with timer.timer("Forward & Postprocess") as t:
                 out = t.sync(pipeline.run_device(src_image[None]))
-            predictions = postprocess.to_host_list(out)
             if args.json_file and args.output:
-                with timer.timer("Convert Format"):
+                with timer.timer("Convert Format"):  # masks recovered where they lie
                     info = [dict(infos[idx], collate_pad=pipeline.pad_info)]
-                    metrics.update_results(metrics.to_coco_format(info, predictions))
+                    metrics.update_results(metrics.to_coco_format_device(
+                        info, out, postprocess.image_w))
             if visualizer is not None:
+                predictions = postprocess.to_host_list(out)
                 with timer.timer("Visualize"):
                     show = visualizer(predictions[0], src_image.astype(np.float32),
                                       pipeline.pad_info)

@@ -12,9 +12,11 @@ raises when that is not 0.  ``launches`` holds one count per kernel, which
 its wrapper raises by one where it launches the kernel.
 
 Host code with a C interface, ``csrc/<name>.cc`` (the JPEG entropy
-decoder), is built the same way with the host C++ compiler (``g++``, which
-nvcc itself needs) into ``csrc/build/lib<name>.so`` by ``host_library``; it
-runs on the CPU, so the tests build and call it too.
+decoder, the native host library ``omtpu``), is built the same way with the
+host C++ compiler (``g++``, which nvcc itself needs) into
+``csrc/build/lib<name>.so`` by ``host_library``; it runs on the CPU, so the
+tests build and call it too.  It raises when the build fails: nothing falls
+back to Python.
 """
 
 import ctypes
@@ -54,21 +56,50 @@ SIGNATURES = {
         # B, N, A, H, W, stream
         "omt_paint_orientation": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
+    "recover": {
+        # packed masks, per-image geometry, column table, column fractions,
+        # row table, row fractions, out, B, K, H, W/8, most warps an image,
+        # stream
+        "omt_recover_masks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 _L = ctypes.c_int64
+# library -> {C entry point: (restype, argtypes)}
 HOST_SIGNATURES = {
     "jpeg_host": {
         # segment, its length, coefficient buffer, offsets, geometry, scan
         # components, Huffman tables, tables present, mcux, mcuy, Ss, Se,
         # Ah, Al, restart interval, progressive
-        "omj_decode_scan": [_P, _L, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+        "omj_decode_scan": (_I, [_P, _L, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I]),
+        "omj_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "omtpu": {
+        # dets (n, 5), n, threshold, keep
+        "om_nms": (_I, [_P, _I, _F, _P]),
+        # mask, h, w, out, out_cap
+        "om_rle_encode": (_I, [_P, _I, _I, _P, _I]),
+        # string, its length, counts, cap
+        "om_rle_decode": (_L, [_P, _L, _P, _L]),
+        # masks, n, h, w, out, out_cap, lens
+        "om_rle_encode_batch": (_I, [_P, _I, _I, _I, _P, _I, _P]),
+        # words (n, ow, ceil(oh/32)), n, oh, ow, out, out_cap, lens
+        "om_rle_encode_colpacked": (_L, [_P, _I, _I, _I, _P, _L, _P]),
+        # flat xy, offsets, polygons, h, w, counts, cap
+        "om_poly_merge": (_I, [_P, _P, _I, _I, _I, _P, _I]),
+        # counts a, offsets a, n_a, counts b, offsets b, n_b, h, iscrowd, out
+        "om_rle_iou": (None, [_P, _P, _I, _P, _P, _I, _I, _P, _P]),
+        # ious, nd, ng, g_order, gi, iscrowd, thresholds, nt, dt_m, dt_ig
+        "om_coco_match": (None, [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P]),
+        # src, sh, sw, c, dst, dh, dw, align_corners
+        "om_resize_bilinear": (None, [_P, _I, _I, _I, _P, _I, _I, _I]),
     },
 }
 
 launches = {"exact_topk": 0, "assemble_masks_packed": 0, "assemble_masks": 0,
-            "assemble_masks_bitpacked": 0, "paint_orientation": 0}
+            "assemble_masks_bitpacked": 0, "paint_orientation": 0, "recover_masks": 0}
 
 _libs = {}
 build_seconds = None  # wall time of the last build that compiled anything
@@ -161,11 +192,9 @@ def host_library(name):
                                    "at first use with the host C++ compiler")
             _compile(jobs, [cxx, *HOST_FLAGS])
         lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
-        for fn, argtypes in HOST_SIGNATURES[name].items():
+        for fn, (restype, argtypes) in HOST_SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.omj_error_string.argtypes = [ctypes.c_int]
-        lib.omj_error_string.restype = ctypes.c_char_p
+            getattr(lib, fn).restype = restype
         _libs[name] = lib
     return _libs[name]
 

@@ -4,7 +4,8 @@
 Per batch: the BN-folded forward in the config's dtype (f32 for the test
 configs), the postprocess on the card, the host copy of its outputs and
 their COCO-format conversion (timed whole and by part: the copy, the boxes,
-the masks' resize and their RLE encoding); then ``COCOMetrics.coco_eval``
+the masks' resize and their RLE encoding; on the card the masks are
+recovered there and the copy holds only boxes, classes and validity); then ``COCOMetrics.coco_eval``
 over the whole set, the bbox and segm tables, and each stage's ms per
 image.  Multi-device evaluation (JAX's ``mesh``) is not ported.
 """
@@ -89,9 +90,13 @@ class Tester:
                 device_out = t.sync(self.postprocess.apply_device(predict))
 
             with timer.timer("Convert Format"):
-                with timer.timer("To Host List"):
-                    detections = self.postprocess.to_host_list(device_out)
-                dets = self.coco_metrics.to_coco_format(info, detections)
+                if self.device.type == "cuda":  # masks recovered on the card (kernel 6)
+                    dets = self.coco_metrics.to_coco_format_device(
+                        info, device_out, self.postprocess.image_w)
+                else:
+                    with timer.timer("To Host List"):
+                        detections = self.postprocess.to_host_list(device_out)
+                    dets = self.coco_metrics.to_coco_format(info, detections)
 
             self.coco_metrics.update_results(dets)
 

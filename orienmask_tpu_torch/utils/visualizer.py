@@ -6,8 +6,8 @@ blending) and labelled boxes on the original-resolution image; boxes and
 masks are mapped back through the letterbox ``pad_info``.  Each cv2 call of
 the JAX module has an exact numpy counterpart here:
 
-* ``cv2.resize(INTER_LINEAR)`` of the float32 masks: ``resize_linear``, which
-  does OpenCV's arithmetic (the fraction of each source position computed in
+* ``cv2.resize(INTER_LINEAR)`` of the float32 masks: ``ops.resize.resize_linear``,
+  which does OpenCV's arithmetic (the fraction of each source position computed in
   double and rounded to float, ``1 - f`` in float, each pass a fused
   ``(b - a) * f + a``);
 * ``cv2.rectangle`` at thickness 1 (LINE_8) and filled: axis-aligned, so the
@@ -27,6 +27,8 @@ import random
 from pathlib import Path
 
 import numpy as np
+
+from ..ops.resize import resize_linear
 
 PALETTE = np.array([
     (244, 67, 54), (233, 30, 99), (156, 39, 176), (103, 58, 183), (63, 81, 181),
@@ -72,57 +74,6 @@ class LabelFont:
                 dst = image[ya:yb, xa:xb].astype(np.int32)
                 image[ya:yb, xa:xb] = (dst * (255 - a) + 255 * a + 127) // 255
             x += advance
-
-
-# a float64 that lies halfway between two (normal) float32 values: its 29
-# mantissa bits below float32's precision are 1 followed by zeros
-_BELOW_FLOAT32 = np.uint64((1 << 29) - 1)
-_HALFWAY = np.uint64(1 << 28)
-
-
-def _fma32(a, b, c):
-    """float32 ``a * b + c`` rounded once (as a fused multiply-add): the
-    product is exact in float64; where the float64 sum lies halfway between
-    two float32 values, its rounding error (TwoSum) decides the tie that a
-    second rounding would break to even."""
-    p = a.astype(np.float64) * b
-    s = p + c
-    r = s.astype(np.float32)
-    tie = (s.view(np.uint64) & _BELOW_FLOAT32) == _HALFWAY
-    if tie.any():
-        pt, st = p[tie], s[tie]
-        ct = np.broadcast_to(c, s.shape)[tie].astype(np.float64)
-        bv = st - pt
-        err = (pt - (st - bv)) + (ct - bv)
-        rt = r[tie]
-        lo = np.where(rt > st, np.nextafter(rt, np.float32(-np.inf)), rt)
-        hi = np.where(rt > st, rt, np.nextafter(rt, np.float32(np.inf)))
-        r[tie] = np.where(err > 0, hi, np.where(err < 0, lo, rt))
-    return r
-
-
-def _linear_coefficients(dst, src):
-    """OpenCV's INTER_LINEAR coefficients along one axis: (first source
-    index, second, fraction) for each of ``dst`` outputs."""
-    scale = 1.0 / (dst / src)
-    pos = (np.arange(dst) + 0.5) * scale - 0.5
-    first = np.floor(pos).astype(np.int64)
-    frac = (pos - first).astype(np.float32)
-    edge = (first < 0) | (first >= src - 1)
-    frac[edge] = 0
-    first = np.clip(first, 0, src - 1)
-    return first, np.minimum(first + 1, src - 1), frac
-
-
-def resize_linear(image, width, height):
-    """``cv2.resize(image, (width, height), interpolation=INTER_LINEAR)`` of a
-    2-D float32 array, bit for bit."""
-    x0, x1, fx = _linear_coefficients(width, image.shape[1])
-    y0, y1, fy = _linear_coefficients(height, image.shape[0])
-    left = image[:, x0]
-    rows = _fma32(image[:, x1] - left, fx, left)
-    top = rows[y0]
-    return _fma32(rows[y1] - top, fy[:, None], top)
 
 
 class InferenceVisualizer:

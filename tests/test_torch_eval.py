@@ -143,11 +143,11 @@ def _detections(seed):
 
 
 def test_to_coco_format_matches_jax(tmp_path):
-    """Boxes and scores equal; the recovered masks come from torch's
-    bilinear resize where JAX's package uses OpenCV's, and on these 22
-    masks (shapes, an empty, a full and a noise mask per image) resized to
-    four original sizes (up and down) they differ in 0 pixels; the COCO
-    stats of the results agree to 1e-12."""
+    """Boxes and scores equal; the recovered masks (OpenCV's INTER_LINEAR
+    arithmetic in both packages) of these 22 masks (shapes, an empty, a
+    full and a noise mask per image) resized to four original sizes (up
+    and down) differ in 0 pixels; the COCO stats of the results agree to
+    1e-12."""
     cat2label = [1, 2, 3]
     dets = _detections(4)
     got = COCOMetrics(None, cat2label, True, str(tmp_path)).to_coco_format(INFOS, dets)
@@ -191,16 +191,12 @@ def test_to_coco_format_matches_jax(tmp_path):
 
 def test_recover_shape_segm_against_jax_on_noise_masks():
     """Mask recovery alone, on noise masks (every pixel a boundary), at sizes
-    that scale up and down by non-integer factors: torch's bilinear resize
-    against OpenCV's.  They differ in 9340 of 1,287,456 pixels (0.73%), all
-    of them where OpenCV's interpolated value is exactly 0.5 (``np.round``
-    gives 0) and torch's is 0.5 plus a few 1e-6 (1): torch forms the source
-    coordinate (x + 0.5) * in/out - 0.5 in f32, OpenCV in double, so a
-    coordinate that lands exactly between two pixels lands a few ulp past
-    it in torch.  The masks of ``test_to_coco_format_matches_jax`` show no
-    difference."""
-    import cv2
-
+    that scale up and down by non-integer factors: the port's resize does
+    OpenCV's INTER_LINEAR arithmetic (``ops/resize.py``), so no pixel
+    differs from the JAX package's cv2 call, not even where the
+    interpolated value is exactly 0.5 (``np.round`` gives 0).  Torch's
+    bilinear resize, which the port used before, differed in 9,340 of these
+    1,287,456 pixels, all at those ties."""
     torch.set_num_threads(1)
     masks = np.random.default_rng(5).uniform(size=(4, NET, NET)) < 0.5
     total = mismatched = 0
@@ -210,13 +206,8 @@ def test_recover_shape_segm_against_jax_on_noise_masks():
         want = JaxCOCOMetrics._recover_shape_segm(masks, info)
         assert got.shape == want.shape == (4, oh, ow) and got.dtype == np.uint8
         total += got.size
-        bad = got != want
-        mismatched += int(bad.sum())
-        for i in np.flatnonzero(bad.any(axis=(1, 2))):
-            cv_value = cv2.resize(masks[i].astype(np.float32), (ow, oh),
-                                  interpolation=cv2.INTER_LINEAR)[bad[i]]
-            assert (cv_value == 0.5).all() and (got[i][bad[i]] == 1).all()
-    assert total == 1287456 and mismatched == 9340, f"{mismatched} of {total} pixels differ"
+        mismatched += int((got != want).sum())
+    assert total == 1287456 and mismatched == 0, f"{mismatched} of {total} pixels differ"
 
 
 def test_pad_skip_in_to_coco_format():

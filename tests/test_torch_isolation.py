@@ -2,8 +2,8 @@
 or in chip_smoke.py, none of the host packages the card's machine lacks
 (cv2, tabulate, tqdm; pycocotools only inside a guarded function), it
 imports with JAX, cv2, PIL and matplotlib made unimportable (the JPEG
-decoder and the visualizer among it), and it never moves to the CPU on its
-own."""
+decoder, the visualizer, the native host library's bindings and the mask
+recovery among it), and it never moves to the CPU on its own."""
 
 import ast
 import subprocess
@@ -66,7 +66,9 @@ def test_pipeline_imports_with_jax_blocked():
             "orienmask_tpu_torch.eval, orienmask_tpu_torch.utils.timer, "
             "orienmask_tpu_torch.infer, orienmask_tpu_torch.stream, "
             "orienmask_tpu_torch.utils.profiler, orienmask_tpu_torch.data.image_io, "
-            "orienmask_tpu_torch.data.jpeg, orienmask_tpu_torch.utils.visualizer\n"
+            "orienmask_tpu_torch.data.jpeg, orienmask_tpu_torch.utils.visualizer, "
+            "orienmask_tpu_torch.native, orienmask_tpu_torch.ops.recover, "
+            "orienmask_tpu_torch.ops.resize\n"
             "from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer\n"
             "InferenceVisualizer('COCO')\n"
             "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "

@@ -1,0 +1,194 @@
+"""The CPU rehearsal of kernel 6 (orienmask_tpu_torch/ops/recover.py, the
+COCO conversion's mask recovery on the card): the composed source window
+against the JAX package's crop, flip, crop; the torch plain version (OpenCV's
+INTER_LINEAR arithmetic in float64 with the fused multiply-add's tie rule)
+against the JAX ``_recover_shape_segm`` (cv2) on noise masks, 0 pixels
+apart; and ``COCOMetrics.to_coco_format_device`` on CPU tensors against
+``to_coco_format`` and the JAX package's, JSON-equal."""
+
+import itertools
+import json
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from orienmask_tpu.eval.coco_eval import COCOMetrics as JaxCOCOMetrics
+from orienmask_tpu_torch.eval import COCOMetrics
+from orienmask_tpu_torch.ops.maskops import pack_bits, unpack_bits_np
+from orienmask_tpu_torch.ops.recover import (
+    recover_geometry,
+    recover_masks,
+    recover_masks_plain,
+    source_window,
+)
+from orienmask_tpu_torch.ops.resize import _fma32, fma32, resize_linear
+from orienmask_tpu_torch.utils import timer
+
+
+def _words_to_masks(words, n, oh, ow):
+    """Column-major bit words (n, ow, ceil(oh/32)), LSB first -> (n, oh, ow)."""
+    bits = np.unpackbits(np.ascontiguousarray(words).view(np.uint8), bitorder="little")
+    return bits.reshape(n, ow, -1)[:, :, :oh].transpose(0, 2, 1)
+
+
+def _recover(masks, info):
+    """The plain version of kernel 6 on one image's (n, H, W) bool masks."""
+    n, h, w = masks.shape
+    packed = pack_bits(torch.from_numpy(masks))[None]
+    geom = recover_geometry([info], [n], (h, w), "cpu")
+    words = recover_masks(packed, geom).numpy()
+    assert words.dtype == np.int32 and words.size == geom.offsets[-1]
+    return _words_to_masks(words, n, info["height"], info["width"])
+
+
+GEOMETRY = {"collate_pad": (3, 8, 2, 5, 40, 48), "pad": (1, 4, 6, 0, 29, 40),
+            "hflip": True, "vflip": True}
+
+
+@pytest.mark.parametrize("keys", [c for r in range(5) for c in itertools.combinations(GEOMETRY, r)],
+                         ids=lambda c: "+".join(c) or "none")
+def test_source_window_is_the_jax_crop_flip_crop(keys):
+    """Every combination of collate_pad, pad, hflip and vflip (asymmetric
+    pads): the composed window equals what the JAX ``_recover_shape_segm``
+    crops and flips (at the window's own size its cv2 resize copies)."""
+    masks = np.random.default_rng(len(keys)).uniform(size=(3, 40, 48)) < 0.5
+    info = {k: GEOMETRY[k] for k in keys}
+    rows, cols = source_window(info, 40, 48)
+    window = masks[:, rows[:, None], cols]
+    info.update(height=len(rows), width=len(cols))
+    np.testing.assert_array_equal(window, JaxCOCOMetrics._recover_shape_segm(masks, info))
+    np.testing.assert_array_equal(window, COCOMetrics._recover_shape_segm(masks, info))
+    np.testing.assert_array_equal(window, _recover(masks, info))
+
+
+SOURCES = [(544, 544), (408, 544), (100, 37), (61, 200)]
+OUTPUTS = [(37, 121), (100, 60), (480, 640), (64, 64), (13, 7), (272, 272), (427, 613),
+           (720, 1280)]
+
+
+@pytest.mark.parametrize("src", SOURCES, ids=lambda s: "%dx%d" % s)
+def test_plain_version_is_opencvs_resize_on_noise_masks(src):
+    """Noise masks (every pixel a boundary, the 0.5 ties everywhere), each
+    source size to every output size of the list, its own size and, from
+    544², an exact 2x down (272²): 0 pixels differ from the JAX package's
+    cv2 route, and the port's host route agrees."""
+    torch.set_num_threads(1)
+    h, w = src
+    masks = np.random.default_rng(h + w).uniform(size=(2, h, w)) < 0.5
+    total = 0
+    for oh, ow in OUTPUTS + [src]:
+        info = {"id": 0, "height": oh, "width": ow}
+        want = JaxCOCOMetrics._recover_shape_segm(masks, info)
+        got = _recover(masks, info)
+        assert got.shape == want.shape == (2, oh, ow)
+        assert int((got != want).sum()) == 0, f"{src} -> {(oh, ow)}"
+        total += got.size
+    assert total > 2 * 1.3e6
+    host = COCOMetrics._recover_shape_segm(masks, {"id": 0, "height": 100, "width": 60})
+    np.testing.assert_array_equal(host, _recover(masks, {"id": 0, "height": 100, "width": 60}))
+
+
+def test_torch_fma_breaks_double_rounding_ties_as_numpys():
+    """fma32 in torch equals ops.resize._fma32 (the visualizer's rule,
+    itself held to cv2) on the float64 halfway ties and on random floats,
+    bit for bit."""
+    a = np.array([2.0 ** -24 * (1 + 2.0 ** -12), 2.0 ** -24 * (1 + 2.0 ** -18)], np.float32)
+    b = np.array([1 - 2.0 ** -12 + 2.0 ** -24, 1 - 2.0 ** -18], np.float32)
+    c = np.ones(2, np.float32)
+    got = fma32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(got, np.array([1 + 2.0 ** -23, 1], np.float32))
+    rng = np.random.default_rng(0)
+    a, b, c = (rng.uniform(-1, 1, 100_000).astype(np.float32) for _ in range(3))
+    np.testing.assert_array_equal(
+        fma32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy(),
+        _fma32(a, b, c))
+    # the resize of general floats, as the visualizer's
+    image = rng.random((23, 31)).astype(np.float32)
+    np.testing.assert_array_equal(resize_linear(image, 50, 17),
+                                  cv2.resize(image, (50, 17), interpolation=cv2.INTER_LINEAR))
+
+
+NET = 64
+INFOS = [
+    {"id": 0, "height": NET, "width": NET},
+    {"id": 1, "height": 48, "width": 80, "pad": (13, 13, 0, 0, NET, NET)},
+    {"id": 2, "height": 100, "width": 60, "pad": (0, 0, 13, 13, NET, NET), "hflip": True},
+    {"id": 3, "height": 37, "width": 121, "vflip": True},
+    {"id": 4, "height": 480, "width": 640, "collate_pad": (0, 8, 4, 0, NET, NET)},
+    {"id": 5, "height": 61, "width": 93, "collate_pad": (2, 6, 3, 1, NET, NET),
+     "pad": (4, 1, 0, 7, 60, 56), "hflip": True, "vflip": True},
+    {"id": 0, "height": NET, "width": NET, "_pad": True},  # wrap padding: skipped
+]
+
+
+def _device_out(seed, k=6):
+    """A postprocess's device dict for len(INFOS) images: valid rows first
+    (image 3 none, the padded image all), packed masks (invalid rows
+    random, as they are never read)."""
+    rng = np.random.default_rng(seed)
+    b = len(INFOS)
+    n = [int(rng.integers(1, k + 1)) for _ in range(b)]
+    n[3], n[-1] = 0, k
+    valid = np.arange(k)[None] < np.array(n)[:, None]
+    masks = rng.uniform(size=(b, k, NET, NET)) < rng.uniform(0.05, 0.95, (b, k, 1, 1))
+    masks[0, 0], masks[0, 1] = False, True  # empty and full
+    bbox = np.concatenate([rng.uniform(0.2, 0.8, (b, k, 2)), rng.uniform(0.05, 0.5, (b, k, 2)),
+                           rng.uniform(0.01, 1, (b, k, 1))], -1).astype(np.float32)
+    return {"bbox": torch.from_numpy(bbox),
+            "cls": torch.from_numpy(rng.integers(0, 3, (b, k)).astype(np.int32)),
+            "mask": pack_bits(torch.from_numpy(masks)), "valid": torch.from_numpy(valid)}
+
+
+def _host_list(out):
+    """``OrienMaskYOLOPostProcess.to_host_list`` of ``out`` (masks NET wide)."""
+    host = {k: v.numpy() for k, v in out.items()}
+    return [{"bbox": host["bbox"][b, :n], "cls": host["cls"][b, :n],
+             "mask": unpack_bits_np(host["mask"][b, :n], NET)}
+            for b, n in enumerate(host["valid"].sum(1))]
+
+
+def test_to_coco_format_device_is_the_host_route_and_jax(tmp_path):
+    torch.set_num_threads(1)
+    cat2label = [1, 2, 3]
+    out = _device_out(3)
+    port = COCOMetrics(None, cat2label, True, str(tmp_path))
+    got = port.to_coco_format_device(INFOS, out, NET)
+    host = port.to_coco_format(INFOS, _host_list(out))
+    want = JaxCOCOMetrics(None, cat2label, True, str(tmp_path)).to_coco_format(
+        INFOS, _host_list(out))
+    n = int(out["valid"][:-1].sum())
+    assert len(got["bbox"]) == len(got["segm"]) == n >= 10
+    assert {r["image_id"] for r in got["segm"]} == {0, 1, 2, 4, 5}
+    assert json.dumps(got) == json.dumps(host) == json.dumps(want)
+    boxes_only = COCOMetrics(None, cat2label, False, str(tmp_path))
+    assert json.dumps(boxes_only.to_coco_format_device(INFOS, out, NET)) == \
+        json.dumps({"bbox": got["bbox"]})
+
+
+def test_to_coco_format_device_times_its_parts(tmp_path):
+    """The copy of boxes, classes and validity, the boxes, the masks'
+    recovery with its copy, and the RLE encoding: one timer entry each."""
+    timer.reset()
+    COCOMetrics(None, [1, 2, 3], True, str(tmp_path)).to_coco_format_device(
+        INFOS, _device_out(4), NET)
+    assert list(timer._timer_history) == ["To Host List", "COCO Boxes", "Mask Resize",
+                                          "RLE Encode"]
+    assert all(len(v) == 1 for v in timer._timer_history.values())
+
+
+def test_recover_masks_refuses_other_devices_and_counts_nothing_on_the_cpu():
+    from orienmask_tpu_torch import kernels
+
+    out = _device_out(5)
+    geom = recover_geometry(INFOS, [1] * len(INFOS), (NET, NET), "cpu")
+    kernels.reset_launches()
+    words = recover_masks(out["mask"], geom)
+    assert kernels.launches["recover_masks"] == 0
+    assert torch.equal(words, recover_masks_plain(out["mask"], geom))
+    with pytest.raises(ValueError, match="unsupported device"):
+        recover_masks(out["mask"].to("meta"), geom)
+    with pytest.raises(ValueError, match="window"):
+        recover_geometry([{"height": 5, "width": 5, "pad": (0, 0, NET, 0, NET, NET)}], [1],
+                         (NET, NET), "cpu")

@@ -158,7 +158,7 @@ def test_fused_multiply_add_breaks_double_rounding_ties():
     """1 + 2^-24 + 2^-60 rounds to 1 + 2^-24 in float64, halfway between
     two float32 values; rounded once (as a fused multiply-add) it is
     1 + 2^-23.  Just below the halfway point it is 1."""
-    from orienmask_tpu_torch.utils.visualizer import _fma32
+    from orienmask_tpu_torch.ops.resize import _fma32
 
     a = np.array([2.0 ** -24 * (1 + 2.0 ** -12), 2.0 ** -24 * (1 + 2.0 ** -18)], np.float32)
     b = np.array([1 - 2.0 ** -12 + 2.0 ** -24, 1 - 2.0 ** -18], np.float32)
