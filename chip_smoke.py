@@ -110,10 +110,13 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    on the card, bit for bit, on noise masks (every pixel a 0.5 tie) at (a)
    the CLI's 544² to 480x640, 100 masks, (b) an eval batch, B = 16 at 544²
    to 544², (c) the JPEG fixture's 427x613, (d) 736² to 720x1280, (e)
-   hflip + vflip with asymmetric pads at B = 3, (f) an exact 2x down; each
-   timed beside its plain version and its bound (bytes, and a pass's
-   subtraction and fused multiply-add where its fraction is non-zero and its
-   two values differ, a rint where any pass ran).
+   hflip + vflip with asymmetric pads at B = 3, (f) an exact 2x down, and
+   on (g) 100 elliptic masks (``data/synthetic.py``'s kind) at the CLI's
+   544² to 480x640; each timed beside its plain version and its bound
+   (bytes, and a pass's subtraction and fused multiply-add where its
+   fraction is non-zero and its two values differ, a rint where any pass
+   ran), with its 32x32 tiles counted by the kernel's path (identity,
+   uniform 0 or 1, mixed).
 
 The last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``train_544_b8``, ``eval_544_b16``); ``{"infer_544_b8": ...,
@@ -2207,10 +2210,26 @@ def check_jpeg_cli(workdir):
 
 # --------------------------------------------------------------- kernel 6
 
+def ellipse_masks(rng, k, size):
+    """``k`` elliptic instance masks at ``size``², drawn as
+    ``data/synthetic.py::make_scenes`` draws its ellipses (axes 0.15-0.55 of
+    the side, the centre keeping the box inside), packed on the card."""
+    from orienmask_tpu_torch.ops.maskops import pack_bits
+
+    ys, xs = np.mgrid[0:size, 0:size] / size
+    masks = np.zeros((k, size, size), bool)
+    for j in range(k):
+        bw, bh = rng.uniform(0.15, 0.55, 2)
+        cx = rng.uniform(bw / 2 + 0.02, 0.98 - bw / 2)
+        cy = rng.uniform(bh / 2 + 0.02, 0.98 - bh / 2)
+        masks[j] = ((xs - cx) / (bw / 2)) ** 2 + ((ys - cy) / (bh / 2)) ** 2 <= 1.0
+    return pack_bits(torch.from_numpy(masks).cuda())[None]
+
+
 def recover_cases(rng):
     """Phase 16's cases: (key, label, packed masks (B, K, H, W/8) on the card,
-    infos, valid counts).  Noise bytes: every mask pixel a coin flip, so the
-    resize meets its 0.5 ties everywhere."""
+    infos, valid counts).  Noise bytes in (a)-(f): every mask pixel a coin
+    flip, so the resize meets its 0.5 ties everywhere; (g) mask-like."""
     def noise(b, k, size):
         return torch.from_numpy(rng.integers(0, 256, (b, k, size, size // 8),
                                              dtype=np.uint8)).cuda()
@@ -2233,6 +2252,8 @@ def recover_cases(rng):
          flips, [40, 17, 0]),
         ("f", "an exact 2x down, 544² to 272²", noise(1, 100, 544),
          [{"height": 272, "width": 272}], [100]),
+        ("g", "100 elliptic masks, the CLI's 544² to 480x640", ellipse_masks(rng, 100, 544),
+         [dict(cli, height=480, width=640)], [100]),
     ]
 
 
@@ -2270,9 +2291,11 @@ def recover_work(packed, geom):
 
 def check_recover():
     """Phase 16: kernel 6 against its plain version on every case, bit for
-    bit, each timed beside its plain version and its bound."""
+    bit, each timed beside its plain version and its bound, with its tiles
+    counted by the path they take (``ops/recover.py::tile_classes``)."""
     from orienmask_tpu_torch.ops.recover import (recover_geometry, recover_masks,
-                                                 recover_masks_plain)
+                                                 recover_masks_plain, recover_occupancy,
+                                                 tile_classes)
 
     rng = np.random.default_rng(SEED + 16)
     cases, err = {}, 0
@@ -2292,12 +2315,15 @@ def check_recover():
         t_plain = eager_ms(lambda: recover_masks_plain(packed, geom), n=3)
         n_bytes, n_ops = recover_work(packed, geom)
         bound_ms, bound_by = bound(n_bytes, n_ops)
+        tiles = tile_classes(packed.cpu().numpy(), geom)
+        smem, blocks = recover_occupancy(geom, packed.shape[3])
         log(f"  ({key}) {label}: {geom.offsets[-1]} words identical; kernel {t:.4f} ms, plain "
             f"{t_plain:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.2f} MB, "
-            f"{n_ops / 1e6:.1f} M instructions)")
+            f"{n_ops / 1e6:.1f} M instructions); tiles {tiles}; {smem} B of shared memory "
+            f"a block, {blocks} blocks an SM")
         cases[key] = dict(label=label, ms=t, plain_ms=t_plain, bound_ms=bound_ms,
                           bound_by=bound_by, bytes=n_bytes, ops=n_ops, launches=1,
-                          words=geom.offsets[-1])
+                          words=geom.offsets[-1], tiles=tiles, smem=smem, blocks_per_sm=blocks)
     log(f"  card: {card_line()}")
     return err, cases
 

@@ -57,10 +57,16 @@ SIGNATURES = {
         "omt_paint_orientation": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "recover": {
-        # packed masks, per-image geometry, column table, column fractions,
-        # row table, row fractions, out, B, K, H, W/8, most warps an image,
-        # stream
-        "omt_recover_masks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # packed masks, per-image geometry, bands' staged words, column
+        # table, column fractions, row table, row fractions, out, B, K, H,
+        # W/8, most blocks an image, most staged words a row, most staged
+        # rows, most words a column, most rows of an identity image, stream
+        "omt_recover_masks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
+        # most staged words a row, most staged rows, most words a column,
+        # most rows of an identity image, W/8, out: shared memory bytes,
+        # blocks an SM holds (no stream: not a launch)
+        "omt_recover_occupancy": [_I, _I, _I, _I, _I, _P, _P],
     },
 }
 

@@ -1,5 +1,5 @@
 """Phase 16 of chip_smoke.py alone (kernel 6, the mask recovery, against
-its plain version on cases (a)-(f), timed), then phase 10 (the eval path,
+its plain version on cases (a)-(g), timed), then phase 10 (the eval path,
 whose Convert Format now recovers the masks on the card, against the host
 route) after the build: the short first call after a change to
 ``csrc/recover.cu``, ``ops/recover.py`` or the COCO conversion.  Writes the

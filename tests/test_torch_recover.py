@@ -3,7 +3,10 @@ COCO conversion's mask recovery on the card): the composed source window
 against the JAX package's crop, flip, crop; the torch plain version (OpenCV's
 INTER_LINEAR arithmetic in float64 with the fused multiply-add's tie rule)
 against the JAX ``_recover_shape_segm`` (cv2) on noise masks, 0 pixels
-apart; and ``COCOMetrics.to_coco_format_device`` on CPU tensors against
+apart; the kernel's word logic (``recover_mirror``: staged words, windows,
+column tables, the tile check, the identity transpose) against the plain
+version, bit for bit, and the identity flag; and
+``COCOMetrics.to_coco_format_device`` on CPU tensors against
 ``to_coco_format`` and the JAX package's, JSON-equal."""
 
 import itertools
@@ -18,10 +21,14 @@ from orienmask_tpu.eval.coco_eval import COCOMetrics as JaxCOCOMetrics
 from orienmask_tpu_torch.eval import COCOMetrics
 from orienmask_tpu_torch.ops.maskops import pack_bits, unpack_bits_np
 from orienmask_tpu_torch.ops.recover import (
+    IDENTITY,
+    _transpose32,
     recover_geometry,
     recover_masks,
     recover_masks_plain,
+    recover_mirror,
     source_window,
+    tile_classes,
 )
 from orienmask_tpu_torch.ops.resize import _fma32, fma32, resize_linear
 from orienmask_tpu_torch.utils import timer
@@ -192,3 +199,116 @@ def test_recover_masks_refuses_other_devices_and_counts_nothing_on_the_cpu():
     with pytest.raises(ValueError, match="window"):
         recover_geometry([{"height": 5, "width": 5, "pad": (0, 0, NET, 0, NET, NET)}], [1],
                          (NET, NET), "cpu")
+
+
+# the kernel's word logic against the plain version: every geometry of the
+# list in one batch (a 96² source), noise and mask-like masks, each band
+SRC = 96
+MIRROR_INFOS = [
+    {"height": SRC, "width": SRC},  # identity
+    {"height": 88, "width": 80, "collate_pad": (0, 16, 0, 8, SRC, SRC)},  # identity, cropped
+    {"height": 88, "width": 80, "collate_pad": (3, 13, 2, 6, SRC, SRC)},  # fractions 0, shifted
+    {"height": 61, "width": 93, "collate_pad": (2, 6, 3, 1, SRC, SRC),
+     "pad": (4, 1, 0, 7, 92, 88), "hflip": True, "vflip": True},  # flips, asymmetric pads
+    {"height": 48, "width": 48},  # an exact 2x down
+    {"height": 150, "width": 140},  # up
+    {"height": 1, "width": 57},
+    {"height": 31, "width": 40, "vflip": True},
+    {"height": 32, "width": SRC, "hflip": True},
+    {"height": 33, "width": 130},
+    {"height": 40, "width": 40},  # no detections
+]
+MIRROR_COUNTS = [3, 2, 2, 3, 2, 2, 1, 2, 1, 2, 0]
+
+
+def _mask_like(rng, n, size):
+    """Elliptic masks as data/synthetic.py::make_scenes draws them, one
+    empty and one full among them."""
+    ys, xs = np.mgrid[0:size, 0:size] / size
+    masks = np.zeros((n, size, size), bool)
+    for j in range(n):
+        bw, bh = rng.uniform(0.15, 0.55, 2)
+        cx = rng.uniform(bw / 2 + 0.02, 0.98 - bw / 2)
+        cy = rng.uniform(bh / 2 + 0.02, 0.98 - bh / 2)
+        masks[j] = ((xs - cx) / (bw / 2)) ** 2 + ((ys - cy) / (bh / 2)) ** 2 <= 1.0
+    masks[0], masks[-1] = False, True
+    return masks
+
+
+def _mirror_batch(kind, seed):
+    rng = np.random.default_rng(seed)
+    k = max(MIRROR_COUNTS)
+    if kind == "noise":
+        masks = rng.uniform(size=(len(MIRROR_INFOS), k, SRC, SRC)) < 0.5
+    else:
+        masks = np.stack([_mask_like(rng, k, SRC) for _ in MIRROR_INFOS])
+    return pack_bits(torch.from_numpy(masks))
+
+
+@pytest.mark.parametrize("band", [32, 64, 128])
+@pytest.mark.parametrize("kind", ["noise", "mask-like"])
+def test_kernel_word_logic_is_the_plain_version(kind, band):
+    """``recover_mirror`` (the kernel's staging, windows, tables, tile check
+    and identity transpose in numpy) gives the plain version's words bit for
+    bit on every geometry: identity (plain and cropped), zero fractions at an
+    offset, hflip + vflip with asymmetric pads, 2x down, up, oh of 1, 31, 32
+    and 33, an image of 0 detections; each path taken."""
+    torch.set_num_threads(1)
+    packed = _mirror_batch(kind, 7)
+    geom = recover_geometry(MIRROR_INFOS, MIRROR_COUNTS, (SRC, SRC), "cpu", band=band)
+    want = recover_masks_plain(packed, geom).numpy()
+    got, classes = recover_mirror(packed.numpy(), geom)
+    assert got.dtype == np.int32 and got.shape == want.shape
+    assert int((got != want).sum()) == 0
+    assert classes["identity"] == 3 * 3 * 3 + 2 * 3 * 3  # images 0 and 1
+    if kind == "noise":
+        assert classes["mixed"] > 0 and classes["zero"] == classes["one"] == 0
+    else:
+        assert min(classes["zero"], classes["one"], classes["mixed"]) > 0
+    assert tile_classes(packed.numpy(), geom) == classes
+
+
+def test_identity_flag_is_set_exactly_for_identities():
+    """The flag is set exactly when every fraction is 0 and every first
+    index maps i -> i."""
+    geom = recover_geometry(MIRROR_INFOS, MIRROR_COUNTS, (SRC, SRC), "cpu")
+    flags = geom.geom[:, 7].tolist()
+    xo, yo = geom.geom[:, 4].tolist(), geom.geom[:, 5].tolist()
+    for b, (info, n) in enumerate(zip(MIRROR_INFOS, MIRROR_COUNTS)):
+        if not n:
+            assert flags[b] == 0
+            continue
+        oh, ow = info["height"], info["width"]
+        x, fx = geom.xtab[xo[b]:xo[b] + ow], geom.xfrac[xo[b]:xo[b] + ow]
+        y, fy = geom.ytab[yo[b]:yo[b] + oh], geom.yfrac[yo[b]:yo[b] + oh]
+        identity = (not fx.any() and not fy.any() and torch.equal(x[:, 0], torch.arange(ow))
+                    and torch.equal(y[:, 0], torch.arange(oh)))
+        assert flags[b] == IDENTITY * identity
+    assert [bool(f & IDENTITY) for f in flags[:6]] == [True, True, False, False, False, False]
+
+
+def test_sub_bands_are_the_widest_whose_window_holds_them():
+    """Each image's sub-band width is the largest power of two up to 32 whose
+    sub-bands read source pixels at most 31 apart (a 64-bit window holds
+    their bits): 32 at and above the source size, fewer when shrunk."""
+    geom = recover_geometry(MIRROR_INFOS, MIRROR_COUNTS, (SRC, SRC), "cpu")
+    xo, cps = geom.geom[:, 4].tolist(), geom.geom[:, 11].tolist()
+
+    def spans(p, width):
+        return [int(p[s:s + width].max() - p[s:s + width].min()) for s in range(0, len(p), width)]
+
+    for b, (info, n) in enumerate(zip(MIRROR_INFOS, MIRROR_COUNTS)):
+        if not n:
+            continue
+        p = geom.xtab[xo[b]:xo[b] + info["width"]].min(1).values.numpy()
+        assert max(spans(p, cps[b])) <= 31
+        assert cps[b] == 32 or max(spans(p, 2 * cps[b])) > 31
+    assert cps[:6] == [32, 32, 32, 32, 16, 32] and min(cps[:-1]) < 16
+
+
+def test_shuffle_transpose_is_the_bit_transpose():
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 2 ** 32, 32, dtype=np.uint64).astype(np.uint32)
+    bits = (x[:, None] >> np.arange(32, dtype=np.uint32)) & 1  # (lane, bit)
+    want = (bits.T.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(1)
+    np.testing.assert_array_equal(_transpose32(x), want.astype(np.uint32))
