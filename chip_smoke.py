@@ -116,16 +116,37 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    (bytes, and a pass's subtraction and fused multiply-add where its
    fraction is non-zero and its two values differ, a rint where any pass
    ran), with its 32x32 tiles counted by the kernel's path (identity,
-   uniform 0 or 1, mixed).
+   uniform 0 or 1, mixed);
+17. training and evaluation from files: the port's mini dataset
+   (``utils/mini_dataset.py``: 32 seeded PNG scenes at 480x640 and 427x613,
+   elliptic and polygonal instances, COCO json with polygons and RLE) and
+   the published train config at full width on it (one device's share,
+   B = 8, f32, its train transform and 4 loader workers, 3 epochs each
+   validated, ``pretrained`` a missing file); ``orienmask_tpu_torch.train
+   .main`` in this process, then ``orienmask_tpu_torch.test.main`` on the
+   best checkpoint with the val set as its test set, launch counts read
+   around each; every epoch's loss finite and epoch 3's below epoch 1's;
+   the checkpoints named as the JAX package names them and loaded back;
+   kernel 5 on the loader's first batch, and kernels 1 and 2 on every val
+   and test batch's heads, bit-identical to their plain versions; the last
+   val epoch's COCO JSON identical to the host route's, and kernel 6 to its
+   plain version, on the same device outputs (kernel 6 on the test CLI's
+   too); the test CLI's 12-stat
+   vectors equal to an in-process ``Tester``'s; the train epochs' and val
+   epochs' images/s, each step's time on the stream, the trainer's wait for
+   its loader, the host data path's ms an image inline and the test CLI's
+   stage ms an image.
 
 The last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
-``train_544_b8``, ``eval_544_b16``); ``{"infer_544_b8": ...,
-"infer_544_b16": ..., "stream_736": {"depth1": ..., "depth2": ...,
-"staged_fps": ...}, "jpeg": {...}}``; the card's name and power limit; the kernels' JSON
-record: kernels 1 and 2 carry per-path launch counts (``paths``: infer,
-eval, cli, stream_736, batch, jpeg_cli) and their times at the 736² and batch shapes
-(``shapes_736``, ``batch``), kernel 6 its paths (eval, cli, jpeg_cli) and
-phase 16's cases; the last line is
+``train_544_b8``, ``eval_544_b16``, ``train_files_544_b8``);
+``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
+"depth2": ..., "staged_fps": ...}, "jpeg": {...}}``; the card's name and
+power limit; the kernels' JSON record: every kernel carries per-path launch
+counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
+jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
+validation; each also train_cli and test_cli), kernels 1 and 2 their times
+at the 736² and batch shapes (``shapes_736``, ``batch``), kernel 6 phase
+16's cases; the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
 torch.profiler tables of 20 frames and of 3 train steps in each dtype to
 DIR.
@@ -2329,6 +2350,282 @@ def check_recover():
 
 
 
+# ------------------------------------------------------ training from files
+
+FILES_IMAGES = 32
+FILES_SIZES = ((480, 640), (427, 613))
+FILES_EPOCHS = 3
+
+
+def files_configs(workdir):
+    """The port's mini dataset (32 seeded scenes at 480x640 and 427x613,
+    elliptic and polygonal instances, COCO json with polygons and RLE) and
+    two config files: the published train config at full width and depth on
+    it (one device's share, B = 8; its own dtype, transforms and loader
+    workers; 3 epochs validated each, ``epoch2.ckpt``; ``pretrained`` a
+    file that is not there) and its test config (the val set, batch 16).
+    Returns (train config, its file, test config file, seconds writing)."""
+    import orienmask_tpu_torch.config as configs
+    from orienmask_tpu_torch.utils.mini_dataset import (mini_config, mini_test_config,
+                                                        write_mini_dataset)
+
+    t = time.perf_counter()
+    paths = write_mini_dataset(workdir / "data", FILES_IMAGES, FILES_SIZES, seed=SEED)
+    write_s = time.perf_counter() - t
+    cfg = mini_config(paths, workdir / "runs", n_device=1, epochs=FILES_EPOCHS, val_freq=1,
+                      save_freq=2, model={"pretrained": str(workdir / "pretrained_darknet53.pth")})
+    bs = configs.orienmask_yolo_coco_544_anchor4_fpn_plus_test["test_loader"]["batch_size"]
+    cfg_file, test_file = workdir / "train_config.json", workdir / "test_config.json"
+    cfg_file.write_text(json.dumps(cfg))
+    test_file.write_text(json.dumps(mini_test_config(cfg, batch_size=bs)))
+    return cfg, cfg_file, test_file, write_s
+
+
+def record_trainer():
+    """Patches that keep the trainer, each epoch's result and seconds, each
+    val epoch's seconds, the first train batch, and each step's device time
+    (CUDA events around it) and host wait before it (the loader's share)."""
+    from orienmask_tpu_torch.trainer import trainer as trainer_module
+
+    rec = {"epochs": [], "epoch_s": [], "val_s": [], "events": [], "wait_s": [], "batch": None}
+    train_epoch, val_epoch = trainer_module.Trainer._train_epoch, trainer_module.Trainer._val_epoch
+    make_train_step = trainer_module.make_train_step
+
+    def recording_train_epoch(trainer, epoch):
+        rec["trainer"], rec["last"] = trainer, None
+        t = time.perf_counter()
+        rec["epochs"].append(train_epoch(trainer, epoch))
+        rec["epoch_s"].append(time.perf_counter() - t)
+        return rec["epochs"][-1]
+
+    def recording_val_epoch(trainer, epoch):
+        t = time.perf_counter()
+        out = val_epoch(trainer, epoch)
+        rec["val_s"].append(time.perf_counter() - t)
+        return out
+
+    def recording_make_train_step(*args, **kw):
+        step = make_train_step(*args, **kw)
+
+        def train_step(batch, lr, do_step=True):
+            if rec["last"] is not None:
+                rec["wait_s"].append(time.perf_counter() - rec["last"])
+            if rec["batch"] is None:
+                rec["batch"] = batch
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+            out = step(batch, lr, do_step)
+            events[1].record()
+            rec["events"].append(events)
+            rec["last"] = time.perf_counter()
+            return out
+
+        return train_step
+
+    patches = [mock.patch.object(trainer_module.Trainer, "_train_epoch", recording_train_epoch),
+               mock.patch.object(trainer_module.Trainer, "_val_epoch", recording_val_epoch),
+               mock.patch.object(trainer_module, "make_train_step", recording_make_train_step)]
+    return rec, patches
+
+
+def check_routes_and_recovery(name, converted, plain, host_route=True):
+    """Each recorded COCO conversion: kernel 6 bit for bit with its plain
+    version on its device outputs and, with ``host_route``, the card route's
+    dicts identical to the host route's on them."""
+    from orienmask_tpu_torch.ops.recover import (recover_geometry, recover_masks,
+                                                 recover_masks_plain)
+
+    words = 0
+    for metrics, info, device_out, image_w, card in converted:
+        if host_route and json.dumps(card) != json.dumps(
+                metrics.to_coco_format(info, plain.to_host_list(device_out))):
+            raise AssertionError(f"{name}: a batch's card-route COCO dicts differ from the "
+                                 "host route's")
+        counts = [0 if i.get("_pad", False) else int(v.sum())
+                  for i, v in zip(info, device_out["valid"])]
+        packed = device_out["mask"]
+        geom = recover_geometry(info, counts, (packed.shape[2], image_w), packed.device)
+        got, want_words = recover_masks(packed, geom), recover_masks_plain(packed, geom)
+        if not torch.equal(got, want_words):
+            raise AssertionError(f"{name}: kernel 6 differs from its plain version")
+        words += int(geom.offsets[-1])
+    return words
+
+
+def check_heads(name, calls, pp_kw):
+    """Kernels 1 and 2 on each recorded batch's heads: the postprocess's
+    outputs identical to the plain-version postprocess's; the plain
+    postprocess and the valid detections counted."""
+    plain = plain_postprocess(pp_kw)
+    n_valid = 0
+    for _, heads, got in calls:
+        want = plain._run_batch(heads)
+        for key in got:
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"{name}: '{key}' differs from the plain-version "
+                                     "postprocess on the same heads")
+        n_valid += int(got["valid"].sum())
+    return plain, n_valid
+
+
+def check_train_files(workdir):
+    """Phase 17: the train CLI on the mini dataset, then the test CLI on its
+    best checkpoint, each in this process through ``main(argv)``."""
+    from orienmask_tpu_torch import test as test_cli
+    from orienmask_tpu_torch import train as train_cli
+    from orienmask_tpu_torch.models import build_model
+    from orienmask_tpu_torch.ops import targets
+    from orienmask_tpu_torch.trainer.builder import build_dataloader, build_tester
+    from orienmask_tpu_torch.trainer.checkpoint import load_checkpoint
+    from orienmask_tpu_torch.trainer.train_state import to_device
+
+    cfg, cfg_file, test_file, write_s = files_configs(workdir)
+    loader_cfg = cfg["train_loader"]
+    steps = FILES_IMAGES // loader_cfg["batch_size"]
+    val_batches = -(-FILES_IMAGES // cfg["val_loader"]["batch_size"])
+    log(f"  dataset: {FILES_IMAGES} PNG scenes at {FILES_SIZES} written in {write_s:.2f} s; "
+        f"B = {loader_cfg['batch_size']}, {loader_cfg['num_workers']} loader workers, "
+        f"{cfg['compute_dtype']}, {FILES_EPOCHS} epochs of {steps} steps")
+
+    # the host data path alone, inline: load, decode, transform, collate
+    inline = build_dataloader(dict(loader_cfg, num_workers=0, drop_last=True), seed=cfg["seed"])
+    inline.set_epoch(1)
+    t = time.perf_counter()
+    for _, _ in zip(range(2), inline):
+        pass
+    host_ms = (time.perf_counter() - t) * 1e3 / (2 * loader_cfg["batch_size"])
+
+    rec, patches = record_trainer()
+    text = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        stack.enter_context(contextlib.redirect_stdout(text))
+        rc, calls, _, train_counts, converted = record_run_batch(
+            lambda: train_cli.main(["-c", str(cfg_file)]))
+    train_s = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"train.main returned {rc}")
+    if "[DarkNet53] pretrained file not found, skipping" not in text.getvalue():
+        raise AssertionError("the missing pretrained file was not reported")
+    # kernel 5 paints the targets of each train step and of each val batch's loss
+    want = {"paint_orientation": FILES_EPOCHS * (steps + val_batches),
+            "exact_topk": 2 * FILES_EPOCHS * val_batches,
+            "assemble_masks_packed": FILES_EPOCHS * val_batches,
+            "recover_masks": FILES_EPOCHS * val_batches}
+    if {k: v for k, v in train_counts.items() if v} != want:
+        raise AssertionError(f"train CLI launches {train_counts}, expected {want}")
+    log(f"  train CLI: {FILES_EPOCHS} epochs in {train_s:.2f} s (model build included), "
+        f"launches: {train_counts}")
+
+    losses = [e["train_loss"] for e in rec["epochs"]]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"epoch losses {losses}: not finite, or epoch "
+                             f"{FILES_EPOCHS}'s not below epoch 1's")
+    log(f"  epoch mean losses {[round(x, 3) for x in losses]}; val segm AP "
+        f"{[round(e['val_segm_AP'], 4) for e in rec['epochs']]}")
+
+    trainer = rec["trainer"]
+    run_dir = Path(trainer.checkpoint_dir)
+    names = sorted(os.listdir(run_dir))
+    best = [n for n in names if n.startswith("best_epoch")]
+    if "epoch2.ckpt" not in names or len(best) != 1 or "temp.ckpt" in names \
+            or os.readlink(run_dir / "best_model.ckpt") != best[0]:
+        raise AssertionError(f"checkpoints {names}: expected epoch2.ckpt, one best_epochN.ckpt "
+                             "and best_model.ckpt linking to it")
+    for name in ("epoch2.ckpt", best[0]):
+        meta = load_checkpoint(run_dir / name, build_model(cfg["model"]))
+        if int(np.asarray(meta["opt_state"]["step"])) != meta["epoch"] * steps:
+            raise AssertionError(f"{name}: {meta['opt_state']['step']} updates at epoch "
+                                 f"{meta['epoch']}")
+    log(f"  run directory {names}; epoch2.ckpt and {best[0]} load back into a fresh model")
+
+    # kernel 5 on the loader's first batch
+    batch = to_device(rec["batch"], "cuda")
+    painted = []
+    with mock.patch.object(targets, "paint_orientation",
+                           lambda geom, n_last, masks, *rest: painted.append(
+                               (geom.clone(), n_last.clone(), masks.clone()))):
+        trainer.loss._paint_shared_batch(batch["bbox"], batch["valid"], batch["mask"])
+    painter = trainer.loss.painter
+    paint_err = check_paint_case("the loader's first batch", *painted[0], painter.pixel_anchors,
+                                 (painter.image_h, painter.image_w))
+
+    pp_kw = _kw(cfg["postprocess"])
+    t = time.perf_counter()
+    plain, n_valid = check_heads("train CLI (val epochs)", calls, pp_kw)
+    last = converted[-val_batches:]  # the last val epoch's (the host route takes seconds a batch)
+    words = check_routes_and_recovery("train CLI (last val epoch)", last, plain)
+    log(f"  val epochs: {len(calls)} batches identical to the plain-version postprocess "
+        f"({n_valid} valid detections); the last epoch's {len(last)} COCO conversions "
+        f"identical to the host route's, kernel 6 identical to its plain version on them "
+        f"({words} words); checked in {time.perf_counter() - t:.1f} s")
+
+    # the test CLI on the best checkpoint, then a Tester built in this process
+    testers = []
+
+    def recording_build_tester(*args, **kw):
+        testers.append(build_tester(*args, **kw))
+        return testers[-1]
+
+    text = io.StringIO()
+    ckpt = str(run_dir / "best_model.ckpt")
+    t = time.perf_counter()
+    with mock.patch.object(test_cli, "build_tester", recording_build_tester), \
+            contextlib.redirect_stdout(text):
+        rc, test_calls, _, test_counts, test_converted = record_run_batch(
+            lambda: test_cli.main(["-c", str(test_file), "-w", ckpt]))
+    test_s = time.perf_counter() - t
+    test_batches = -(-FILES_IMAGES // json.loads(test_file.read_text())["test_loader"]["batch_size"])
+    want = {"exact_topk": 2 * test_batches, "assemble_masks_packed": test_batches,
+            "recover_masks": test_batches}
+    if rc != 0 or {k: v for k, v in test_counts.items() if v} != want:
+        raise AssertionError(f"test CLI: rc {rc}, launches {test_counts}, expected {want}")
+    stages = report_ms(text.getvalue().splitlines())
+    log(f"  test CLI on {best[0]}: {FILES_IMAGES} images in {test_s:.2f} s (build included), "
+        f"launches: {test_counts}")
+    t = time.perf_counter()
+    plain, n_valid = check_heads("test CLI", test_calls, pp_kw)
+    words = check_routes_and_recovery("test CLI", test_converted, plain, host_route=False)
+    tester = build_tester(json.loads(test_file.read_text()), ckpt, device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        tester.test()
+    tester.test_loader.shutdown()
+    for kind in ("bbox", "segm"):
+        got = np.asarray(getattr(testers[0].coco_metrics, f"{kind}_eval_stats"))
+        want_stats = np.asarray(getattr(tester.coco_metrics, f"{kind}_eval_stats"))
+        if got.shape != (12,) or not np.array_equal(got, want_stats):
+            raise AssertionError(f"test CLI {kind} stats {got} differ from the in-process "
+                                 f"Tester's {want_stats}")
+    log(f"  test CLI: outputs identical to the plain-version postprocess ({n_valid} valid "
+        f"detections), kernel 6 to its plain version ({words} words); bbox and segm 12-stat "
+        f"vectors equal to an in-process Tester's (segm AP "
+        f"{float(tester.coco_metrics.segm_eval_stats[0]):.4f}); checked in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in rec["events"]]
+    train_only = [e - v for e, v in zip(rec["epoch_s"], rec["val_s"])]
+    rates = [FILES_IMAGES / s for s in train_only]
+    val_rates = [FILES_IMAGES / s for s in rec["val_s"]]
+    timings = {"train_images_per_s": rates, "val_images_per_s": val_rates,
+               "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
+               "loader_wait_ms_per_step": float(np.mean(rec["wait_s"])) * 1e3,
+               "host_data_ms_per_image": host_ms, "test_stage_ms_per_image": stages,
+               "epoch_losses": losses}
+    log(f"  train epochs {', '.join(f'{r:.2f}' for r in rates)} images/s (val excluded); "
+        f"val epochs {', '.join(f'{r:.2f}' for r in val_rates)} images/s; step "
+        f"{timings['step_ms_median']:.1f} ms on the stream (median of {len(step_ms)}); the "
+        f"trainer waited {timings['loader_wait_ms_per_step']:.1f} ms a step for its loader; "
+        f"load + decode + transform + collate inline {host_ms:.1f} ms an image "
+        f"({host_ms * loader_cfg['batch_size']:.0f} ms a batch on one core)")
+    log(f"  test CLI ms an image: {stages}")
+    log(f"  card: {card_line()}")
+    counts = {"train_cli": train_counts, "test_cli": test_counts}
+    return counts, paint_err, timings
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -2430,6 +2727,9 @@ def main(argv=None):
     jpeg.update(jpeg_cli)
     log("[16] kernel 6: recover_masks vs its plain version")
     recover_err, recover_cases_ = check_recover()
+    log("[17] training and evaluation from files: the train CLI (3 epochs), then the test CLI")
+    with tempfile.TemporaryDirectory() as workdir:
+        files_counts, files_paint_err, train_files = check_train_files(Path(workdir))
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -2440,11 +2740,19 @@ def main(argv=None):
                     "stream_736": stream_counts[name], "batch": batch_counts[name],
                     "jpeg_cli": jpeg_counts[name]}
              for name in ("exact_topk", "assemble_masks_packed")}
-    for name in paths:
+    for name in ("exact_topk", "assemble_masks_packed"):
         times[name]["shapes_736"] = shapes_736[name]
         times[name]["batch"] = {b: batch_shapes[b][name] for b in BATCHES}
-    recover_paths = {"eval": eval_counts["recover_masks"], "cli": cli_counts["recover_masks"],
-                     "jpeg_cli": jpeg_counts["recover_masks"]}
+    paths["recover_masks"] = {"eval": eval_counts["recover_masks"],
+                              "cli": cli_counts["recover_masks"],
+                              "jpeg_cli": jpeg_counts["recover_masks"]}
+    paths["paint_orientation"] = {"train": train_counts["paint_orientation"]}
+    for name in ("assemble_masks", "assemble_masks_bitpacked"):
+        paths[name] = {"validation": per_det_counts[name]}
+    for name in paths:  # phase 17's CLIs, each kernel's count around each
+        for cli, launched in files_counts.items():
+            paths[name][cli] = launched[name]
+    recover_paths = paths["recover_masks"]
     main_case = recover_cases_["b"]  # the eval batch
     kernels_line = {"kernels": [
         dict(name="exact_topk", route="cuda", source="orienmask_tpu_torch/csrc/topk.cu",
@@ -2459,16 +2767,18 @@ def main(argv=None):
              **times["assemble_masks_packed"]),
         dict(name="assemble_masks", route="cuda", source="orienmask_tpu_torch/csrc/masks.cu",
              replaces="orienmask_tpu/ops/pallas_masks.py:60",
-             launches=per_det_counts["assemble_masks"], max_abs_err=per_det_err,
-             **times["assemble_masks"]),
+             launches=sum(paths["assemble_masks"].values()), paths=paths["assemble_masks"],
+             max_abs_err=per_det_err, **times["assemble_masks"]),
         dict(name="assemble_masks_bitpacked", route="cuda",
              source="orienmask_tpu_torch/csrc/masks.cu",
              replaces="orienmask_tpu/ops/pallas_masks.py:142",
-             launches=per_det_counts["assemble_masks_bitpacked"], max_abs_err=per_det_err,
+             launches=sum(paths["assemble_masks_bitpacked"].values()),
+             paths=paths["assemble_masks_bitpacked"], max_abs_err=per_det_err,
              **times["assemble_masks_bitpacked"]),
         dict(name="paint_orientation", route="cuda", source="orienmask_tpu_torch/csrc/paint.cu",
              replaces="orienmask_tpu/ops/pallas_paint.py:149",
-             launches=train_counts["paint_orientation"], max_abs_err=paint_err,
+             launches=sum(paths["paint_orientation"].values()),
+             paths=paths["paint_orientation"], max_abs_err=max(paint_err, files_paint_err),
              **times["paint_orientation"]),
         dict(name="recover_masks", route="cuda", source="orienmask_tpu_torch/csrc/recover.cu",
              replaces="orienmask_tpu/eval/coco_eval.py:147",
@@ -2479,7 +2789,7 @@ def main(argv=None):
     ]}
     log(f"  total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train,
-                    "eval_544_b16": eval_times}))
+                    "eval_544_b16": eval_times, "train_files_544_b8": train_files}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
                     "stream_736": stream_fps, "jpeg": jpeg}))
     log(card_line())

@@ -9,8 +9,9 @@ copy equal to the original.
 
 import copy
 
-# ImageNet statistics (the train transform's pad value).
+# ImageNet statistics (MEAN is the train transform's pad value).
 MEAN = [123.675, 116.280, 103.530]
+STD = [58.395, 57.120, 57.375]
 
 # Per-scale anchor index groups: scale-32 owns anchors 6..8, scale-16 owns
 # 3..5, scale-8 owns 0..2.
@@ -201,6 +202,7 @@ coco_544_val_loader = dict(
     collate=dict(type="collate"),
 )
 
+coco_train2017_gt_file = "coco/annotations/instances_train2017.json"
 coco_val2017_gt_file = "coco/annotations/instances_val2017.json"
 
 orienmask_yolo_coco_544_loss = dict(

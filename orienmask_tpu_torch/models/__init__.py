@@ -1,4 +1,10 @@
-from .convert import init_random, load_reference_state_dict, variables_from_jax
+from .convert import (
+    init_random,
+    load_pretrained_backbone,
+    load_reference_state_dict,
+    variables_from_jax,
+    variables_to_jax,
+)
 from .orienmask_yolo import OrienMaskYOLO
 from .orienmask_yolo_fpnplus import OrienMaskYOLOFPNPlus
 
@@ -6,10 +12,11 @@ MODELS = {"OrienMaskYOLO": OrienMaskYOLO, "OrienMaskYOLOFPNPlus": OrienMaskYOLOF
 
 
 def build_model(model_cfg, **overrides):
-    """Model from a config's ``model`` dict.  ``pretrained`` is not read:
-    weights come from ``init_random`` or the weight bridge.  The trainer
-    options ``freeze_backbone`` and ``backbone_batchnorm_eval`` are not
-    ported: a config that sets either is refused, not trained as if unset."""
+    """Model from a config's ``model`` dict, with torch's initial weights:
+    ``init_random``, a checkpoint, or ``trainer/builder.py::build_model``
+    (seeded weights, then ``pretrained``) set them.  The trainer options
+    ``freeze_backbone`` and ``backbone_batchnorm_eval`` are not ported: a
+    config that sets either is refused, not trained as if unset."""
     for key in ("freeze_backbone", "backbone_batchnorm_eval"):
         if model_cfg.get(key):
             raise ValueError(f"{key} is not ported yet: the port would train the "
@@ -24,4 +31,5 @@ def build_model(model_cfg, **overrides):
 
 
 __all__ = ["OrienMaskYOLO", "OrienMaskYOLOFPNPlus", "build_model", "init_random",
-           "load_reference_state_dict", "variables_from_jax"]
+           "load_pretrained_backbone", "load_reference_state_dict", "variables_from_jax",
+           "variables_to_jax"]

@@ -3,6 +3,11 @@
 * ``variables_from_jax``: the JAX ``{"params", "batch_stats"}`` pytree, as
   numpy arrays (HWIO kernels; ``scale``/``bias``/``mean``/``var``), to the
   port's state dict.  The port's own copy of the mapping.
+* ``variables_to_jax``: its inverse, the port's state dict to the JAX
+  pytree (lists for ``Sequential``s, ``{}`` where a module holds nothing),
+  which checkpoints are written in.
+* ``load_pretrained_backbone``: a DarkNet-53 ``.pth`` into the backbone,
+  with the JAX package's key handling and messages.
 * ``load_reference_state_dict``: a reference-layout ``.pth`` state dict
   (OIHW kernels, ``conv_block.{0,1}`` keys), loaded with ``strict=True``.
 * ``init_random``: seeded random weights from a ``torch.Generator``, the
@@ -11,6 +16,7 @@
 """
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -29,13 +35,15 @@ def _t(a):
 
 
 def _module_from_jax(module, params, stats, prefix, out):
+    """``stats`` None: the parameters alone."""
     if isinstance(module, ConvBNLeaky):
         out[f"{prefix}.conv_block.0.weight"] = _oihw(params["kernel"])
         out[f"{prefix}.conv_block.1.weight"] = _t(params["scale"])
         out[f"{prefix}.conv_block.1.bias"] = _t(params["bias"])
-        out[f"{prefix}.conv_block.1.running_mean"] = _t(stats["mean"])
-        out[f"{prefix}.conv_block.1.running_var"] = _t(stats["var"])
-        out[f"{prefix}.conv_block.1.num_batches_tracked"] = torch.tensor(0)
+        if stats is not None:
+            out[f"{prefix}.conv_block.1.running_mean"] = _t(stats["mean"])
+            out[f"{prefix}.conv_block.1.running_var"] = _t(stats["var"])
+            out[f"{prefix}.conv_block.1.num_batches_tracked"] = torch.tensor(0)
     elif isinstance(module, Conv):
         out[f"{prefix}.weight"] = _oihw(params["kernel"])
         out[f"{prefix}.bias"] = _t(params["bias"])
@@ -43,24 +51,70 @@ def _module_from_jax(module, params, stats, prefix, out):
         pass
     elif isinstance(module, Sequential):
         for i, m in enumerate(module):
-            _module_from_jax(m, params[i], stats[i], f"{prefix}.{i}", out)
+            _module_from_jax(m, params[i], None if stats is None else stats[i],
+                             f"{prefix}.{i}", out)
     elif isinstance(module, DarkNetBlock):
         _module_from_jax(module.conv, params, stats, f"{prefix}.conv", out)
     elif isinstance(module, DarkNet53):
         for name in module.stage_names:
-            _module_from_jax(getattr(module, name), params[name], stats[name],
-                             f"{prefix}.{name}", out)
+            _module_from_jax(getattr(module, name), params[name],
+                             None if stats is None else stats[name], f"{prefix}.{name}", out)
     else:
         raise TypeError(f"no JAX mapping for {type(module).__name__}")
 
 
 def variables_from_jax(model, variables):
-    """JAX ``{"params", "batch_stats"}`` (numpy leaves) -> the port's state dict."""
+    """JAX ``{"params", "batch_stats"}`` (numpy leaves) -> the port's state
+    dict; ``batch_stats`` None gives the parameters alone (an SGD momentum
+    tree, say)."""
     params, stats = variables["params"], variables["batch_stats"]
     out = {}
     for name in model.module_names():
-        _module_from_jax(getattr(model, name), params[name], stats[name], name, out)
+        _module_from_jax(getattr(model, name), params[name],
+                         None if stats is None else stats[name], name, out)
     return out
+
+
+def _copy(t):
+    return t.detach().clone(memory_format=torch.contiguous_format)
+
+
+def _module_to_jax(module, sd, prefix):
+    """(params, stats) of ``module`` in the JAX layout from state dict ``sd``."""
+    if isinstance(module, ConvBNLeaky):
+        return ({"kernel": _copy(sd[f"{prefix}.conv_block.0.weight"].permute(2, 3, 1, 0)),
+                 "scale": _copy(sd[f"{prefix}.conv_block.1.weight"]),
+                 "bias": _copy(sd[f"{prefix}.conv_block.1.bias"])},
+                {"mean": _copy(sd[f"{prefix}.conv_block.1.running_mean"]),
+                 "var": _copy(sd[f"{prefix}.conv_block.1.running_var"])})
+    if isinstance(module, Conv):
+        return ({"kernel": _copy(sd[f"{prefix}.weight"].permute(2, 3, 1, 0)),
+                 "bias": _copy(sd[f"{prefix}.bias"])}, {})
+    if isinstance(module, NearestUpsample):
+        return {}, {}
+    if isinstance(module, Sequential):
+        pairs = [_module_to_jax(m, sd, f"{prefix}.{i}") for i, m in enumerate(module)]
+        return [p for p, _ in pairs], [s for _, s in pairs]
+    if isinstance(module, DarkNetBlock):
+        return _module_to_jax(module.conv, sd, f"{prefix}.conv")
+    if isinstance(module, DarkNet53):
+        params, stats = {}, {}
+        for name in module.stage_names:
+            params[name], stats[name] = _module_to_jax(getattr(module, name), sd,
+                                                       f"{prefix}.{name}")
+        return params, stats
+    raise TypeError(f"no JAX mapping for {type(module).__name__}")
+
+
+def variables_to_jax(model, state_dict=None):
+    """The port's state dict (``model.state_dict()`` by default) -> the JAX
+    ``{"params", "batch_stats"}`` pytree, HWIO kernels; the leaves are
+    contiguous copies, on the state dict's device."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    params, stats = {}, {}
+    for name in model.module_names():
+        params[name], stats[name] = _module_to_jax(getattr(model, name), sd, name)
+    return {"params": params, "batch_stats": stats}
 
 
 def load_reference_state_dict(model, state_dict):
@@ -89,4 +143,35 @@ def init_random(model, seed=0):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=gen)
             m.bias.uniform_(-bound, bound, generator=gen)
+    return model
+
+
+def load_pretrained_backbone(model, path):
+    """DarkNet-53 weights from a ``.pth`` state dict (bare or under
+    ``state_dict``; keys with or without ``backbone.``) into
+    ``model.backbone``, parameters and running statistics.  A missing file
+    or key is skipped with the JAX package's message, the backbone kept as
+    it was; a key of another shape raises."""
+    if not os.path.exists(path):
+        print(f"[DarkNet53] pretrained file not found, skipping: {path}")
+        return model
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd and not hasattr(sd["state_dict"], "shape"):
+        sd = sd["state_dict"]
+    sd = {k[len("backbone."):] if k.startswith("backbone.") else k: v for k, v in sd.items()}
+    own = model.backbone.state_dict()
+    wanted = [k for k in own if not k.endswith("num_batches_tracked")]
+    missing = [k for k in wanted if k not in sd]
+    if missing:
+        print(f"[DarkNet53] pretrained load failed (missing key {missing[0]!r}), skipping")
+        return model
+    loaded = dict(own)
+    for k in wanted:
+        value = sd[k] if isinstance(sd[k], torch.Tensor) else _t(sd[k])
+        if tuple(value.shape) != tuple(own[k].shape):
+            raise ValueError(f"[DarkNet53] pretrained {path}: {k} has shape "
+                             f"{tuple(value.shape)}, the backbone's is {tuple(own[k].shape)}")
+        loaded[k] = value
+    model.backbone.load_state_dict(loaded, strict=True)
+    print(f"[DarkNet53] loaded pretrained backbone from {path}")
     return model

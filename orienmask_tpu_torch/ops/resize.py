@@ -7,8 +7,8 @@ edges, where the fraction is 0) and the fraction rounded to float32; each
 pass is a fused ``(b - a) * f + a``, rounded once to float32 (columns first,
 then rows).
 
-* ``resize_linear``: the numpy version of a 2-D float32 array (the
-  visualizer's masks).
+* ``resize_linear``: the numpy version of a float32 array, one channel or
+  several (the visualizer's masks, the train transform's images).
 * ``resize_masks_linear``: ``np.round`` of it on 0/1 masks, (n, H, W) at a
   time, with the arithmetic only where the four source pixels differ (the
   host route of ``COCOMetrics._recover_shape_segm``).
@@ -85,13 +85,14 @@ def linear_coefficients(dst, src):
 
 def resize_linear(image, width, height):
     """``cv2.resize(image, (width, height), interpolation=INTER_LINEAR)`` of a
-    2-D float32 array, bit for bit."""
+    float32 array, (H, W) or (H, W, C) with every channel alike, bit for bit."""
     x0, x1, fx = linear_coefficients(width, image.shape[1])
     y0, y1, fy = linear_coefficients(height, image.shape[0])
+    channels = (1,) * (image.ndim - 2)
     left = image[:, x0]
-    rows = _fma32(image[:, x1] - left, fx, left)
+    rows = _fma32(image[:, x1] - left, fx.reshape(-1, *channels), left)
     top = rows[y0]
-    return _fma32(rows[y1] - top, fy[:, None], top)
+    return _fma32(rows[y1] - top, fy.reshape(-1, 1, *channels), top)
 
 
 def resize_masks_linear(masks, width, height):

@@ -24,6 +24,16 @@ class SGD:
         self.step = None  # int32 device scalar: updates applied so far
 
     @torch.no_grad()
+    def load_state(self, momentum, step):
+        """Momentum buffers (one tensor a parameter, in order) and the count
+        of updates applied, as a checkpoint holds them."""
+        if len(momentum) != len(self.params):
+            raise ValueError(f"{len(momentum)} momentum buffers for {len(self.params)} "
+                             "parameters")
+        self.buffers = [torch.empty_like(p).copy_(m) for p, m in zip(self.params, momentum)]
+        self.step = torch.tensor(step, dtype=torch.int32, device=self.params[0].device)
+
+    @torch.no_grad()
     def apply(self, grads, lr, update_gate=None):
         """One update with the already-scheduled ``lr`` (a float)."""
         if self.buffers is None:

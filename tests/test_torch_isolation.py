@@ -1,9 +1,10 @@
 """The port stands alone: no JAX and nothing of orienmask_tpu in its sources
 or in chip_smoke.py, none of the host packages the card's machine lacks
-(cv2, tabulate, tqdm; pycocotools only inside a guarded function), it
-imports with JAX, cv2, PIL and matplotlib made unimportable (the JPEG
-decoder, the visualizer, the native host library's bindings and the mask
-recovery among it), and it never moves to the CPU on its own."""
+(cv2, PIL, tabulate, tqdm; pycocotools and tensorboardX only inside a
+guarded function), it imports with JAX, cv2, PIL and matplotlib made
+unimportable (the JPEG decoder, the visualizer, the native host library's
+bindings, the mask recovery, the data path and the trainer among it), and
+it never moves to the CPU on its own."""
 
 import ast
 import subprocess
@@ -42,8 +43,9 @@ def test_sources_import_neither_jax_nor_the_jax_package(path):
 
 @pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_sources_import_no_host_package_the_card_machine_lacks(path):
-    """cv2, PIL, tabulate and tqdm nowhere; pycocotools only inside functions,
-    one of which imports it inside a ``try`` (``coco_eval._try_pycocotools``)."""
+    """cv2, PIL, tabulate and tqdm nowhere; pycocotools and tensorboardX only
+    inside functions, one of which imports each inside a ``try``
+    (``coco_eval._try_pycocotools``, ``trainer/base.py::tensorboard_writer``)."""
     for name in _imported_modules(path):
         assert name.split(".")[0] not in ("cv2", "PIL", "tabulate", "tqdm"), \
             f"{path.name} imports {name}"
@@ -51,9 +53,11 @@ def test_sources_import_no_host_package_the_card_machine_lacks(path):
     in_functions = {id(n) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
                     for n in ast.walk(f)}
     in_try = {id(n) for t in ast.walk(tree) if isinstance(t, ast.Try) for n in ast.walk(t)}
-    coco = [node for node, name in _imports(ast.walk(tree)) if name.startswith("pycocotools")]
-    assert all(id(n) in in_functions for n in coco), f"{path.name}: pycocotools at module level"
-    assert not coco or any(id(n) in in_try for n in coco), f"{path.name}: unguarded pycocotools"
+    for package in ("pycocotools", "tensorboardX"):
+        nodes = [node for node, name in _imports(ast.walk(tree)) if name.startswith(package)]
+        assert all(id(n) in in_functions for n in nodes), f"{path.name}: {package} at module level"
+        assert not nodes or any(id(n) in in_try for n in nodes), \
+            f"{path.name}: unguarded {package}"
 
 
 def test_pipeline_imports_with_jax_blocked():
@@ -71,6 +75,28 @@ def test_pipeline_imports_with_jax_blocked():
             "orienmask_tpu_torch.ops.resize\n"
             "from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer\n"
             "InferenceVisualizer('COCO')\n"
+            "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "
+            "for m, v in sys.modules.items() if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_training_modules_import_with_jax_and_host_packages_blocked():
+    """The file-backed data path, the trainer, its checkpoints and the train
+    and test CLIs import with JAX, orienmask_tpu, cv2, PIL, tabulate, tqdm
+    and tensorboardX unimportable, and the trainer then logs no scalars."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'orienmask_tpu', 'cv2', 'PIL', 'tabulate', 'tqdm', "
+            "'tensorboardX', 'pycocotools'): sys.modules[m] = None\n"
+            "import orienmask_tpu_torch.data.transform, orienmask_tpu_torch.data.dataset, "
+            "orienmask_tpu_torch.data.dataloader, orienmask_tpu_torch.eval.counter, "
+            "orienmask_tpu_torch.trainer.base, orienmask_tpu_torch.trainer.trainer, "
+            "orienmask_tpu_torch.trainer.builder, orienmask_tpu_torch.trainer.checkpoint, "
+            "orienmask_tpu_torch.utils.prepare_dataset, orienmask_tpu_torch.utils.mini_dataset, "
+            "orienmask_tpu_torch.train, orienmask_tpu_torch.test\n"
+            "from orienmask_tpu_torch.trainer.base import tensorboard_writer\n"
+            "assert tensorboard_writer('.') is None\n"
             "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "
             "for m, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -131,6 +131,10 @@ def test_test_config_copies_match_jax_configs(name):
 
 @pytest.mark.parametrize("name", [
     "transform_infer_736", "orienmask_yolo_coco_736_anchor4_postprocess", "coco_visualizer",
+    "MEAN", "STD", "ANCHORS_MASK", "ANCHORS_YOLOV3", "ANCHORS_YOLOV4", "coco_train_dataset",
+    "coco_val_dataset", "transform_train_544", "transform_val_544", "coco_544_train_loader",
+    "coco_544_val_loader", "coco_train2017_gt_file", "coco_val2017_gt_file", "base_sgd",
+    "step_lr_warmup_coco_e100", "orienmask_yolo_coco_544_anchor4_loss",
 ])
 def test_infer_blocks_match_jax_base(name):
     import orienmask_tpu.config.base as jax_base
