@@ -135,19 +135,40 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    vectors equal to an in-process ``Tester``'s; the train epochs' and val
    epochs' images/s, each step's time on the stream, the trainer's wait for
    its loader, the host data path's ms an image inline and the test CLI's
-   stage ms an image.
+   stage ms an image;
+18. data parallelism: the published train config with its ``n_device=2``
+   as published (B = 8 a device, 16 global, f32) as two ranks on the one
+   card, spawned with ``torch.multiprocessing`` (gloo with CUDA tensors:
+   NCCL takes no two ranks on one device), on phase 17's dataset with 2
+   loader workers a rank: first one step of 2 ranks x 4 of phase 7's
+   images, then ``train.main`` for 2 epochs of 2 steps each validated,
+   then ``test.main`` with ``n_device=2`` on its best checkpoint, launch
+   counts read around each rank's runs; both ranks end equal by bits (the
+   step's and the train CLI's states), every epoch's loss finite, rank 0's
+   merged COCO results the sum of both ranks'; kernel 5 on rank 0's first
+   batch and kernels 1, 2 and 6 on its val and test batches bit-identical
+   to their plain versions; in this process the same step on all 8
+   images with no group and in a one-rank NCCL group (the synced
+   BatchNorm, the loss's counts and the gradient sum through NCCL), each
+   held to the no-group step at ``tests/test_torch_parallel.py``'s
+   tolerances, and the test CLI in one process, whose 12-stat vectors the
+   two ranks' must equal; global images/s of the train epochs, each rank's
+   step on the stream and its time in collectives, its loader wait and
+   peak memory.
 
 The last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
-``train_544_b8``, ``eval_544_b16``, ``train_files_544_b8``);
+``train_544_b8``, ``eval_544_b16``, ``train_files_544_b8``,
+``dp_train_544_b8x2``);
 ``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
 "depth2": ..., "staged_fps": ...}, "jpeg": {...}}``; the card's name and
 power limit; the kernels' JSON record: every kernel carries per-path launch
 counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
 jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
-validation; each also train_cli and test_cli), kernels 1 and 2 their times
-at the 736² and batch shapes (``shapes_736``, ``batch``), kernel 6 phase
-16's cases; the last line is
-``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
+validation; each also train_cli and test_cli; kernels 1, 2 and 6 dp_train
+and dp_test, kernel 5 dp_train, both ranks' counts summed), kernels 1 and
+2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
+kernel 6 phase 16's cases; the last line is ``{"ok": true, "device":
+{...}}``.  ``--profile DIR`` also writes
 torch.profiler tables of 20 frames and of 3 train steps in each dtype to
 DIR.
 """
@@ -2357,14 +2378,15 @@ FILES_SIZES = ((480, 640), (427, 613))
 FILES_EPOCHS = 3
 
 
-def files_configs(workdir):
+def files_configs(workdir, n_device=1, epochs=FILES_EPOCHS, **updates):
     """The port's mini dataset (32 seeded scenes at 480x640 and 427x613,
     elliptic and polygonal instances, COCO json with polygons and RLE) and
     two config files: the published train config at full width and depth on
-    it (one device's share, B = 8; its own dtype, transforms and loader
-    workers; 3 epochs validated each, ``epoch2.ckpt``; ``pretrained`` a
-    file that is not there) and its test config (the val set, batch 16).
-    Returns (train config, its file, test config file, seconds writing)."""
+    it (by default one device's share, B = 8; its own dtype, transforms and
+    loader workers; 3 epochs validated each, ``epoch2.ckpt``; ``pretrained``
+    a file that is not there; ``updates`` merged last) and its test config
+    (the val set, batch 16, ``n_device`` as the train config's).  Returns
+    (train config, its file, test config file, seconds writing)."""
     import orienmask_tpu_torch.config as configs
     from orienmask_tpu_torch.utils.mini_dataset import (mini_config, mini_test_config,
                                                         write_mini_dataset)
@@ -2372,19 +2394,21 @@ def files_configs(workdir):
     t = time.perf_counter()
     paths = write_mini_dataset(workdir / "data", FILES_IMAGES, FILES_SIZES, seed=SEED)
     write_s = time.perf_counter() - t
-    cfg = mini_config(paths, workdir / "runs", n_device=1, epochs=FILES_EPOCHS, val_freq=1,
-                      save_freq=2, model={"pretrained": str(workdir / "pretrained_darknet53.pth")})
+    cfg = mini_config(paths, workdir / "runs", n_device=n_device, epochs=epochs, val_freq=1,
+                      save_freq=2, model={"pretrained": str(workdir / "pretrained_darknet53.pth")},
+                      **updates)
     bs = configs.orienmask_yolo_coco_544_anchor4_fpn_plus_test["test_loader"]["batch_size"]
     cfg_file, test_file = workdir / "train_config.json", workdir / "test_config.json"
     cfg_file.write_text(json.dumps(cfg))
-    test_file.write_text(json.dumps(mini_test_config(cfg, batch_size=bs)))
+    test_file.write_text(json.dumps(dict(mini_test_config(cfg, batch_size=bs), n_device=n_device)))
     return cfg, cfg_file, test_file, write_s
 
 
 def record_trainer():
     """Patches that keep the trainer, each epoch's result and seconds, each
     val epoch's seconds, the first train batch, and each step's device time
-    (CUDA events around it) and host wait before it (the loader's share)."""
+    (CUDA events around it) and host wait before it (the loader's share);
+    ``rec["in_step"]`` is true while a step runs."""
     from orienmask_tpu_torch.trainer import trainer as trainer_module
 
     rec = {"epochs": [], "epoch_s": [], "val_s": [], "events": [], "wait_s": [], "batch": None}
@@ -2414,7 +2438,9 @@ def record_trainer():
                 rec["batch"] = batch
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             events[0].record()
+            rec["in_step"] = True
             out = step(batch, lr, do_step)
+            rec["in_step"] = False
             events[1].record()
             rec["events"].append(events)
             rec["last"] = time.perf_counter()
@@ -2577,7 +2603,8 @@ def check_train_files(workdir):
         rc, test_calls, _, test_counts, test_converted = record_run_batch(
             lambda: test_cli.main(["-c", str(test_file), "-w", ckpt]))
     test_s = time.perf_counter() - t
-    test_batches = -(-FILES_IMAGES // json.loads(test_file.read_text())["test_loader"]["batch_size"])
+    test_bs = json.loads(test_file.read_text())["test_loader"]["batch_size"] // DP_RANKS
+    test_batches = -(-FILES_IMAGES // (test_bs * DP_RANKS))  # a rank's
     want = {"exact_topk": 2 * test_batches, "assemble_masks_packed": test_batches,
             "recover_masks": test_batches}
     if rc != 0 or {k: v for k, v in test_counts.items() if v} != want:
@@ -2624,6 +2651,402 @@ def check_train_files(workdir):
     log(f"  card: {card_line()}")
     counts = {"train_cli": train_counts, "test_cli": test_counts}
     return counts, paint_err, timings
+
+
+# ------------------------------------------------------- data parallelism
+
+DP_RANKS = 2
+DP_EPOCHS = 2
+DP_WORKERS = 2  # loader workers a rank: the card's host has 8 cores for everything
+DP_DEADLINE_S = 480
+# tests/test_torch_parallel.py's tolerances for a step from the same state:
+# logs to 2e-4 of themselves, gradients to 5% in relative L2 a tensor and 4%
+# all together (random weights amplify f32 rounding along the backward)
+DP_LOG_RTOL, DP_GRAD_RTOL, DP_GRAD_RTOL_ALL = 2e-4, 0.05, 0.04
+
+
+def free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for sock in socks:
+        sock.bind(("localhost", 0))
+    ports = [sock.getsockname()[1] for sock in socks]
+    for sock in socks:
+        sock.close()
+    return ports
+
+
+def state_digest(model, opt):
+    """SHA-256 of the parameters, BatchNorm buffers, momentum and update
+    counter, in order, by their bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    sgd = [] if opt.buffers is None else [*opt.buffers, opt.step]
+    for t in [*model.state_dict().values(), *sgd]:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_step(rank=None):
+    """One step of the published train config at full width (seeded
+    weights, the schedule's first lr, f32) on phase 7's 8 synthetic images:
+    all of them (``rank`` None) or this rank's 4, under whatever process
+    group is initialised.  Returns (logs, momentum by parameter name on the
+    host, state digest, parameters before the step on the host)."""
+    from orienmask_tpu_torch.config import orienmask_yolo_coco_544_anchor4_fpn_plus as cfg
+    from orienmask_tpu_torch.data import collate
+    from orienmask_tpu_torch.models import build_model, init_random
+    from orienmask_tpu_torch.ops import OrienMaskYOLOMultiScaleLoss
+    from orienmask_tpu_torch.optim import SGD, StepWarmUpLR
+    from orienmask_tpu_torch.trainer import make_train_step
+
+    model = init_random(build_model(cfg["model"]), SEED)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = SGD(model.parameters(), **_kw(cfg["optimizer"]))
+    step = make_train_step(model, OrienMaskYOLOMultiScaleLoss(**_kw(cfg["loss"]), device="cuda"),
+                           opt, device="cuda")
+    samples = synthetic_samples(num_classes=cfg["model"]["num_classes"])
+    if rank is not None:
+        share = len(samples) // DP_RANKS
+        samples = samples[rank * share:(rank + 1) * share]
+    loader = cfg["train_loader"]
+    batch = collate(samples, max_instances=loader["max_instances"], pack_masks=loader["pack_masks"])
+    lr = StepWarmUpLR(**_kw(cfg["lr_scheduler"]), base_lr=opt.base_lr)(0)
+    logs = {k: float(v) for k, v in step(batch, lr).items()}
+    names = [n for n, _ in model.named_parameters()]
+    return (logs, {n: b.cpu() for n, b in zip(names, opt.buffers)}, state_digest(model, opt),
+            before, opt.weight_decay)
+
+
+def compare_steps(name, got, want):
+    """``got`` against ``want`` (each ``dp_step``'s result from the same
+    init): the logs and each parameter's gradient, read from the momentum
+    (zero before the step: buf = grad + weight_decay * param)."""
+    (got_logs, got_mom, _, _, _), (want_logs, want_mom, _, before, wd) = got, want
+    log_err = 0.0
+    for key, value in want_logs.items():
+        diff = abs(got_logs[key] - value)
+        if diff > DP_LOG_RTOL * abs(value) and diff > 2e-6 * abs(want_logs["loss"]):
+            raise AssertionError(f"{name}: log {key} {got_logs[key]} vs {value}")
+        log_err = max(log_err, diff / max(abs(value), 1e-30))
+    worst, diffs, grads = 0.0, [], []
+    for n, w in want_mom.items():
+        grad = (w.double() - wd * before[n].cpu().double()).reshape(-1)
+        diff = (got_mom[n].double() - w.double()).reshape(-1)
+        worst = max(worst, float(diff.norm() / grad.norm()))
+        diffs.append(diff)
+        grads.append(grad)
+    together = float(torch.cat(diffs).norm() / torch.cat(grads).norm())
+    if worst >= DP_GRAD_RTOL or together >= DP_GRAD_RTOL_ALL:
+        raise AssertionError(f"{name}: gradients differ by {worst:.4f} (worst tensor), "
+                             f"{together:.4f} (all)")
+    return {"log_rel_err": log_err, "grad_rel_l2_worst": worst, "grad_rel_l2_all": together}
+
+
+def time_collectives(rec):
+    """Patches that put CUDA events on the stream around every
+    ``all_reduce`` and ``broadcast`` issued while a train step runs
+    (``rec["in_step"]``), kept in ``rec["collective_events"]``."""
+    import torch.distributed as dist
+
+    rec["collective_events"] = []
+
+    def wrap(fn):
+        def wrapped(*args, **kw):
+            if not rec.get("in_step"):
+                return fn(*args, **kw)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+            out = fn(*args, **kw)
+            events[1].record()
+            rec["collective_events"].append(events)
+            return out
+        return wrapped
+
+    return [mock.patch.object(dist, name, wrap(getattr(dist, name)))
+            for name in ("all_reduce", "broadcast")]
+
+
+def dp_rank(rank, workdir, ports):
+    """One rank of phase 18, spawned: the equivalence step in a group of its
+    own, then ``train.main`` and ``test.main`` as rank ``rank`` of
+    ``DP_RANKS``, each with its launch counts; rank 0 also holds kernels 5,
+    1, 2 and 6 to their plain versions on what its runs recorded.  Writes
+    ``dp_rank<rank>.json`` (and rank 0 its step's momentum) to
+    ``workdir``."""
+    from orienmask_tpu_torch import test as test_cli
+    from orienmask_tpu_torch import train as train_cli
+    from orienmask_tpu_torch.eval import COCOMetrics
+    from orienmask_tpu_torch.ops import targets
+    from orienmask_tpu_torch.parallel.mesh import destroy_distributed, init_distributed
+    from orienmask_tpu_torch.trainer.builder import build_tester
+    from orienmask_tpu_torch.trainer.train_state import to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    workdir = Path(workdir)
+    out = {"rank": rank}
+
+    init_distributed(f"localhost:{ports[0]}", DP_RANKS, rank, "cuda")
+    try:
+        logs, momentum, out["step_digest"], _, _ = dp_step(rank)
+    finally:
+        destroy_distributed()
+    if rank == 0:
+        torch.save((logs, momentum), workdir / "dp_step.pt")
+    del momentum
+
+    cfg = json.loads((workdir / "train_config.json").read_text())
+    flags = ["--num-processes", str(DP_RANKS), "--process-id", str(rank)]
+    rec, patches = record_trainer()
+    merges = []
+    merge = COCOMetrics.merge_ranks
+
+    def recording_merge(metrics, directory):
+        own = len(metrics.bbox_results)
+        merge(metrics, directory)
+        merges.append([own, len(metrics.bbox_results)])
+
+    text = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in [*patches, *time_collectives(rec),
+                  mock.patch.object(COCOMetrics, "merge_ranks", recording_merge)]:
+            stack.enter_context(p)
+        stack.enter_context(contextlib.redirect_stdout(text))
+        rc, calls, _, out["train_counts"], converted = record_run_batch(lambda: train_cli.main(
+            ["-c", str(workdir / "train_config.json"), "--coordinator",
+             f"localhost:{ports[1]}", *flags]))
+    out["train_s"] = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"rank {rank}: train.main returned {rc}")
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    trainer = rec["trainer"]
+    n_steps = len(rec["events"])
+    out.update(
+        parallel_line=[line for line in text.getvalue().splitlines() if "[parallel]" in line],
+        digest=state_digest(trainer.model, trainer.optimizer), merges=merges,
+        run_dir=trainer.checkpoint_dir, epochs=rec["epochs"], epoch_s=rec["epoch_s"],
+        val_s=rec["val_s"], step_ms=[a.elapsed_time(b) for a, b in rec["events"]],
+        collective_ms_per_step=sum(a.elapsed_time(b) for a, b in rec["collective_events"])
+        / n_steps, collectives_per_step=len(rec["collective_events"]) / n_steps,
+        loader_wait_ms_per_step=float(np.mean(rec["wait_s"])) * 1e3)
+    if rank == 0:
+        batch = to_device(rec["batch"], "cuda")
+        painted = []
+        with mock.patch.object(targets, "paint_orientation",
+                               lambda geom, n_last, masks, *rest: painted.append(
+                                   (geom.clone(), n_last.clone(), masks.clone()))):
+            trainer.loss._paint_shared_batch(batch["bbox"], batch["valid"], batch["mask"])
+        painter = trainer.loss.painter
+        with contextlib.redirect_stdout(text):
+            out["paint_err"] = check_paint_case(
+                "rank 0's first batch", *painted[0], painter.pixel_anchors,
+                (painter.image_h, painter.image_w))
+        plain, out["val_valid"] = check_heads("rank 0's val batches", calls, _kw(cfg["postprocess"]))
+        out["val_words"] = check_routes_and_recovery("rank 0's val batches", converted, plain,
+                                                     host_route=False)
+    del trainer, calls, converted, rec
+
+    testers = []
+
+    def recording_build_tester(*args, **kw):
+        testers.append(build_tester(*args, **kw))
+        return testers[-1]
+
+    ckpt = str(Path(out["run_dir"]) / "best_model.ckpt")
+    with mock.patch.object(test_cli, "build_tester", recording_build_tester), \
+            contextlib.redirect_stdout(text):
+        rc, test_calls, _, out["test_counts"], test_converted = record_run_batch(
+            lambda: test_cli.main(["-c", str(workdir / "test_config.json"), "-w", ckpt,
+                                   "--coordinator", f"localhost:{ports[2]}", *flags]))
+    if rc != 0:
+        raise AssertionError(f"rank {rank}: test.main returned {rc}")
+    metrics = testers[0].coco_metrics
+    out["test_results"] = len(metrics.bbox_results)
+    if rank == 0:
+        out["stats"] = {k: np.asarray(getattr(metrics, f"{k}_eval_stats")).tolist()
+                        for k in ("bbox", "segm")}
+        plain, out["test_valid"] = check_heads("rank 0's test batches", test_calls,
+                                               _kw(cfg["postprocess"]))
+        out["test_words"] = check_routes_and_recovery("rank 0's test batches", test_converted,
+                                                      plain, host_route=False)
+    (workdir / f"dp_rank{rank}.json").write_text(json.dumps(out))
+
+
+def run_ranks(fn, args, deadline_s):
+    """``fn(rank, *args)`` in ``DP_RANKS`` spawned processes; raises if one
+    fails (the others are stopped) or the deadline passes."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.start_processes(fn, args=args, nprocs=DP_RANKS, join=False, start_method="spawn")
+    deadline = time.perf_counter() + deadline_s
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the ranks did not finish within {deadline_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=30)
+
+
+def check_data_parallel(workdir):
+    """Phase 18: the published config's n_device=2 as two ranks on the one
+    card (gloo with CUDA tensors: NCCL takes no two ranks on one device):
+    the equivalence step, the train CLI, the test CLI; then, in this
+    process, the step with no group and in a one-rank NCCL group, and the
+    one-process test CLI."""
+    import torch.distributed as dist
+
+    from orienmask_tpu_torch import test as test_cli
+    from orienmask_tpu_torch.trainer.builder import build_tester
+
+    t0 = time.perf_counter()
+    cfg, _, test_file, write_s = files_configs(
+        workdir, n_device=DP_RANKS, epochs=DP_EPOCHS,
+        train_loader={"num_workers": DP_WORKERS}, val_loader={"num_workers": DP_WORKERS})
+    bs = cfg["train_loader"]["batch_size"]
+    steps = FILES_IMAGES // (bs * DP_RANKS)
+    val_batches = -(-FILES_IMAGES // (cfg["val_loader"]["batch_size"] * DP_RANKS))
+    test_bs = json.loads(test_file.read_text())["test_loader"]["batch_size"] // DP_RANKS
+    test_batches = -(-FILES_IMAGES // (test_bs * DP_RANKS))  # a rank's
+    log(f"  dataset: {FILES_IMAGES} scenes written in {write_s:.2f} s; n_device {DP_RANKS}, "
+        f"B = {bs} a rank ({bs * DP_RANKS} global), {DP_WORKERS} loader workers a rank, "
+        f"{cfg['compute_dtype']}, {DP_EPOCHS} epochs of {steps} steps, each validated")
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    run_ranks(dp_rank, (str(workdir), free_ports(3)), DP_DEADLINE_S)
+    ranks_s = time.perf_counter() - t
+    ranks = [json.loads((workdir / f"dp_rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    r0 = ranks[0]
+    log(f"  ranks: {r0['parallel_line']}; spawned, trained and tested in {ranks_s:.2f} s")
+
+    want = {"paint_orientation": DP_EPOCHS * (steps + val_batches),
+            "exact_topk": 2 * DP_EPOCHS * val_batches,
+            "assemble_masks_packed": DP_EPOCHS * val_batches,
+            "recover_masks": DP_EPOCHS * val_batches}
+    want_test = {"exact_topk": 2 * test_batches, "assemble_masks_packed": test_batches,
+                 "recover_masks": test_batches}
+    for r in ranks:
+        got = {k: v for k, v in r["train_counts"].items() if v}
+        got_test = {k: v for k, v in r["test_counts"].items() if v}
+        if got != want or got_test != want_test:
+            raise AssertionError(f"rank {r['rank']}: launches train {got} test {got_test}, "
+                                 f"expected {want} and {want_test}")
+        log(f"  rank {r['rank']} launches: train CLI {got}, test CLI {got_test}")
+
+    # the equivalence step: 2 ranks x 4 images, one process x 8, a one-rank NCCL group x 8
+    if len({r["step_digest"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' states differ after the equivalence step")
+    dp_logs, dp_mom = torch.load(workdir / "dp_step.pt")
+    one = dp_step()
+    dp_err = compare_steps("2 ranks x 4 vs 1 process x 8", (dp_logs, dp_mom, None, None, None),
+                           one)
+    calls = []
+    all_reduce = dist.all_reduce
+    port = free_ports(1)[0]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        with mock.patch.object(dist, "all_reduce",
+                               lambda *a, **kw: (calls.append(1), all_reduce(*a, **kw))[1]):
+            nccl = dp_step()
+    finally:
+        dist.destroy_process_group()
+    nccl_err = compare_steps("one-rank NCCL group vs no group", nccl, one)
+    log(f"  equivalence step (full width, 544², f32): loss 2 ranks x 4 {dp_logs['loss']:.4f}, "
+        f"1 process x 8 {one[0]['loss']:.4f}, one-rank NCCL group x 8 {nccl[0]['loss']:.4f} "
+        f"({len(calls)} NCCL all_reduces); the ranks equal by bits; against no group: "
+        f"2 ranks {dp_err}, NCCL {nccl_err}")
+    del one, nccl, dp_mom
+
+    # the train CLI
+    if len({r["digest"] for r in ranks}) != 1:
+        raise AssertionError("the ranks end the train CLI with different states")
+    losses = [e["train_loss"] for e in r0["epochs"]]
+    for r in ranks[1:]:
+        if [e["train_loss"] for e in r["epochs"]] != losses:
+            raise AssertionError("the ranks logged different epoch losses")
+    if not np.isfinite(losses).all() or not np.isfinite([e["val_loss"] for e in r0["epochs"]]).all():
+        raise AssertionError(f"non-finite epoch losses {r0['epochs']}")
+    merged = [m0[1] for m0 in r0["merges"]]
+    if merged != [sum(r["merges"][i][0] for r in ranks) for i in range(len(merged))] \
+            or len(merged) != DP_EPOCHS:
+        raise AssertionError(f"rank 0's merged results {r0['merges']} are not the ranks' sum "
+                             f"{[r['merges'] for r in ranks]}")
+    log(f"  train CLI: epoch losses {[round(x, 3) for x in losses]}, val losses "
+        f"{[round(e['val_loss'], 3) for e in r0['epochs']]}; parameters, BN buffers, momentum "
+        f"and counter equal by bits on both ranks; rank 0 merged {merged} COCO results a val "
+        f"epoch (its own {[m[0] for m in r0['merges']]} + rank 1's "
+        f"{[m[0] for m in ranks[1]['merges']]})")
+    log(f"  rank 0: kernel 5 on its first batch bit for bit; kernels 1 and 2 on its val batches "
+        f"({r0['val_valid']} valid detections) and test batches ({r0['test_valid']}), kernel 6 "
+        f"on both ({r0['val_words']} and {r0['test_words']} words), identical to the plain "
+        f"versions")
+
+    # the test CLI: n_device=2 as two ranks against one process
+    testers = []
+
+    def recording_build_tester(*args, **kw):
+        testers.append(build_tester(*args, **kw))
+        return testers[-1]
+
+    one_file = workdir / "test_config_1.json"
+    one_file.write_text(json.dumps(dict(json.loads(test_file.read_text()), n_device=1)))
+    ckpt = str(Path(r0["run_dir"]) / "best_model.ckpt")
+    with mock.patch.object(test_cli, "build_tester", recording_build_tester), \
+            contextlib.redirect_stdout(io.StringIO()):
+        if test_cli.main(["-c", str(one_file), "-w", ckpt]) != 0:
+            raise AssertionError("the one-process test CLI failed")
+    metrics = testers[0].coco_metrics
+    for kind in ("bbox", "segm"):
+        got = np.asarray(r0["stats"][kind])
+        want_stats = np.asarray(getattr(metrics, f"{kind}_eval_stats"))
+        if got.shape != (12,) or not np.allclose(got, want_stats, rtol=0, atol=1e-6):
+            raise AssertionError(f"test CLI {kind} stats with n_device=2 {got} differ from one "
+                                 f"process's {want_stats}")
+    if r0["test_results"] != len(metrics.bbox_results):
+        raise AssertionError(f"{r0['test_results']} merged results, one process "
+                             f"{len(metrics.bbox_results)}")
+    log(f"  test CLI, n_device=2 as two ranks: bbox and segm 12-stat vectors equal to one "
+        f"process's to 1e-6 ({r0['test_results']} results on rank 0 after the merge)")
+
+    # timings (the card's; the ranks share it)
+    images = FILES_IMAGES
+    rates = [images / (e - v) for e, v in zip(r0["epoch_s"], r0["val_s"])]
+    timings = {
+        "train_images_per_s": rates,
+        "val_images_per_s": [images / v for v in r0["val_s"]],
+        "step_ms_median": [float(np.median(r["step_ms"])) for r in ranks],
+        "collective_ms_per_step": [r["collective_ms_per_step"] for r in ranks],
+        "collectives_per_step": [r["collectives_per_step"] for r in ranks],
+        "loader_wait_ms_per_step": [r["loader_wait_ms_per_step"] for r in ranks],
+        "peak_gib": [r["peak_gib"] for r in ranks], "train_cli_s": [r["train_s"] for r in ranks],
+        "epoch_losses": losses, "equivalence": {"dp": dp_err, "nccl": nccl_err},
+        "phase_s": time.perf_counter() - t0}
+    log(f"  train epochs {', '.join(f'{x:.2f}' for x in rates)} global images/s (val excluded); "
+        f"val epochs {', '.join(f'{x:.2f}' for x in timings['val_images_per_s'])}")
+    for r, step_ms, coll, n_coll, wait, peak in zip(
+            range(DP_RANKS), timings["step_ms_median"], timings["collective_ms_per_step"],
+            timings["collectives_per_step"], timings["loader_wait_ms_per_step"],
+            timings["peak_gib"]):
+        log(f"  rank {r}: step {step_ms:.1f} ms on the stream (median), of it {coll:.1f} ms in "
+            f"{n_coll:.0f} collectives (gloo copies CUDA tensors through the host: a property "
+            f"of two ranks on one card); waited {wait:.1f} ms a step for its loader; peak "
+            f"memory {peak:.2f} GiB")
+    log(f"  phase 18 in {timings['phase_s']:.1f} s; card: {card_line()}")
+    counts = {"dp_train": {k: sum(r["train_counts"][k] for r in ranks) for k in want},
+              "dp_test": {k: sum(r["test_counts"][k] for r in ranks) for k in want_test}}
+    return counts, r0["paint_err"], timings
 
 
 # ------------------------------------------------------------------- main
@@ -2730,6 +3153,10 @@ def main(argv=None):
     log("[17] training and evaluation from files: the train CLI (3 epochs), then the test CLI")
     with tempfile.TemporaryDirectory() as workdir:
         files_counts, files_paint_err, train_files = check_train_files(Path(workdir))
+    log("[18] data parallelism: n_device=2 as two ranks on the card (gloo with CUDA tensors); "
+        "the train CLI (2 epochs), then the test CLI")
+    with tempfile.TemporaryDirectory() as workdir:
+        dp_counts, dp_paint_err, dp_train = check_data_parallel(Path(workdir))
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -2752,6 +3179,9 @@ def main(argv=None):
     for name in paths:  # phase 17's CLIs, each kernel's count around each
         for cli, launched in files_counts.items():
             paths[name][cli] = launched[name]
+    for path, launched in dp_counts.items():  # phase 18's, both ranks' counts summed
+        for name, n in launched.items():
+            paths[name][path] = n
     recover_paths = paths["recover_masks"]
     main_case = recover_cases_["b"]  # the eval batch
     kernels_line = {"kernels": [
@@ -2778,7 +3208,8 @@ def main(argv=None):
         dict(name="paint_orientation", route="cuda", source="orienmask_tpu_torch/csrc/paint.cu",
              replaces="orienmask_tpu/ops/pallas_paint.py:149",
              launches=sum(paths["paint_orientation"].values()),
-             paths=paths["paint_orientation"], max_abs_err=max(paint_err, files_paint_err),
+             paths=paths["paint_orientation"],
+             max_abs_err=max(paint_err, files_paint_err, dp_paint_err),
              **times["paint_orientation"]),
         dict(name="recover_masks", route="cuda", source="orienmask_tpu_torch/csrc/recover.cu",
              replaces="orienmask_tpu/eval/coco_eval.py:147",
@@ -2789,7 +3220,8 @@ def main(argv=None):
     ]}
     log(f"  total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train,
-                    "eval_544_b16": eval_times, "train_files_544_b8": train_files}))
+                    "eval_544_b16": eval_times, "train_files_544_b8": train_files,
+                    "dp_train_544_b8x2": dp_train}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
                     "stream_736": stream_fps, "jpeg": jpeg}))
     log(card_line())

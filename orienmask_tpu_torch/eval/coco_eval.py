@@ -15,6 +15,9 @@ host lists of ``postprocess.to_host_list`` (numpy), and
 recovers the masks where they lie (kernel 6, ``ops/recover.py``) and sends
 only column-major bits of the original size to the host, where the native
 host library encodes them (``native.rle_encode_colpacked``).
+``merge_ranks`` carries the other ranks' results to rank 0 through
+``save_as_json`` and ``update_from_json`` (the trainer's and the tester's
+shard merge).
 """
 
 import json
@@ -26,6 +29,7 @@ from .. import native
 from ..ops.recover import recover_geometry, recover_masks, source_window
 from ..ops.resize import resize_masks_linear
 from ..utils import timer
+from ..utils.envs import barrier, get_device_rank, get_world_size
 from . import rle as rle_codec
 from .lite_cocoeval import COCOGroundTruth, LiteCOCOeval
 
@@ -123,6 +127,33 @@ class COCOMetrics:
         self.bbox_results += coco_format["bbox"]
         if self.with_mask:
             self.segm_results += coco_format.get("segm", [])
+
+    def save_as_json(self, filename):
+        with open(filename, "w") as fh:
+            json.dump({"bbox": self.bbox_results, "segm": self.segm_results}, fh)
+
+    def update_from_json(self, filename):
+        with open(filename) as fh:
+            update = json.load(fh)
+        self.bbox_results += update["bbox"]
+        self.segm_results += update["segm"]
+
+    def merge_ranks(self, directory):
+        """Every rank's results on rank 0: the other ranks dump theirs into
+        ``directory`` (shared by the ranks), and rank 0 reads them after a
+        barrier, in rank order (JAX ``trainer/trainer.py:262-283``).
+        Nothing without a group."""
+        world, rank = get_world_size(), get_device_rank()
+        if world < 2:
+            return
+        if rank != 0:
+            self.save_as_json(os.path.join(directory, f"_coco_shard_{rank}.json"))
+        barrier()
+        if rank == 0:
+            for r in range(1, world):
+                path = os.path.join(directory, f"_coco_shard_{r}.json")
+                self.update_from_json(path)
+                os.remove(path)
 
     def _to_bbox_coco_format(self, batch_info, detections):
         results = []

@@ -10,15 +10,19 @@ mirroring the module tree (the JAX ``fold`` pytree), and
 ``apply_folded(folded, x, dtype)`` runs it.  Training runs the unfolded
 ``forward(x, dtype)`` (JAX ``apply``): BatchNorm takes the batch statistics
 in train mode and the running ones in eval mode (``module.train()`` /
-``.eval()``).  Activations are NCHW (channels_last in memory on the card);
-convolutions run in ``dtype`` and the prediction heads (``Conv``) emit f32,
-as in JAX.
+``.eval()``); under a process group the batch statistics are the global
+batch's (``sync_batch_norm``).  Activations are NCHW (channels_last in
+memory on the card); convolutions run in ``dtype`` and the prediction heads
+(``Conv``) emit f32, as in JAX.
 """
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.envs import get_world_size, initialized
 
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.1
@@ -53,7 +57,9 @@ class ConvBNLeaky(nn.Module):
     in f32, the biased variance for the normalisation and the unbiased one
     for the running variance.  JAX takes the variance as E[y²] - E[y]² and
     applies the affine in the compute dtype; BatchNorm2d reduces in another
-    order and, under bf16, applies the affine in f32 and rounds once."""
+    order and, under bf16, applies the affine in f32 and rounds once.
+    Under a process group, train mode runs ``sync_batch_norm`` on the same
+    module instead: the JAX formula over the global batch."""
 
     def __init__(self, cin, cout, ksize, stride=1, padding=0, activation="leaky"):
         super().__init__()
@@ -82,8 +88,55 @@ class ConvBNLeaky(nn.Module):
 
     def forward(self, x, dtype):
         conv, bn = self.conv_block
-        y = bn(F.conv2d(x.to(dtype), conv.weight.to(dtype), None, self.stride, self.padding))
+        y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, self.stride, self.padding)
+        y = sync_batch_norm(y, bn) if bn.training and initialized() else bn(y)
         return leaky_relu(y) if self.activation == "leaky" else y
+
+
+class _GlobalSums(torch.autograd.Function):
+    """(Σy, Σy²) per channel over the global batch, in f32: one
+    ``all_reduce`` of both in the forward, one of their gradients in the
+    backward (each rank's loss reaches the sums through its own outputs;
+    the global loss is the sum of the ranks')."""
+
+    @staticmethod
+    def forward(ctx, y):
+        yf = y.float()
+        sums = torch.stack([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))])
+        dist.all_reduce(sums)
+        ctx.save_for_backward(y)
+        return sums[0], sums[1]
+
+    @staticmethod
+    def backward(ctx, g_sum, g_sum_sq):
+        (y,) = ctx.saved_tensors
+        g = torch.stack([g_sum, g_sum_sq])
+        dist.all_reduce(g)
+        dy = g[0][None, :, None, None] + 2.0 * y.float() * g[1][None, :, None, None]
+        return dy.to(y.dtype)
+
+
+def sync_batch_norm(y, bn):
+    """Train-mode BatchNorm of ``y`` (N, C, H, W) over every rank's batch,
+    with ``bn``'s affine and running buffers, as JAX ``bn_act`` computes it
+    on a global batch (``orienmask_tpu/models/layers.py:170-183``): mean and
+    E[y²] in f32, var = E[y²] - E[y]² to normalise, the running variance
+    unbiased with the global count, the affine in ``y``'s dtype.  Every
+    rank's batch has ``y``'s shape, as the shards of a JAX global batch do.
+    Not ``nn.SyncBatchNorm``: it refuses CPU tensors and takes another
+    formula."""
+    count = y.shape[0] * y.shape[2] * y.shape[3] * get_world_size()
+    s, s_sq = _GlobalSums.apply(y)
+    mean, mean_sq = s / count, s_sq / count
+    var = mean_sq - mean.square()
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * (var * (count / max(count - 1, 1))))
+        bn.num_batches_tracked += 1
+    inv = bn.weight * torch.rsqrt(var + bn.eps)
+    shift = bn.bias - mean * inv
+    return y * inv.to(y.dtype)[None, :, None, None] + shift.to(y.dtype)[None, :, None, None]
 
 
 class Conv(nn.Module):

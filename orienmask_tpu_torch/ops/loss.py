@@ -9,6 +9,15 @@ from logits.  Log values stay device scalars: nothing here waits for the
 card.  The shared painter path paints all scales once with kernel 5
 (``OrientationPainter``); the tensor's device picks the kernel or its plain
 version (``ops/paint.py``).
+
+Under a process group the divisors are the global batch's (JAX
+``ops/loss.py:128-166`` on a sharded batch): each scale's counts (the
+samples or their weights' sum, the orientation positives and negatives, the
+box positives) are summed over the ranks, all three scales' in one
+``all_reduce`` a call (``utils/envs.py::all_reduce_sum``, the identity
+without a group).  A rank's loss and log terms are its own numerators over
+those divisors, so the ranks' terms add up to the global batch's.  The
+metric pairs stay this rank's sums; the eval step adds them over the ranks.
 """
 
 import numpy as np
@@ -16,6 +25,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.layers import resize_matrices, resize_nhwc
+from ..utils.envs import all_reduce_sum
 from .targets import OrientationPainter, TargetBuilder, _pair
 
 
@@ -54,10 +64,15 @@ class OrienMaskYOLOLoss:
         self._resize = {}  # orientation map (h, w) -> x4 upsample matrices
 
     def __call__(self, predict, target, training=True, orien=None):
-        loss_items, metric_items = self._get_loss(predict, target, training, orien)
-        loss_cat = torch.stack(loss_items) * self.weight
+        terms = self._local_terms(predict, target, training, orien)
+        return self._combine(terms, all_reduce_sum(terms["counts"]))
+
+    def _combine(self, terms, counts):
+        """The loss of ``_local_terms``' numerators over the global
+        ``counts``, its log and the metric pairs."""
+        loss_cat = torch.stack(self._loss_items(terms, counts)) * self.weight
         loss_log = {k: v for k, v in zip(self.loss_id, loss_cat)}
-        metric_log = {k: v for k, v in zip(self.metric_id, metric_items)}
+        metric_log = {k: v for k, v in zip(self.metric_id, terms["metrics"])}
         loss_sum = loss_cat.sum()
         loss_log[self.loss_sum_id] = loss_sum
         return loss_sum, loss_log, metric_log
@@ -69,7 +84,10 @@ class OrienMaskYOLOLoss:
                                                self.device)
         return resize_nhwc(pred_orien, *self._resize[hw])
 
-    def _get_loss(self, predict, target, training=True, orien=None):
+    def _local_terms(self, predict, target, training=True, orien=None):
+        """This rank's numerators (``sums``), its counts (the divisor, the
+        orientation positives and negatives, the box positives: ``counts``)
+        and its metric pairs (``metrics``, empty in training)."""
         pred_bbox, pred_orien = predict
         nb = pred_bbox.shape[0]
         na, nh, nw = self.num_anchors, self.grid_h, self.grid_w
@@ -112,43 +130,35 @@ class OrienMaskYOLOLoss:
         sw = target.get("sample_weight")
         if sw is not None:
             wb = sw[:, None, None, None]
-            div = sw.sum().clamp_min(1.0)
+            n_samples = sw.sum()
             pos_sel = bbox_pos_mask * wb
             neg_sel = bbox_neg_mask * wb
             pos_scale_sel = bbox_pos_scale * wb
             orien_pos_sel = orien_pos_mask * wb
             orien_neg_sel = orien_neg_mask * wb
         else:
-            div = nb
+            n_samples = pred_bbox.new_full((), float(nb))  # a fill on the device, no copy
             pos_sel = bbox_pos_mask
             neg_sel = bbox_neg_mask
             pos_scale_sel = bbox_pos_scale
             orien_pos_sel = orien_pos_mask
             orien_neg_sel = orien_neg_mask
 
-        loss_xy = (bce_with_logits(xy_logit, txy) * pos_scale_sel[..., None]).sum() / div
-        loss_wh = ((pred_wh - twh).square() * pos_scale_sel[..., None]).sum() / 2 / div
         loss_obj_all = bce_with_logits(obj_logit, bbox_pos_mask)
-        loss_obj_pos = (loss_obj_all * pos_sel).sum() / div
-        loss_obj_neg = (loss_obj_all * neg_sel).sum() / div
-        loss_cls = (bce_with_logits(cls_logit, tcls) * pos_sel[..., None]).sum() / div
-
+        loss_orien_all = smooth_l1(po, torien)
+        sums = {
+            "xy": (bce_with_logits(xy_logit, txy) * pos_scale_sel[..., None]).sum(),
+            "wh": ((pred_wh - twh).square() * pos_scale_sel[..., None]).sum() / 2,
+            "obj_pos": (loss_obj_all * pos_sel).sum(),
+            "obj_neg": (loss_obj_all * neg_sel).sum(),
+            "cls": (bce_with_logits(cls_logit, tcls) * pos_sel[..., None]).sum(),
+            "orien_pos": (loss_orien_all * orien_pos_sel[..., None]).sum(),
+            "orien_neg": (loss_orien_all * orien_neg_sel[..., None]).sum(),
+        }
         num_orien_pos = orien_pos_sel.sum()
         num_orien_neg = orien_neg_sel.sum()
         bbox_pos_count = pos_sel.sum()
-        loss_orien_all = smooth_l1(po, torien)
-        loss_orien_pos = torch.where(
-            num_orien_pos > 0,
-            (loss_orien_all * orien_pos_sel[..., None]).sum()
-            / num_orien_pos.clamp_min(1) * bbox_pos_count / div,
-            0.0)
-        loss_orien_neg = torch.where(
-            num_orien_neg > 0,
-            (loss_orien_all * orien_neg_sel[..., None]).sum()
-            / num_orien_neg.clamp_min(1) * bbox_pos_count / div,
-            0.0)
-        loss_items = (loss_xy, loss_wh, loss_obj_pos, loss_obj_neg,
-                      loss_cls, loss_orien_pos, loss_orien_neg)
+        counts = torch.stack([n_samples, num_orien_pos, num_orien_neg, bbox_pos_count])
 
         metric_items = ()
         if not training:
@@ -170,7 +180,24 @@ class OrienMaskYOLOLoss:
                     (((orien_delta < 0.5) * orien_neg_sel[..., None]).sum(),
                      num_orien_neg * 2),                                       # orien_neg_acc
                 )
-        return loss_items, metric_items
+        return {"sums": sums, "counts": counts, "metrics": metric_items}
+
+    @staticmethod
+    def _loss_items(terms, counts):
+        """The seven loss terms: local numerators over the global counts
+        (JAX ``ops/loss.py:128-166`` on the global batch), so that the
+        ranks' terms add up to the global batch's."""
+        sums = terms["sums"]
+        div = counts[0].clamp_min(1.0)
+        num_orien_pos, num_orien_neg, bbox_pos_count = counts[1], counts[2], counts[3]
+        loss_orien_pos = torch.where(
+            num_orien_pos > 0,
+            sums["orien_pos"] / num_orien_pos.clamp_min(1) * bbox_pos_count / div, 0.0)
+        loss_orien_neg = torch.where(
+            num_orien_neg > 0,
+            sums["orien_neg"] / num_orien_neg.clamp_min(1) * bbox_pos_count / div, 0.0)
+        return (sums["xy"] / div, sums["wh"] / div, sums["obj_pos"] / div,
+                sums["obj_neg"] / div, sums["cls"] / div, loss_orien_pos, loss_orien_neg)
 
 
 class OrienMaskYOLOMultiScaleLoss:
@@ -234,7 +261,7 @@ class OrienMaskYOLOMultiScaleLoss:
     def __call__(self, predict, target, training=True):
         pos9, neg9, tor9 = self._paint_shared_batch(target["bbox"], target["valid"],
                                                     target["mask"])
-        loss_list, loss_log, metric_log = [], {}, {}
+        terms = []
         for i, sl in enumerate(self.scale_losses):
             idx = sl.anchor_mask
             if idx == list(range(idx[0], idx[0] + len(idx))):
@@ -243,7 +270,12 @@ class OrienMaskYOLOMultiScaleLoss:
             else:
                 ids = sl.target_builder.anchor_ids
                 orien_i = (pos9[:, ids], neg9[:, ids], tor9[:, ids])
-            s_loss, s_loss_log, s_metric_log = sl(predict[i], target, training, orien=orien_i)
+            terms.append(sl._local_terms(predict[i], target, training, orien=orien_i))
+        # every scale's counts over the ranks in one collective
+        counts = all_reduce_sum(torch.stack([t["counts"] for t in terms]))
+        loss_list, loss_log, metric_log = [], {}, {}
+        for i, sl in enumerate(self.scale_losses):
+            s_loss, s_loss_log, s_metric_log = sl._combine(terms[i], counts[i])
             loss_list.append(s_loss)
             loss_log.update(s_loss_log)
             metric_log.update(s_metric_log)

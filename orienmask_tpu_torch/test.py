@@ -1,15 +1,18 @@
 """COCO-eval CLI (counterpart of the JAX package's ``test.py``, same contract).
 
     python -m orienmask_tpu_torch.test -c <config name or .json> -w <.ckpt or .pth>
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--coordinator host:port --num-processes N --process-id R]
 
 Builds the tester of the config's ``test_loader``, ``postprocess`` and
 ``gt_file`` on the checkpoint (``trainer/builder.py::build_tester``; a
 ``.ckpt`` rebuilds the model its train config describes), runs it over the
 set and prints the bbox and segm tables and each stage's ms per image.
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is asked for.  ``main(argv)`` is the entry point that tests and
-``chip_smoke.py`` call in-process.
+is asked for.  A config of ``n_device > 1`` evaluates as that many ranks,
+one process a device, launched as the train CLI's are (``--coordinator``,
+``--num-processes``, ``--process-id``): the port's form of the JAX tester's
+device mesh.  Rank 0 prints the tables.  ``main(argv)`` is the entry point
+that tests and ``chip_smoke.py`` call in-process.
 """
 
 import argparse
@@ -17,6 +20,7 @@ import sys
 
 from .device import resolve_device
 from .infer import load_config
+from .parallel.mesh import add_process_arguments, destroy_distributed, init_from_arguments
 from .trainer.builder import build_tester
 
 
@@ -28,17 +32,21 @@ def build_parser():
                         help="model checkpoint to test")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (the default; raises without a card) or cpu")
+    add_process_arguments(parser)
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
-    tester = build_tester(load_config(args.config), args.checkpoint, device=device)
+    device = init_from_arguments(args, resolve_device(args.device))
     try:
-        tester.test()
+        tester = build_tester(load_config(args.config), args.checkpoint, device=device)
+        try:
+            tester.test()
+        finally:
+            tester.test_loader.shutdown()  # its worker processes
     finally:
-        tester.test_loader.shutdown()  # its worker processes
+        destroy_distributed()
     return 0
 
 

@@ -1,11 +1,14 @@
 """Run directory, logging, the epoch loop, checkpoints and resumption
 (counterpart of ``orienmask_tpu/trainer/base.py``).
 
-One process on one device: the JAX package's multi-process run directory
-broadcast and barriers have nothing to do here (data parallelism is
-ROADMAP Queue 1 item 6).  The log goes to ``<run dir>/train.log`` and to
-stderr through a logger of the trainer's own (the root logger is left as
-it is); tensorboardX writes scalars there too where it is importable.
+One process a device; under a process group the ranks share one run
+directory: rank 0's stamp names it, rank 0 creates it and writes
+``config.json`` while the others wait at a barrier.  The log goes to
+``<run dir>/train.log`` and to stderr through a logger of the trainer's own
+(the root logger is left as it is), at INFO on rank 0 and ERROR on the
+others; tensorboardX writes rank 0's scalars there too where it is
+importable.  Rank 0 alone logs the epochs' results, follows the monitor and
+saves checkpoints; every rank leaves ``train()`` together.
 """
 
 import datetime
@@ -14,6 +17,7 @@ import logging
 import math
 import os
 
+from ..utils.envs import barrier, broadcast_str, get_device_rank
 from .checkpoint import CheckpointManager, read_checkpoint
 
 
@@ -30,18 +34,21 @@ def tensorboard_writer(log_dir):
 class BaseTrainer:
     def __init__(self, config, resume=None, weights=None):
         self.config = config
+        self.device_rank = get_device_rank()
         if resume is not None:
             self.checkpoint_dir = os.path.dirname(resume)
         else:
-            stamp = datetime.datetime.now().strftime("%m%d_%H%M%S")
+            stamp = broadcast_str(datetime.datetime.now().strftime("%m%d_%H%M%S"))
             self.checkpoint_dir = os.path.join(config["log_dir"], config["name"] + "_" + stamp)
-            os.makedirs(self.checkpoint_dir, exist_ok=True)
-            with open(os.path.join(self.checkpoint_dir, "config.json"), "w") as fh:
-                json.dump(config, fh, indent=4)
+            if self.device_rank == 0:
+                os.makedirs(self.checkpoint_dir, exist_ok=True)
+                with open(os.path.join(self.checkpoint_dir, "config.json"), "w") as fh:
+                    json.dump(config, fh, indent=4)
+            barrier()  # rank 0's run directory exists before anyone logs into it
 
         self.logger = logging.getLogger(f"{__name__}.{type(self).__name__}")
         self._close_log()
-        self.logger.setLevel(logging.INFO)
+        self.logger.setLevel(logging.INFO if self.device_rank == 0 else logging.ERROR)
         self.logger.propagate = False
         fmt = logging.Formatter("%(asctime)s %(message)s")
         for handler in (logging.FileHandler(os.path.join(self.checkpoint_dir, "train.log")),
@@ -61,7 +68,8 @@ class BaseTrainer:
         self.monitor_best = math.inf if self.monitor_mode == "min" else -math.inf
         self.start_epoch = 1
         self.writer_freq = config.get("log_freq", 50) * self.accumulate
-        self.tensorboard = tensorboard_writer(self.checkpoint_dir)
+        self.tensorboard = tensorboard_writer(self.checkpoint_dir) \
+            if self.device_rank == 0 else None
         self.ckpt_manager = CheckpointManager(self.checkpoint_dir, self.save_freq, self.logger,
                                               async_save=config.get("async_checkpoint", False))
         self._resume_path = resume
@@ -87,6 +95,8 @@ class BaseTrainer:
             result = self._train_epoch(epoch)
             self.logger.info("Finish at {}, Runtime: {}".format(
                 datetime.datetime.now(), datetime.datetime.now() - start))
+            if self.device_rank != 0:
+                continue
             self._log_result(result)
             if epoch % self.val_freq == 0:
                 best = False
@@ -107,6 +117,9 @@ class BaseTrainer:
             elif epoch % self.temp_save_freq == 0:
                 self.ckpt_manager.save(epoch, self._checkpoint_state(epoch), temp=True)
         self.ckpt_manager.wait()
+        # rank 0 trails the others by COCO scoring and checkpoint writing
+        # each epoch: every rank leaves together
+        barrier()
         if self.tensorboard is not None:
             self.tensorboard.close()
         self._close_log()

@@ -5,11 +5,13 @@ A config block's ``type`` names a class of the port (``data``, ``ops``,
 ``optim``); its other keys are the constructor's arguments.  What is not
 ported is refused with a message, never trained as if unset:
 ``param_groups``, ``freeze_backbone``, ``backbone_batchnorm_eval`` and
-``remat`` (ROADMAP Queue 1 item 7), spatial training and more than one
-device (item 6).  The JAX package asserts that the mesh spans ``n_device``
-devices; here the one device must be what the config says, unless
-``ORIENMASK_ANY_DEVICES`` is set (then one device trains one device's
-share: the batch is per device).
+``remat`` (ROADMAP Queue 1 item 7) and spatial training (item 10).  The
+port runs one process a device: the JAX package asserts that the mesh
+spans ``n_device`` devices, and here the process group must span
+``n_device`` ranks (one process and no group: 1), unless
+``ORIENMASK_ANY_DEVICES`` is set (then the ranks train at another scale:
+the batch is per device).  Each rank's loaders take its share of the data
+(the rank split of ``data/dataloader.py``).
 """
 
 import copy
@@ -26,6 +28,7 @@ from ..device import resolve_device
 from ..models import init_random, load_pretrained_backbone
 from ..ops import loss as loss_module
 from ..ops import postprocess as postprocess_module
+from ..utils.envs import get_device_rank, get_local_device_count, get_world_size
 from .checkpoint import load_checkpoint, load_state, read_checkpoint
 from .tester import Tester
 from .trainer import Trainer
@@ -134,7 +137,8 @@ def _n_devices(config):
 
 
 def _scaled_loader_cfg(loader_cfg, n_local_devices):
-    """Per-device batch size -> this process's batch."""
+    """Per-device batch size -> this process's batch (one device a process
+    here: ``n_local_devices`` is 1)."""
     cfg = copy.deepcopy(loader_cfg)
     cfg["batch_size"] = cfg["batch_size"] * n_local_devices
     return cfg
@@ -147,19 +151,21 @@ def build_trainer(config, resume=None, weights=None, device=None):
     if int(config.get("n_space", 1)) > 1:
         raise ValueError("n_space > 1 (spatial training) is not ported yet "
                          "(ROADMAP Queue 1 item 10)")
-    n_devices, n_cfg = 1, _n_devices(config)
-    if not os.environ.get("ORIENMASK_ANY_DEVICES") and n_devices != n_cfg:
+    rank, world_size = get_device_rank(), get_world_size()
+    n_cfg = _n_devices(config)
+    if not os.environ.get("ORIENMASK_ANY_DEVICES") and world_size != n_cfg:
         raise ValueError(
-            f"config n_device={n_cfg} but the port trains on {n_devices} device; "
-            "set ORIENMASK_ANY_DEVICES=1 to train one device's share "
-            "(effective batch = batch_size x devices)")
+            f"config n_device={n_cfg} but the process group spans {world_size} device(s), "
+            "one a rank (launch --num-processes N); set ORIENMASK_ANY_DEVICES=1 to train "
+            "at a different scale (effective batch = batch_size x devices)")
 
+    n_local = get_local_device_count()
     train_loader = build_dataloader(
-        dict(_scaled_loader_cfg(config["train_loader"], n_devices), drop_last=True),
-        seed=config["seed"])
+        dict(_scaled_loader_cfg(config["train_loader"], n_local), drop_last=True),
+        seed=config["seed"], rank=rank, world_size=world_size)
     val_loader = build_dataloader(
-        dict(_scaled_loader_cfg(config["val_loader"], n_devices), pad_last=True),
-        seed=config["seed"])
+        dict(_scaled_loader_cfg(config["val_loader"], n_local), pad_last=True),
+        seed=config["seed"], rank=rank, world_size=world_size)
     postprocess = build_postprocess(config["postprocess"], device)
     model = build_model(config["model"], bool(resume or weights), seed=config["seed"])
     loss = build_loss(config["loss"], device)
@@ -171,12 +177,20 @@ def build_trainer(config, resume=None, weights=None, device=None):
 
 def build_tester(config, checkpoint, device=None):
     """The tester of a test config on ``checkpoint``; a ``.ckpt`` that holds
-    its train config rebuilds the model that config trained."""
+    its train config rebuilds the model that config trained.  With
+    ``n_device > 1`` the process group must span that many ranks; each
+    rank's loader takes its stride of the set at ``batch_size / n_device``
+    (JAX shards each batch of ``batch_size`` over the mesh)."""
     device = resolve_device(device)
     test_config = copy.deepcopy(config)
-    if _n_devices(test_config) > 1:
-        raise ValueError("evaluation over several devices is not ported yet "
-                         "(ROADMAP Queue 1 item 6)")
+    n_cfg, world_size = _n_devices(test_config), get_world_size()
+    if world_size != n_cfg:
+        raise ValueError(f"config n_device={n_cfg} but the process group spans {world_size} "
+                         "device(s), one a rank (launch --num-processes N)")
+    loader_cfg = test_config["test_loader"]
+    if loader_cfg["batch_size"] % n_cfg:
+        raise ValueError(f"test batch_size={loader_cfg['batch_size']} not divisible by "
+                         f"{n_cfg} devices")
     checkpoint = str(checkpoint)
     model_cfg = test_config["model"]
     if checkpoint.endswith(".pth"):
@@ -187,7 +201,10 @@ def build_tester(config, checkpoint, device=None):
         model_cfg = ckpt.get("config", {}).get("model", model_cfg)
         model = model_module.build_model(model_cfg)
         load_state(model, ckpt)
-    test_loader = build_dataloader(dict(test_config["test_loader"], pad_last=True))
+    # the config's batch is the global one (JAX shards it over the mesh)
+    test_loader = build_dataloader(
+        dict(loader_cfg, batch_size=loader_cfg["batch_size"] // n_cfg, pad_last=True),
+        rank=get_device_rank(), world_size=world_size)
     postprocess = build_postprocess(test_config["postprocess"], device)
     return Tester(model, None, postprocess, test_loader, os.path.dirname(checkpoint) or ".",
                   test_config["gt_file"], test_config.get("compute_dtype", "float32"),

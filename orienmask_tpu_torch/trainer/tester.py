@@ -7,7 +7,14 @@ their COCO-format conversion (timed whole and by part: the copy, the boxes,
 the masks' resize and their RLE encoding; on the card the masks are
 recovered there and the copy holds only boxes, classes and validity); then ``COCOMetrics.coco_eval``
 over the whole set, the bbox and segm tables, and each stage's ms per
-image.  Multi-device evaluation (JAX's ``mesh``) is not ported.
+image.
+
+Evaluation over N devices (JAX's ``mesh``, ``n_device > 1``) runs as N
+ranks, one a device: each rank evaluates its stride of the test set (the
+loader's rank split), the other ranks' results reach rank 0
+(``COCOMetrics.merge_ranks``), and rank 0 scores and prints them.  The rank
+split repeats the set's first samples to fill every rank's stride; those
+repeats are not scored, so the result is the one-device run's.
 """
 
 import itertools
@@ -19,6 +26,7 @@ from ..device import resolve_device
 from ..eval.coco_eval import METRIC_KEYS, COCOMetrics
 from ..pipeline import folded_to_device
 from ..utils import timer
+from ..utils.envs import get_device_rank, get_world_size
 from .train_state import DTYPES, _image_f32
 
 
@@ -76,12 +84,29 @@ class Tester:
         predict = self.model.apply_folded(self._folded, x, self.dtype)
         return tuple((b.permute(0, 2, 3, 1), o.permute(0, 2, 3, 1)) for b, o in predict)
 
+    def _own_rows(self, info, seen):
+        """``info`` with this rank's repeats of the rank split marked
+        ``_pad``: its j-th sample (``seen`` before this batch, wrap-pads
+        of ``pad_last`` aside) is the set's ``rank + j * world``-th."""
+        world, rank = get_world_size(), get_device_rank()
+        if world == 1:
+            return info, seen
+        n, out = len(self.test_loader.dataset), []
+        for i in info:
+            if not i.get("_pad", False):
+                if rank + seen * world >= n:
+                    i = dict(i, _pad=True)
+                seen += 1
+            out.append(i)
+        return out, seen
+
     def test(self):
         timer.reset()
         start = time.perf_counter()
+        seen = 0
         for batch in self.test_loader:
             image = torch.as_tensor(batch["image"]).to(self.device)
-            info = batch.get("info")
+            info, seen = self._own_rows(batch.get("info"), seen)
 
             with timer.timer("Network Forward") as t:
                 predict = t.sync(self.forward(image))
@@ -100,7 +125,10 @@ class Tester:
 
             self.coco_metrics.update_results(dets)
 
+        self.coco_metrics.merge_ranks(self.checkpoint_dir)
         self.loop_seconds = time.perf_counter() - start
+        if get_device_rank() != 0:
+            return
         start = time.perf_counter()
         self.coco_metrics.coco_eval(per_cats=True)
         self.coco_eval_seconds = time.perf_counter() - start

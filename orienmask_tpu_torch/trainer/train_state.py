@@ -9,11 +9,26 @@ backward, the per-step NaN guard and the SGD update, or, with
 ``accumulate > 1``, adds the gradients to a buffer and applies them with
 ``lr / accumulate`` when the caller says so.  It returns the log dict as
 device scalars and never waits for the card.
+
+Under a process group (``parallel/mesh.py``) a step of N ranks on N shards
+computes what the JAX step computes on the global batch over an N-device
+mesh: the BatchNorms take the global statistics
+(``models/layers.py::sync_batch_norm``), the loss divides by global counts,
+so each rank's loss is its share of the global one, and the step sums the
+ranks' gradients (flat buckets, the same on every rank) and their log
+values (one stacked vector).  The NaN guard reads the summed loss and
+gradients, so every rank skips together.  ``torch.autograd.grad`` takes the
+gradients, so ``DistributedDataParallel``, whose hooks fire on ``.grad``
+accumulation and which averages, has no place here.  With
+``accumulate > 1`` each microbatch's gradients are summed over the ranks
+before they are accumulated, as JAX's microbatches are global ones.
 """
 
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import all_reduce_flat, shard_batch
+from ..utils.envs import all_reduce_sum, initialized
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -34,9 +49,21 @@ def unpack_target(batch):
     return target
 
 
-def to_device(batch, device):
-    """A collated batch of numpy arrays or tensors, on ``device``."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items() if k != "info"}
+to_device = shard_batch  # a collated batch (numpy arrays or tensors) on a device
+
+
+def reduce_logs(logs):
+    """A dict of device scalars (or pairs of them) summed over the ranks in
+    one ``all_reduce`` of their stacked vector; the dict itself without a
+    group."""
+    if not initialized():
+        return logs
+    keys = list(logs)
+    flat = [x for k in keys for x in (logs[k] if isinstance(logs[k], tuple) else (logs[k],))]
+    summed = iter(all_reduce_sum(torch.stack(
+        [torch.as_tensor(x, dtype=torch.float32, device=flat[0].device) for x in flat])))
+    return {k: (tuple(next(summed) for _ in logs[k]) if isinstance(logs[k], tuple)
+                else next(summed)) for k in keys}
 
 
 def _setup(model, loss_fn, compute_dtype, device):
@@ -73,14 +100,16 @@ def make_train_step(model, loss_fn, optimizer, accumulate=1, compute_dtype="floa
     grad_acc = [torch.zeros_like(p) for p in params] if accumulate > 1 else None
 
     def train_step(batch, lr, do_step=True):
-        batch = to_device(batch, device)
+        batch = shard_batch(batch, device)
         model.train()
         stats = [b.clone() for b in buffers]
         x = _image_f32(batch["image"]).permute(0, 3, 1, 2)  # NCHW view, channels_last
         loss_sum, loss_log, _ = loss_fn(model(x, dtype), unpack_target(batch), training=True)
-        grads = torch.autograd.grad(loss_sum, params)
+        grads = all_reduce_flat(torch.autograd.grad(loss_sum, params))
+        logs = reduce_logs(dict({k: v.detach() for k, v in loss_log.items()},
+                                loss=loss_sum.detach()))
         with torch.no_grad():
-            finite = torch.stack([torch.isfinite(loss_sum)]
+            finite = torch.stack([torch.isfinite(logs["loss"])]
                                  + [torch.isfinite(g).all() for g in grads]).all()
             for new, old in zip(buffers, stats):
                 new.copy_(torch.where(finite, new, old))
@@ -93,23 +122,25 @@ def make_train_step(model, loss_fn, optimizer, accumulate=1, compute_dtype="floa
                         acc.zero_()
             else:
                 optimizer.apply(grads, lr, update_gate=finite)
-        logs = {k: v.detach() for k, v in loss_log.items()}
-        return dict(logs, loss=loss_sum.detach(), skipped=1.0 - finite.float())
+        return dict(logs, skipped=1.0 - finite.float())
 
     return train_step
 
 
 def make_eval_step(model, loss_fn, compute_dtype="float32", device=None):
     """Returns ``eval_step(batch) -> (heads, loss log, metric log)``: the
-    forward with the running statistics and the loss with its metrics."""
+    forward with the running statistics and the loss with its metrics, the
+    logs summed over the ranks (one collective)."""
     device, dtype = _setup(model, loss_fn, compute_dtype, device)
 
     @torch.no_grad()
     def eval_step(batch):
-        batch = to_device(batch, device)
+        batch = shard_batch(batch, device)
         model.eval()
         out = model(_image_f32(batch["image"]).permute(0, 3, 1, 2), dtype)
         loss_sum, loss_log, metric_log = loss_fn(out, unpack_target(batch), training=False)
-        return out, dict(loss_log, loss=loss_sum), metric_log
+        logs = reduce_logs(dict(loss_log, loss=loss_sum, **metric_log))
+        return (out, {k: logs[k] for k in (*loss_log, "loss")},
+                {k: logs[k] for k in metric_log})
 
     return eval_step

@@ -1,21 +1,28 @@
 """The train and validation epochs (counterpart of
 ``orienmask_tpu/trainer/trainer.py``).
 
+Under a process group each rank trains on its loader's share of every
+global batch (``make_train_step`` sums over the ranks); the ranks start
+from rank 0's state (``replicate_global``) and their steps keep them equal.
+
 Train epoch: each batch goes through ``make_train_step`` at the scheduled
 lr (kernel 5 paints the orientation targets on the card); the step's logs
 stay on the device and are fetched every ``log_freq`` steps (one copy a
 step), so the card is not waited for after every step.  A non-finite loss
-stops training with exit code 1 within that window; the step's own NaN
-guard has kept the state finite, so the last checkpoint resumes.  A finite
-loss with non-finite gradients is logged as a skipped update.  With
-``max_iter`` in the schedule, training saves ``batch_<step>.ckpt`` and
-exits 0 when the raw batch counter reaches it (the JAX package's quirk
-with ``accumulate > 1`` kept).
+stops training with exit code 1 within that window, on every rank (the
+logs are the global batch's everywhere); the step's own NaN guard has kept
+the state finite, so the last checkpoint resumes.  A finite loss with
+non-finite gradients is logged as a skipped update.  With ``max_iter`` in
+the schedule, rank 0 saves ``batch_<step>.ckpt`` and every rank exits 0
+when the raw batch counter reaches it (the JAX package's quirk with
+``accumulate > 1`` kept).
 
 Validation epoch: ``make_eval_step`` (running statistics, the loss and its
-metrics, wrap-padded samples weighted 0), then the postprocess on the
-heads (kernels 1 and 2 on the card) and ``COCOMetrics.to_coco_format_device``
-(kernel 6 recovers the masks where they lie), then ``coco_eval``.
+metrics summed over the ranks, wrap-padded samples weighted 0), then the
+postprocess on this rank's heads (kernels 1 and 2 on the card) and
+``COCOMetrics.to_coco_format_device`` on its rows (kernel 6 recovers the
+masks where they lie); the other ranks' results reach rank 0 through JSON
+files after a barrier, and rank 0 scores them (``coco_eval``).
 """
 
 import os
@@ -27,6 +34,7 @@ import torch
 from ..device import resolve_device
 from ..eval.coco_eval import COCOMetrics
 from ..eval.counter import EvalCounter
+from ..parallel.mesh import replicate_global
 from .base import BaseTrainer
 from .checkpoint import (
     checkpoint_state,
@@ -75,6 +83,8 @@ class Trainer(BaseTrainer):
                 with_mask=getattr(val_loader.dataset, "with_mask", True),
                 save_dir=self.checkpoint_dir)
         self._restore_if_needed()
+        sgd_state = [] if optimizer.buffers is None else [*optimizer.buffers, optimizer.step]
+        replicate_global([*model.parameters(), *model.buffers(), *sgd_state])
 
     def train(self):
         """The epochs (``BaseTrainer.train``); the loaders' worker processes
@@ -151,9 +161,10 @@ class Trainer(BaseTrainer):
             # max_iter / accumulate updates (the JAX package's quirk)
             if step == getattr(self.lr_scheduler, "max_iter", None):
                 drain()
-                path = os.path.join(self.checkpoint_dir, f"batch_{step}.ckpt")
-                save_checkpoint(path, self._checkpoint_state(epoch))
-                self.logger.info(f"Saving checkpoint at {path}")
+                if self.device_rank == 0:
+                    path = os.path.join(self.checkpoint_dir, f"batch_{step}.ckpt")
+                    save_checkpoint(path, self._checkpoint_state(epoch))
+                    self.logger.info(f"Saving checkpoint at {path}")
                 sys.exit(0)
 
         drain()
@@ -193,8 +204,12 @@ class Trainer(BaseTrainer):
                 self.coco_metrics.update_results(self.coco_metrics.to_coco_format_device(
                     info, device_out, self.postprocess.image_w))
 
-        self._merge_coco_shards()
-        coco_log = self.coco_metrics.coco_eval() if self.coco_metrics else {}
+        # the loss and metric counters are the global batch's already (the
+        # eval step sums them); the detections are each rank's own
+        if self.coco_metrics is not None:
+            self.coco_metrics.merge_ranks(self.checkpoint_dir)
+        coco_log = self.coco_metrics.coco_eval() \
+            if self.coco_metrics is not None and self.device_rank == 0 else {}
         if self.tensorboard is not None:
             self.tensorboard.add_scalar("val/loss", counter.average("loss"), epoch)
             for key in self.loss.loss_id:
@@ -208,10 +223,6 @@ class Trainer(BaseTrainer):
             val_log[f"val_{key}"] = value
         counter.reset_epoch()
         return val_log
-
-    def _merge_coco_shards(self):
-        """One process holds every detection: nothing to merge (the JAX
-        package merges the shards of several hosts here)."""
 
     # ----------------------------------------------------------- logging
 

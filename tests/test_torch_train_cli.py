@@ -7,9 +7,10 @@ B = 4 (2 steps an epoch).
   ``test -c -w`` on the best one gives the 12-stat vectors of an in-process
   ``Tester`` on the same checkpoint; ``-r`` resumes at the next epoch and
   ``-w`` starts from a checkpoint's weights.
-* Every refused flag and unported option exits or raises with its message;
-  the default device raises without a card; the ``n_device`` check and its
-  ``ORIENMASK_ANY_DEVICES`` opt-out; a non-finite loss exits 1 and
+* A launch that cannot form a process group and every unported option
+  exit or raise with their messages (``--num-processes 1`` trains as one
+  process); the default device raises without a card; the ``n_device``
+  check against the group's size and its ``ORIENMASK_ANY_DEVICES`` opt-out; a non-finite loss exits 1 and
   ``max_iter`` exits 0 after its checkpoint.
 * One subprocess, ``python -m orienmask_tpu_torch.train``, one epoch of 2
   steps, one thread."""
@@ -147,12 +148,28 @@ def test_weights_start_a_new_run(trained, tmp_path):
     assert int(got["opt_state"]["step"]) == 0 and trainer.start_epoch == 1
 
 
-@pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
-                                  ["--num-processes", "2"], ["--process-id", "0"]])
-def test_multi_process_flags_are_refused(flag, trained):
-    _, _, cfg_file, _ = trained
-    with pytest.raises(SystemExit, match=f"{flag[0]} is not ported yet"):
-        train_cli.main(["-c", str(cfg_file), *flag, "--device", "cpu"])
+@pytest.mark.parametrize("flags,message", [
+    (["--num-processes", "2"], "--num-processes 2 needs --coordinator host:port"),
+    (["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "2"],
+     r"--process-id 2 is out of range for --num-processes 2 \(0 \.\. 1\)"),
+    (["--num-processes", "1"], None),
+])
+def test_multi_process_flags_are_refused(flags, message, trained, tmp_path):
+    """A launch that cannot form a process group exits with its message;
+    ``--num-processes 1`` trains in one process, with no group."""
+    _, paths, _, _ = trained
+    cfg_file = tmp_path / "config.json"
+    cfg_file.write_text(json.dumps(_config(paths, str(tmp_path / "runs"))))
+    argv = ["-c", str(cfg_file), *flags, "--device", "cpu"]
+    if message is not None:
+        with pytest.raises(SystemExit, match=message):
+            train_cli.main(argv)
+        assert not (tmp_path / "runs").exists()
+        return
+    assert train_cli.main(argv) == 0
+    (run_dir,) = (tmp_path / "runs").iterdir()
+    assert read_checkpoint(run_dir / "epoch1.ckpt")["epoch"] == 1
+    assert not torch.distributed.is_initialized()
 
 
 def test_train_needs_a_config():
@@ -170,7 +187,7 @@ def test_clis_default_to_the_card(trained, monkeypatch):
 
 
 @pytest.mark.parametrize("updates,message", [
-    ({"n_device": 2}, "config n_device=2 but the port trains on 1 device"),
+    ({"n_device": 2}, r"config n_device=2 but the process group spans 1 device\(s\)"),
     ({"n_space": 2}, "spatial training"),
     ({"remat": True}, "remat is not ported"),
     ({"optimizer": {"param_groups": {"bias_lr_factor": 2}}}, "param_groups is not ported"),
