@@ -154,18 +154,45 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    tolerances, and the test CLI in one process, whose 12-stat vectors the
    two ranks' must equal; global images/s of the train epochs, each rank's
    step on the stream and its time in collectives, its loader wait and
-   peak memory.
+   peak memory;
+19. the train step's options on the published train config at full width
+   (B = 8, f32, phase 7's batch): (a) one step with ``remat`` and one
+   without from the same state under ``cudnn.deterministic``: loss,
+   gradients, parameters, momentum and BatchNorm buffers equal by bits,
+   each BatchNorm counted once; then ms a step and peak memory of each in
+   turns (off, on, on, off); (b) ``freeze_backbone: 2``,
+   ``backbone_batchnorm_eval`` and ``param_groups`` for 3 steps: conv1 and
+   conv2 unchanged by bits with zero momentum, every backbone BatchNorm
+   buffer unchanged, the rest moved, the last update the plain
+   per-parameter SGD formula by bits, kernel 5 on the batch against its
+   plain version; (c) the train CLI with those keys and ``remat`` for 2
+   steps on 16 of phase 17's scenes; launch counts read around each;
+20. int8 on the 544² infer config at full width: (a) every distinct int8
+   convolution shape of a frame quantized with the stem (conv1's K = 27
+   among them) through im2col and ``torch._int_mm`` against the float64
+   plain version, by bits; (b) ``quantize_int8`` calibrated on the seeded
+   480x640 image: 4 requests with launch counts, kernels 1 and 2 against
+   their plain versions on the int8 heads, the kernels and copies of a
+   call and its device time by kernel at batch 1 and B = 16 for int8 and
+   bf16 (torch.profiler), e2e FPS at batch 1 and images/s at B = 16 of
+   bf16, then of int8; (c) phase 17's best
+   checkpoint in the pipeline in f32, bf16 and int8 (calibrated on the
+   first 8 val scenes), the 32 val scenes through each as the infer CLI's
+   ``-j`` runs them: detections matched to f32's, matched masks' pixel
+   agreement and IoU, bbox and segm AP through the port's COCO evaluation.
 
 The last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``train_544_b8``, ``eval_544_b16``, ``train_files_544_b8``,
-``dp_train_544_b8x2``);
+``dp_train_544_b8x2``, ``train_options_544_b8``, ``int8_544``);
 ``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
 "depth2": ..., "staged_fps": ...}, "jpeg": {...}}``; the card's name and
 power limit; the kernels' JSON record: every kernel carries per-path launch
 counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
 jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
 validation; each also train_cli and test_cli; kernels 1, 2 and 6 dp_train
-and dp_test, kernel 5 dp_train, both ranks' counts summed), kernels 1 and
+and dp_test, kernel 5 dp_train, both ranks' counts summed; kernel 5 remat,
+train_options and options_cli; kernels 1 and 2 int8, and with kernel 6
+accuracy_f32, accuracy_bf16 and accuracy_int8), kernels 1 and
 2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
 kernel 6 phase 16's cases; the last line is ``{"ok": true, "device":
 {...}}``.  ``--profile DIR`` also writes
@@ -2650,7 +2677,7 @@ def check_train_files(workdir):
     log(f"  test CLI ms an image: {stages}")
     log(f"  card: {card_line()}")
     counts = {"train_cli": train_counts, "test_cli": test_counts}
-    return counts, paint_err, timings
+    return counts, paint_err, timings, {"cfg": cfg, "best": ckpt}
 
 
 # ------------------------------------------------------- data parallelism
@@ -3049,6 +3076,595 @@ def check_data_parallel(workdir):
     return counts, r0["paint_err"], timings
 
 
+# ------------------------------------------------- the train step's options
+
+# phase 19(b)'s keys: the published train config with two backbone stages
+# frozen, the backbone's BatchNorms on their running statistics, and
+# detectron2-style groups
+OPTION_UPDATES = {"model": {"freeze_backbone": 2, "backbone_batchnorm_eval": True},
+                  "optimizer": {"param_groups": {"norm_weight_decay": 0.0, "bias_lr_factor": 2.0,
+                                                 "bias_weight_decay": 0.0}}}
+OPTION_STEPS = 3
+REMAT_STEPS = 3  # timed steps a turn; turns: off, on, on, off
+OPTIONS_CLI_IMAGES = 16  # two steps of B = 8
+
+
+class OptionsPath:
+    """The published train config at full width and depth (seeded weights,
+    f32, phase 7's batch), its model and optimizer blocks updated by
+    ``updates``, the optimizer from ``build_optimizer``, one train step
+    without and one with ``remat``."""
+
+    def __init__(self, updates=None):
+        from orienmask_tpu_torch.config import construct_config
+        from orienmask_tpu_torch.config import orienmask_yolo_coco_544_anchor4_fpn_plus as base
+        from orienmask_tpu_torch.data import collate
+        from orienmask_tpu_torch.models import build_model, init_random
+        from orienmask_tpu_torch.ops import OrienMaskYOLOMultiScaleLoss
+        from orienmask_tpu_torch.optim import StepWarmUpLR
+        from orienmask_tpu_torch.trainer import make_train_step
+        from orienmask_tpu_torch.trainer.builder import build_optimizer
+        from orienmask_tpu_torch.trainer.train_state import to_device
+
+        self.cfg = cfg = construct_config(copy.deepcopy(base), update=copy.deepcopy(updates or {}))
+        self.model = init_random(build_model(cfg["model"]), SEED)
+        self.loss = OrienMaskYOLOMultiScaleLoss(**_kw(cfg["loss"]), device="cuda")
+        self.opt = build_optimizer(cfg["optimizer"], self.model)
+        self.sched = StepWarmUpLR(**_kw(cfg["lr_scheduler"]), base_lr=self.opt.base_lr)
+        self.steps = {remat: make_train_step(self.model, self.loss, self.opt,
+                                             compute_dtype="float32", device="cuda", remat=remat)
+                      for remat in (False, True)}
+        loader = cfg["train_loader"]
+        self.batch = to_device(collate(synthetic_samples(num_classes=cfg["model"]["num_classes"]),
+                                       max_instances=loader["max_instances"],
+                                       pack_masks=loader["pack_masks"]), "cuda")
+        self.iteration = 0
+
+    def step(self, remat=False, grads=None):
+        """One step at the schedule's lr; ``grads`` (a list) receives the
+        gradients the optimizer was given."""
+        apply = self.opt.apply
+        if grads is not None:
+            def recording_apply(g, lr, update_gate=None):
+                grads.extend(x.clone() for x in g)
+                return apply(g, lr, update_gate)
+            self.opt.apply = recording_apply
+        try:
+            logs = self.steps[remat](self.batch, self.sched(self.iteration))
+        finally:
+            self.opt.apply = apply
+        self.iteration += 1
+        return logs
+
+    def snapshot(self):
+        return ({k: t.clone() for k, t in self.model.state_dict().items()},
+                None if self.opt.buffers is None else [b.clone() for b in self.opt.buffers],
+                None if self.opt.step is None else self.opt.step.clone(), self.iteration)
+
+    def restore(self, snap):
+        state, buffers, step, self.iteration = snap
+        self.model.load_state_dict(state)
+        self.opt.buffers = None if buffers is None else [b.clone() for b in buffers]
+        self.opt.step = None if step is None else step.clone()
+
+
+def same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().contiguous().reshape(-1).view(torch.uint8),
+        b.detach().contiguous().reshape(-1).view(torch.uint8))
+
+
+def check_remat():
+    """Phase 19(a): one step with ``remat`` and one without from the same
+    state under ``cudnn.deterministic`` (the weight gradients' convolution
+    algorithms reduce in no fixed order otherwise): the loss, every
+    gradient, the parameters, the momentum and the BatchNorm buffers equal
+    by bits.  Then ms a step and peak memory of each, in turns (off, on, on,
+    off) with the default algorithms."""
+    from orienmask_tpu_torch import kernels
+
+    t = time.perf_counter()
+    op = OptionsPath()
+    start = op.snapshot()
+    torch.backends.cudnn.deterministic = True
+    try:
+        results = {}
+        for remat in (False, True):
+            op.restore(start)
+            grads = []
+            logs = op.step(remat, grads)
+            torch.cuda.synchronize()
+            results[remat] = (logs, grads, op.snapshot())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (off_logs, off_grads, off_state), (on_logs, on_grads, on_state) = results[False], results[True]
+    if float(off_logs["loss"]) != float(on_logs["loss"]) or float(on_logs["skipped"]):
+        raise AssertionError(f"remat loss {float(on_logs['loss'])} vs "
+                             f"{float(off_logs['loss'])}")
+    for i, (a, b) in enumerate(zip(on_grads, off_grads)):
+        if not same_bits(a, b):
+            raise AssertionError(f"remat: gradient {i} differs")
+    for k in off_state[0]:
+        if not same_bits(on_state[0][k], off_state[0][k]):
+            raise AssertionError(f"remat: {k} differs after the step")
+    for a, b in zip(on_state[1], off_state[1]):
+        if not same_bits(a, b):
+            raise AssertionError("remat: a momentum buffer differs")
+    tracked = {int(v) for k, v in on_state[0].items() if k.endswith("num_batches_tracked")}
+    if tracked != {1}:
+        raise AssertionError(f"remat: num_batches_tracked {tracked} after one step")
+    log(f"  set up and compared in {time.perf_counter() - t:.1f} s: remat == no remat by bits "
+        f"(cudnn.deterministic): loss {float(on_logs['loss']):.4f}, {len(on_grads)} gradients, "
+        f"{len(on_state[0])} state tensors, momentum; each BatchNorm counted once")
+    # the comparison's copies (gradients, states) would count in the peaks below
+    del results, off_grads, on_grads, off_state, on_state, start
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    turns = {False: [], True: []}
+    peaks = {False: [], True: []}
+    for remat in (False, True, True, False):
+        op.step(remat)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(REMAT_STEPS):
+            logs = op.step(remat)
+        torch.cuda.synchronize()
+        turns[remat].append((time.perf_counter() - t) * 1e3 / REMAT_STEPS)
+        peaks[remat].append(torch.cuda.max_memory_allocated() / 2**30)
+        if not torch.isfinite(logs["loss"]) or float(logs["skipped"]):
+            raise AssertionError(f"remat={remat}: a non-finite step")
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    n_steps = 4 * (REMAT_STEPS + 1)
+    if counts["paint_orientation"] != n_steps or sum(counts.values()) != n_steps:
+        raise AssertionError(f"expected {n_steps} paint launches and nothing else, got {counts}")
+    out = {name: {"ms_per_step": float(np.mean(turns[remat])), "turns_ms": turns[remat],
+                  "peak_gib": max(peaks[remat])}
+           for name, remat in (("off", False), ("on", True))}
+    log(f"  B=8 544x544 f32: remat off {out['off']['ms_per_step']:.2f} ms/step (turns "
+        f"{', '.join(f'{x:.2f}' for x in turns[False])}), peak {out['off']['peak_gib']:.2f} GiB; "
+        f"on {out['on']['ms_per_step']:.2f} ms/step (turns "
+        f"{', '.join(f'{x:.2f}' for x in turns[True])}), peak {out['on']['peak_gib']:.2f} GiB; "
+        f"launches {counts}")
+    return counts, out
+
+
+def check_frozen_groups():
+    """Phase 19(b): OPTION_UPDATES, ``OPTION_STEPS`` steps: conv1 and conv2
+    keep their parameters by bits with zero momentum, every backbone
+    BatchNorm buffer keeps its bits, everything else moves; the last step's
+    update is the plain per-parameter SGD formula by bits; kernel 5 on the
+    batch's painter inputs against its plain version."""
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.ops import targets
+
+    t = time.perf_counter()
+    op = OptionsPath(OPTION_UPDATES)
+    model, opt = op.model, op.opt
+    names = [n for n, _ in model.named_parameters()]
+    start, _, _, _ = op.snapshot()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for _ in range(OPTION_STEPS - 1):
+        op.step()
+    before, buffers, _, it = op.snapshot()
+    grads = []
+    logs = op.step(grads=grads)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    if counts["paint_orientation"] != OPTION_STEPS or sum(counts.values()) != OPTION_STEPS:
+        raise AssertionError(f"expected {OPTION_STEPS} paint launches, got {counts}")
+    if not torch.isfinite(logs["loss"]) or float(logs["skipped"]):
+        raise AssertionError("a non-finite step")
+    frozen_prefix = ("backbone.conv1.", "backbone.conv2.")
+    mask = dict(zip(names, opt.freeze_mask))
+    if [n for n in names if mask[n]] != [n for n in names if n.startswith(frozen_prefix)]:
+        raise AssertionError("the freeze mask is not stages conv1 and conv2")
+    moved = 0
+    for k, v in model.state_dict().items():
+        keep = k.startswith(frozen_prefix) or (k.startswith("backbone.") and k not in mask)
+        if same_bits(v, start[k]) != keep:
+            raise AssertionError(f"{k}: {'moved' if not keep else 'kept'} against expectation")
+        moved += not keep
+    for n, b in zip(names, opt.buffers):
+        if bool(b.any()) == mask[n]:
+            raise AssertionError(f"{n}: momentum {'non-zero' if mask[n] else 'all zero'}")
+    lr32 = np.float32(op.sched(it))
+    m = op.opt.momentum
+    for i, n in enumerate(names):
+        p0 = before[n]
+        if mask[n]:
+            continue
+        d = grads[i] + opt.wd_factors[i] * p0
+        buf = m * buffers[i] + d
+        want = p0 - float(lr32 * np.float32(opt.lr_factors[i])) * buf
+        if not same_bits(model.state_dict()[n], want) or not same_bits(opt.buffers[i], buf):
+            raise AssertionError(f"{n}: the update is not the plain SGD formula's")
+    n_factor = sum(f != 1.0 for f in opt.lr_factors)
+    n_wd0 = sum(w == 0.0 for w in opt.wd_factors)
+
+    b = op.batch
+    calls = []
+    with mock.patch.object(targets, "paint_orientation",
+                           lambda geom, n_last, masks, *rest: calls.append(
+                               (geom.clone(), n_last.clone(), masks.clone()))):
+        op.loss._paint_shared_batch(b["bbox"], b["valid"], b["mask"])
+    painter = op.loss.painter
+    paint_err = check_paint_case("phase 19's batch", *calls[0], painter.pixel_anchors,
+                                 (painter.image_h, painter.image_w))
+    log(f"  {OPTION_STEPS} steps in {time.perf_counter() - t:.1f} s (set-up included): conv1, "
+        f"conv2 kept by bits with zero momentum, every backbone BatchNorm buffer kept, "
+        f"{moved} other tensors moved; step {OPTION_STEPS}'s update == the plain SGD formula "
+        f"by bits ({n_factor} lr factors of 2, {n_wd0} zero weight decays); loss "
+        f"{float(logs['loss']):.4f}; launches {counts}")
+    return counts, paint_err
+
+
+def check_options_cli(workdir, files_cfg):
+    """Phase 19(c): the train CLI with OPTION_UPDATES and ``remat`` for one
+    epoch of two steps (the first 16 of phase 17's scenes, no validation):
+    its step was built with ``remat``, its optimizer holds the groups and
+    the mask, and at the end conv1 and conv2 and every backbone BatchNorm
+    buffer hold their initial bits."""
+    from orienmask_tpu_torch import train as train_cli
+    from orienmask_tpu_torch.config import construct_config
+    from orienmask_tpu_torch.models import build_model, init_random
+    from orienmask_tpu_torch.trainer import trainer as trainer_module
+
+    list_file = Path(files_cfg["train_loader"]["dataset"]["list_file"])
+    names = list_file.read_text().split()[:OPTIONS_CLI_IMAGES]
+    short = workdir / "options_train.txt"
+    short.write_text("\n".join(names) + "\n")
+    cfg = construct_config(copy.deepcopy(files_cfg), update=dict(
+        copy.deepcopy(OPTION_UPDATES), remat=True, epochs=1, val_freq=2,
+        log_dir=str(workdir / "options_runs"),
+        train_loader={"dataset": {"list_file": str(short)}}))
+    cfg_file = workdir / "options_config.json"
+    cfg_file.write_text(json.dumps(cfg))
+    rec, patches = record_trainer()
+    built = []
+    text = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        make = trainer_module.make_train_step  # record_trainer's, which times each step
+        stack.enter_context(mock.patch.object(
+            trainer_module, "make_train_step",
+            lambda *a, **kw: built.append(kw) or make(*a, **kw)))
+        stack.enter_context(contextlib.redirect_stdout(text))
+        rc, _, _, counts, _ = record_run_batch(lambda: train_cli.main(["-c", str(cfg_file)]))
+    seconds = time.perf_counter() - t
+    steps = OPTIONS_CLI_IMAGES // cfg["train_loader"]["batch_size"]
+    if rc != 0 or {k: v for k, v in counts.items() if v} != {"paint_orientation": steps}:
+        raise AssertionError(f"train CLI with the options: rc {rc}, launches {counts}")
+    if [kw.get("remat") for kw in built] != [True]:
+        raise AssertionError(f"the train step was built with {built}")
+    trainer = rec["trainer"]
+    opt = trainer.optimizer
+    if 2.0 not in opt.lr_factors or sum(opt.freeze_mask) == 0:
+        raise AssertionError("the CLI's optimizer holds no groups or no mask")
+    init = init_random(build_model(cfg["model"]), cfg["seed"]).state_dict()
+    for k, v in trainer.model.state_dict().items():
+        if k.startswith(("backbone.conv1.", "backbone.conv2.")) or (
+                k.startswith("backbone.") and "running_" in k):
+            if not same_bits(v.cpu(), init[k]):
+                raise AssertionError(f"train CLI: {k} moved")
+    losses = [e["train_loss"] for e in rec["epochs"]]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train CLI losses {losses}")
+    step_ms = [a.elapsed_time(b) for a, b in rec["events"]]
+    log(f"  train CLI with {sorted(OPTION_UPDATES['model'])}, param_groups and remat: {steps} "
+        f"steps in {seconds:.1f} s (build and loader start included), loss {losses[0]:.3f}, "
+        f"steps {', '.join(f'{x:.1f}' for x in step_ms)} ms on the stream; frozen stages and "
+        f"backbone BatchNorm buffers at their initial bits; launches {counts}")
+    return counts, {"seconds": seconds, "step_ms": step_ms, "loss": losses[0]}
+
+
+def check_train_options(workdir, files_cfg):
+    """Phase 19: (a) remat, (b) frozen stages, BatchNorm eval and param
+    groups, (c) the train CLI with all of them."""
+    t = time.perf_counter()
+    log(" (a) remat on against off")
+    remat_counts, remat = check_remat()
+    log(" (b) freeze_backbone 2, backbone_batchnorm_eval, param_groups")
+    frozen_counts, paint_err = check_frozen_groups()
+    log(" (c) the train CLI with those keys and remat")
+    cli_counts, cli = check_options_cli(workdir, files_cfg)
+    seconds = time.perf_counter() - t
+    log(f"  phase 19 in {seconds:.1f} s; card: {card_line()}")
+    counts = {"remat": remat_counts, "train_options": frozen_counts, "options_cli": cli_counts}
+    return counts, paint_err, {"remat": remat, "options_cli": cli, "phase_s": seconds}
+
+
+# ----------------------------------------------------------------- int8
+
+INT8_CALIB = 8  # val scenes phase 20(c) calibrates on
+
+
+def int8_conv_calls(pipe, image):
+    """The int8 convolutions of one frame through ``pipe``: each distinct
+    (input shape, kernel shape, stride, padding) once, with its tensors."""
+    from orienmask_tpu_torch.ops import int8_conv
+
+    calls = {}
+    conv = int8_conv.conv2d_int8
+
+    def recording(q, qkernel, stride=1, padding=0):
+        key = (tuple(q.shape), tuple(qkernel.shape), stride, padding)
+        calls.setdefault(key, (q.clone(), qkernel, stride, padding))
+        return conv(q, qkernel, stride, padding)
+
+    with mock.patch.object(int8_conv, "conv2d_int8", recording):
+        pipe.run_device(image)
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_int8_convs(pipe, image):
+    """Phase 20(a): every distinct quantized layer shape of a frame (stem
+    included) through the card's route against the plain version on the
+    same tensors, by bits."""
+    from orienmask_tpu_torch.ops.int8_conv import conv2d_int8, conv2d_int8_plain
+
+    calls = int8_conv_calls(pipe, image)
+    biggest = 0
+    for (q_shape, k_shape, stride, padding), (q, qk, _, _) in calls.items():
+        got = conv2d_int8(q, qk, stride, padding)
+        want = conv2d_int8_plain(q, qk, stride, padding)
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(f"int8 conv {q_shape} x {k_shape} s{stride}: differs from "
+                                 "its plain version")
+        k = k_shape[1] * k_shape[2] * k_shape[3]
+        biggest = max(biggest, got.shape[0] * got.shape[2] * got.shape[3] * (k + -k % 8))
+    torch.cuda.synchronize()
+    log(f"  {len(calls)} distinct int8 convolution shapes (conv1's K = 27 among them): the "
+        f"card's im2col + torch._int_mm == the float64 plain version by bits; largest im2col "
+        f"matrix {biggest / 2**20:.1f} MiB at B = {image.shape[0]}")
+    return len(calls)
+
+
+def profile_call(pipe, image, top=6):
+    """One ``run_device`` call under torch.profiler: its CUDA kernels and
+    copies, the ``torch._int_mm`` calls among the host's calls, its device
+    time in ms and the ``top`` kernels by device time (name, ms, count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    pipe.run_device(image)
+    torch.cuda.synchronize()
+    int_mm = torch._int_mm
+    n_int_mm = []
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            mock.patch.object(torch, "_int_mm",
+                              lambda *a: n_int_mm.append(1) or int_mm(*a)):
+        pipe.run_device(image)
+        torch.cuda.synchronize()
+    n_events = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    rows = sorted(((e.key[:70], e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_time_total > 0), key=lambda r: -r[1])
+    return n_events, len(n_int_mm), sum(r[1] for r in rows), rows[:top]
+
+
+def check_int8_path(image):
+    """Phases 20(a) and (b): the 544² infer config at full width (seeded
+    weights), bf16 and int8 (``quantize_int8`` calibrated on the seeded
+    480x640 image, as bench.py calibrates on its image); the int8 path's
+    launches of kernels 1 and 2 over 4 requests, its outputs, kernels 1 and
+    2 against their plain versions on its heads; the int8 convolutions of
+    a frame quantized with the stem against their plain version; the
+    kernels and copies of a call and its device time by kernel
+    (torch.profiler) at batch 1 and B = 16; e2e FPS at batch 1 and images/s
+    at B = 16 of bf16, then of int8."""
+    from orienmask_tpu_torch import kernels
+
+    t = time.perf_counter()
+    bf16, pp_kw = build_pipeline()
+    int8, stem = copy.copy(bf16), copy.copy(bf16)  # one model; each its own folded weights
+    int8.quantize_int8(image)
+    stem.quantize_int8(image, stem=True)
+    torch.cuda.synchronize()
+    log(f"  bf16 pipeline built, int8 (and int8 with the stem) calibrated and quantized in "
+        f"{time.perf_counter() - t:.1f} s")
+    requests = 4
+    counts, results, _, out = run_main_path(int8, image, requests)
+    if counts["exact_topk"] != 2 * requests or counts["assemble_masks_packed"] != requests:
+        raise AssertionError(f"int8 path launches {counts}")
+    check_outputs(out, 1)
+    plain = plain_postprocess(pp_kw)
+    heads = int8.heads(image)
+    got, want = int8.postprocess.apply_device(heads), plain.apply_device(heads)
+    for key in got:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"int8 path '{key}' differs from the plain-version postprocess")
+    log(f"  int8 path: {requests} requests, launches {counts}; {int(out['valid'].sum())} valid "
+        f"detections; postprocess on its heads == the plain versions'")
+    n_shapes = check_int8_convs(stem, image)
+    del stem
+
+    batch = image.repeat(16, 1, 1, 1)
+    profiles = {(name, b): profile_call(p, x) for name, p in (("bf16", bf16), ("int8", int8))
+                for b, x in ((1, image), (16, batch))}
+    launches = {name: profiles[(name, 1)][0] for name in ("bf16", "int8")}
+    log(f"  CUDA kernels and copies a frame (torch.profiler): bf16 {launches['bf16']}, int8 "
+        f"{launches['int8']} ({profiles[('int8', 1)][1]} torch._int_mm calls): int8 costs "
+        f"{launches['int8'] - launches['bf16']} more")
+    for (name, b), (_, _, device_ms, top) in profiles.items():
+        log(f"  {name} B={b}: {device_ms:.3f} ms of device time a call; top kernels: "
+            + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in top))
+    timings = {}
+    for name, p in (("bf16", bf16), ("int8", int8)):
+        fps, windows = e2e_fps(p, image)
+        b16 = batched_rate(p, batch)
+        timings[name] = {"e2e_fps": fps, "e2e_windows": windows,
+                         "b16_images_per_s": b16["images_per_s"], "b16_windows": b16["windows"],
+                         "launches_per_frame": launches[name],
+                         "device_ms": {b: profiles[(name, b)][2] for b in (1, 16)}}
+        log(f"  {name}: e2e {fps:.2f} FPS at batch 1 (median; windows "
+            f"{', '.join(f'{x:.2f}' for x in windows)}); B = 16 {b16['images_per_s']:.2f} "
+            f"images/s (windows {', '.join(f'{x:.2f}' for x in b16['windows'])})")
+    timings["int_mm_per_frame"] = profiles[("int8", 1)][1]
+    timings["int8_conv_shapes"] = n_shapes
+    return counts, timings
+
+
+def match_detections(a, b, n_a, n_b, strict=False):
+    """Greedy matching of ``a``'s valid detections, in score order, to
+    ``b``'s of the same class: with box IoU >= 0.5, or (``strict``) with
+    every box coordinate within 2 pixels of 544; index pairs."""
+    boxes_a, boxes_b = a["bbox"][:n_a, :4], b["bbox"][:n_b, :4]
+    if strict:
+        score = -np.abs(boxes_a[:, None] - boxes_b[None]).max(-1)
+        cut = -2.0 / 544
+    else:
+        def xyxy(bx):
+            return np.stack([bx[:, 0] - bx[:, 2] / 2, bx[:, 1] - bx[:, 3] / 2,
+                             bx[:, 0] + bx[:, 2] / 2, bx[:, 1] + bx[:, 3] / 2], 1)
+
+        pa, pb = xyxy(boxes_a), xyxy(boxes_b)
+        lt = np.maximum(pa[:, None, :2], pb[None, :, :2])
+        rb = np.minimum(pa[:, None, 2:], pb[None, :, 2:])
+        inter = np.clip(rb - lt, 0, None).prod(-1)
+        area = lambda p: (p[:, 2] - p[:, 0]) * (p[:, 3] - p[:, 1])  # noqa: E731
+        score = inter / np.maximum(area(pa)[:, None] + area(pb)[None, :] - inter, 1e-12)
+        cut = 0.5
+    score[a["cls"][:n_a, None] != b["cls"][None, :n_b]] = -np.inf
+    pairs, taken = [], set()
+    for i in np.argsort(-a["bbox"][:n_a, 4], kind="stable"):
+        for j in np.argsort(-score[i], kind="stable"):
+            if score[i, j] < cut:
+                break
+            if j not in taken:
+                pairs.append((i, j))
+                taken.add(j)
+                break
+    return pairs
+
+
+def mask_agreement(ma, mb):
+    """(equal pixels, pixels, intersection, union) of packed mask pairs."""
+    bits = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=ma.device)
+    ua = (ma.unsqueeze(-1) & bits) != 0
+    ub = (mb.unsqueeze(-1) & bits) != 0
+    return (int((ua == ub).sum()), ua.numel(), int((ua & ub).sum()), int((ua | ub).sum()))
+
+
+def check_int8_accuracy(workdir, files_cfg, best):
+    """Phase 20(c): phase 17's best checkpoint in the 544² infer pipeline in
+    f32, bf16 and int8 (bf16 between layers, calibrated on the first
+    ``INT8_CALIB`` val scenes); the 32 val scenes through each, as the infer
+    CLI's ``-j -o`` runs them (kernels 1, 2 and 6); detections and masks of
+    bf16 and int8 against f32's, and each one's bbox and segm AP through the
+    port's COCO evaluation."""
+    import orienmask_tpu_torch.config as configs
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.data import FastCOCOTransform
+    from orienmask_tpu_torch.data.dataset import COCODataset
+    from orienmask_tpu_torch.data.image_io import read_image
+    from orienmask_tpu_torch.eval import COCOMetrics
+    from orienmask_tpu_torch.models import build_model
+    from orienmask_tpu_torch.ops import OrienMaskYOLOPostProcess
+    from orienmask_tpu_torch.pipeline import InferencePipeline
+    from orienmask_tpu_torch.trainer.checkpoint import load_checkpoint
+
+    t = time.perf_counter()
+    cfg = configs.orienmask_yolo_coco_544_anchor4_fpn_plus_infer
+    gt_file = files_cfg["val_gt_file"]
+    image_dir = files_cfg["val_loader"]["dataset"]["image_dir"]
+    gt = json.loads(Path(gt_file).read_text())
+    images = [torch.from_numpy(read_image(os.path.join(image_dir, im["file_name"])))
+              for im in gt["images"]]
+    infos = [{"height": im["height"], "width": im["width"], "id": im["id"]} for im in gt["images"]]
+    model = build_model(cfg["model"])
+    load_checkpoint(best, model)
+    pp_kw = {k: v for k, v in cfg["postprocess"].items() if k != "type"}
+    pipes = {}
+    for name, dtype in (("f32", "float32"), ("bf16", "bfloat16"), ("int8", "bfloat16")):
+        pipes[name] = InferencePipeline(
+            model, FastCOCOTransform(cfg["transform"]["pipeline"]),
+            OrienMaskYOLOPostProcess(**pp_kw, pack_masks=True, device="cuda"),
+            compute_dtype=dtype, device="cuda")
+    pipes["int8"].quantize_int8(images[:INT8_CALIB])
+    outs, stats, counts = {}, {}, {}
+    for name, pipe in pipes.items():
+        metrics = COCOMetrics(gt_file=gt_file, cat2label=COCODataset.CAT2LABEL, with_mask=True,
+                              save_dir=str(workdir))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        outs[name] = []
+        for image, info in zip(images, infos):
+            out = pipe.run_device(image[None].cuda())
+            metrics.update_results(metrics.to_coco_format_device(
+                [dict(info, collate_pad=pipe.pad_info)], out, pipe.postprocess.image_w))
+            outs[name].append({k: v[0] for k, v in out.items()})
+        torch.cuda.synchronize()
+        counts[name] = dict(kernels.launches)
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics.coco_eval()
+        stats[name] = {"bbox_AP": float(metrics.bbox_eval_stats[0]),
+                       "bbox_AP50": float(metrics.bbox_eval_stats[1]),
+                       "segm_AP": float(metrics.segm_eval_stats[0]),
+                       "segm_AP50": float(metrics.segm_eval_stats[1])}
+    n = len(images)
+    want = {"exact_topk": 2 * n, "assemble_masks_packed": n, "recover_masks": n}
+    for name, c in counts.items():
+        if {k: v for k, v in c.items() if v} != want:
+            raise AssertionError(f"{name}: launches {c}, expected {want}")
+    agreement = {}
+    for name in ("bf16", "int8"):
+        matched = strict = total = same_count = 0
+        eq = px = inter = union = 0
+        for ref, got in zip(outs["f32"], outs[name]):
+            host_ref = {k: v.cpu().numpy() for k, v in ref.items() if k != "mask"}
+            host_got = {k: v.cpu().numpy() for k, v in got.items() if k != "mask"}
+            n_ref, n_got = int(host_ref["valid"].sum()), int(host_got["valid"].sum())
+            matched += len(match_detections(host_ref, host_got, n_ref, n_got))
+            pairs = match_detections(host_ref, host_got, n_ref, n_got, strict=True)
+            strict += len(pairs)
+            total += max(n_ref, n_got)
+            same_count += n_ref == n_got
+            if pairs:
+                i, j = (torch.tensor(x, device="cuda") for x in zip(*pairs))
+                e, p, a, u = mask_agreement(ref["mask"][i], got["mask"][j])
+                eq, px, inter, union = eq + e, px + p, inter + a, union + u
+        agreement[name] = {"matched_share": matched / max(total, 1),
+                           "same_box_share": strict / max(total, 1),
+                           "images_with_equal_counts": same_count,
+                           "mask_pixel_agreement": eq / max(px, 1),
+                           "mask_iou": inter / max(union, 1)}
+        a = agreement[name]
+        log(f"  {name} against f32: {a['matched_share']:.4f} of the detections matched (same "
+            f"class, box IoU >= 0.5), {a['same_box_share']:.4f} with the same box (to 2 px); "
+            f"equal counts in {same_count} of {n} images; the same-box pairs' masks agree on "
+            f"{a['mask_pixel_agreement']:.6f} of their pixels, IoU {a['mask_iou']:.6f}")
+    for name in pipes:
+        st = stats[name]
+        log(f"  {name}: bbox AP {st['bbox_AP']:.4f} (AP50 {st['bbox_AP50']:.4f}), segm AP "
+            f"{st['segm_AP']:.4f} (AP50 {st['segm_AP50']:.4f})")
+    log(f"  {n} val scenes through each pipeline in {time.perf_counter() - t:.1f} s; launches "
+        f"each {want}")
+    return counts, {"agreement": agreement, "ap": stats}
+
+
+def check_int8(workdir, files_cfg, best):
+    """Phase 20: (a) and (b) on the seeded 480x640 image, (c) on phase 17's
+    checkpoint and val scenes."""
+    t = time.perf_counter()
+    image = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (1, 480, 640, 3), dtype=np.uint8)).cuda()
+    log(" (a, b) the int8 path at 544x544 against bf16")
+    counts, timings = check_int8_path(image)
+    log(" (c) accuracy on phase 17's checkpoint: f32, bf16, int8")
+    acc_counts, accuracy = check_int8_accuracy(workdir, files_cfg, best)
+    seconds = time.perf_counter() - t
+    log(f"  phase 20 in {seconds:.1f} s; card: {card_line()}")
+    counts = dict(int8=counts, **{f"accuracy_{k}": v for k, v in acc_counts.items()})
+    return counts, dict(timings, **accuracy, phase_s=seconds)
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -3151,12 +3767,17 @@ def main(argv=None):
     log("[16] kernel 6: recover_masks vs its plain version")
     recover_err, recover_cases_ = check_recover()
     log("[17] training and evaluation from files: the train CLI (3 epochs), then the test CLI")
-    with tempfile.TemporaryDirectory() as workdir:
-        files_counts, files_paint_err, train_files = check_train_files(Path(workdir))
-    log("[18] data parallelism: n_device=2 as two ranks on the card (gloo with CUDA tensors); "
-        "the train CLI (2 epochs), then the test CLI")
-    with tempfile.TemporaryDirectory() as workdir:
-        dp_counts, dp_paint_err, dp_train = check_data_parallel(Path(workdir))
+    with tempfile.TemporaryDirectory() as files_dir:
+        files_counts, files_paint_err, train_files, files_run = check_train_files(Path(files_dir))
+        log("[18] data parallelism: n_device=2 as two ranks on the card (gloo with CUDA "
+            "tensors); the train CLI (2 epochs), then the test CLI")
+        with tempfile.TemporaryDirectory() as workdir:
+            dp_counts, dp_paint_err, dp_train = check_data_parallel(Path(workdir))
+        log("[19] the train step's options: remat, frozen stages, BatchNorm eval, param groups")
+        options_counts, options_paint_err, options = check_train_options(
+            Path(files_dir), files_run["cfg"])
+        log("[20] int8: the int8 convolutions, the quantized pipeline against bf16, accuracy")
+        int8_counts, int8 = check_int8(Path(files_dir), files_run["cfg"], files_run["best"])
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -3182,6 +3803,10 @@ def main(argv=None):
     for path, launched in dp_counts.items():  # phase 18's, both ranks' counts summed
         for name, n in launched.items():
             paths[name][path] = n
+    for path, launched in {**options_counts, **int8_counts}.items():  # phases 19 and 20's
+        for name, n in launched.items():
+            if n:
+                paths[name][path] = n
     recover_paths = paths["recover_masks"]
     main_case = recover_cases_["b"]  # the eval batch
     kernels_line = {"kernels": [
@@ -3209,7 +3834,7 @@ def main(argv=None):
              replaces="orienmask_tpu/ops/pallas_paint.py:149",
              launches=sum(paths["paint_orientation"].values()),
              paths=paths["paint_orientation"],
-             max_abs_err=max(paint_err, files_paint_err, dp_paint_err),
+             max_abs_err=max(paint_err, files_paint_err, dp_paint_err, options_paint_err),
              **times["paint_orientation"]),
         dict(name="recover_masks", route="cuda", source="orienmask_tpu_torch/csrc/recover.cu",
              replaces="orienmask_tpu/eval/coco_eval.py:147",
@@ -3221,7 +3846,8 @@ def main(argv=None):
     log(f"  total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train,
                     "eval_544_b16": eval_times, "train_files_544_b8": train_files,
-                    "dp_train_544_b8x2": dp_train}))
+                    "dp_train_544_b8x2": dp_train, "train_options_544_b8": options,
+                    "int8_544": int8}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
                     "stream_736": stream_fps, "jpeg": jpeg}))
     log(card_line())

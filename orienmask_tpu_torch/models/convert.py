@@ -6,6 +6,9 @@
 * ``variables_to_jax``: its inverse, the port's state dict to the JAX
   pytree (lists for ``Sequential``s, ``{}`` where a module holds nothing),
   which checkpoints are written in.
+* ``folded_from_jax``: a JAX ``fold``/``quantize_folded`` tree (numpy
+  leaves, HWIO kernels, int8 leaves) to the port's folded tree, so that
+  both packages run the same folded or int8 weights.
 * ``load_pretrained_backbone``: a DarkNet-53 ``.pth`` into the backbone,
   with the JAX package's key handling and messages.
 * ``load_reference_state_dict``: a reference-layout ``.pth`` state dict
@@ -115,6 +118,40 @@ def variables_to_jax(model, state_dict=None):
     for name in model.module_names():
         params[name], stats[name] = _module_to_jax(getattr(model, name), sd, name)
     return {"params": params, "batch_stats": stats}
+
+
+def _folded_from_jax(module, tree):
+    if isinstance(module, ConvBNLeaky):
+        if "qkernel" in tree:
+            return {"qkernel": _oihw(tree["qkernel"]),
+                    **{k: torch.tensor(np.asarray(tree[k], np.float32))
+                       for k in ("in_inv", "oscale", "bias")}}
+        return {"weight": _oihw(np.asarray(tree["kernel"], np.float32)),
+                "bias": torch.tensor(np.asarray(tree["bias"], np.float32))}
+    if isinstance(module, Conv):
+        return {"weight": _oihw(np.asarray(tree["kernel"], np.float32)),
+                "bias_f32": torch.tensor(np.asarray(tree["bias"], np.float32))}
+    if isinstance(module, NearestUpsample):
+        return {}
+    if isinstance(module, Sequential):
+        return [_folded_from_jax(m, t) for m, t in zip(module, tree)]
+    if isinstance(module, DarkNetBlock):
+        return _folded_from_jax(module.conv, tree)
+    if isinstance(module, DarkNet53):
+        return {name: _folded_from_jax(getattr(module, name), tree[name])
+                for name in module.stage_names}
+    raise TypeError(f"no JAX mapping for {type(module).__name__}")
+
+
+def folded_from_jax(model, tree):
+    """A JAX folded tree (``model.fold``, a pipeline's ``folded`` or
+    ``quantize_folded``'s; numpy leaves) -> the port's ``model.fold()``
+    tree, host tensors: float kernels f32 (a bf16 kernel's values exact),
+    biases f32, int8 leaves as ``models/quantize.py`` makes them.  Keys
+    the port does not use (the phase stem's derived kernels) are left
+    out."""
+    return {name: _folded_from_jax(getattr(model, name), tree[name])
+            for name in model.module_names()}
 
 
 def load_reference_state_dict(model, state_dict):

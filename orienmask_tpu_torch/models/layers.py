@@ -14,7 +14,17 @@ in train mode and the running ones in eval mode (``module.train()`` /
 batch's (``sync_batch_norm``).  Activations are NCHW (channels_last in
 memory on the card); convolutions run in ``dtype`` and the prediction heads
 (``Conv``) emit f32, as in JAX.
+
+int8 (``models/quantize.py``): a ConvBNLeaky leaf ``{qkernel, in_inv,
+oscale, bias}`` runs as ``quantize_i8`` of its input, an exact int8 x int8
+-> int32 convolution (``ops/int8_conv.py``), ``y * oscale + bias`` in f32,
+leaky, and a cast to the compute dtype.  Rematerialization
+(``models/darknet.py``) reruns a stage's forward in the backward; a
+``StageReplay`` makes that rerun use the batch statistics of the first pass
+and leave the running buffers as the first pass left them.
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -30,6 +40,13 @@ LEAKY_SLOPE = 0.1
 
 def leaky_relu(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+def quantize_i8(x, in_inv):
+    """Symmetric per-tensor int8 quantization of an activation (JAX
+    ``layers.quantize_i8``): ``round(x * in_inv)`` in f32, half to even,
+    clamped to [-127, 127]."""
+    return torch.clamp(torch.round(x.float() * in_inv), -127, 127).to(torch.int8)
 
 
 class Sequential(nn.Sequential):
@@ -59,7 +76,14 @@ class ConvBNLeaky(nn.Module):
     applies the affine in the compute dtype; BatchNorm2d reduces in another
     order and, under bf16, applies the affine in f32 and rounds once.
     Under a process group, train mode runs ``sync_batch_norm`` on the same
-    module instead: the JAX formula over the global batch."""
+    module instead: the JAX formula over the global batch.
+
+    ``observer`` (set by ``models/quantize.py::calibrate_folded`` while it
+    runs) is called with each float folded conv's input; ``replay`` is the
+    ``StageReplay`` of a rematerialized stage call while one runs."""
+
+    observer = None
+    replay = None
 
     def __init__(self, cin, cout, ksize, stride=1, padding=0, activation="leaky"):
         super().__init__()
@@ -79,6 +103,18 @@ class ConvBNLeaky(nn.Module):
         return {"weight": weight, "bias": bias}
 
     def apply_folded(self, folded, x, dtype):
+        if "qkernel" in folded:
+            # int8 leaf: the dequantization's multiply and add round apart,
+            # as JAX's do (imported here: ``ops`` imports this module)
+            from ..ops.int8_conv import conv2d_int8
+
+            y = conv2d_int8(quantize_i8(x, folded["in_inv"]), folded["qkernel"], self.stride,
+                            self.padding)
+            y = y.float() * folded["oscale"][:, None, None] + folded["bias"][:, None, None]
+            y = leaky_relu(y) if self.activation == "leaky" else y
+            return y.to(dtype)
+        if self.observer is not None:
+            self.observer(x)
         # Stays in the compute dtype between folded convs; the bias is added
         # in that dtype, as JAX's apply_folded does (``.to`` is a no-op on a
         # bias the pipeline has already cast).
@@ -89,8 +125,45 @@ class ConvBNLeaky(nn.Module):
     def forward(self, x, dtype):
         conv, bn = self.conv_block
         y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, self.stride, self.padding)
-        y = sync_batch_norm(y, bn) if bn.training and initialized() else bn(y)
+        if bn.training and initialized():
+            y = sync_batch_norm(y, bn, self.replay)
+        elif bn.training and self.replay is not None and self.replay.replaying:
+            # the call bn(y) makes, with throwaway running buffers
+            y = F.batch_norm(y, bn.running_mean.clone(), bn.running_var.clone(), bn.weight,
+                             bn.bias, True, bn.momentum, bn.eps)
+        else:
+            y = bn(y)
         return leaky_relu(y) if self.activation == "leaky" else y
+
+
+class StageReplay:
+    """One rematerialized stage call: the two contexts of
+    ``torch.utils.checkpoint``'s ``context_fn``.  The first pass runs as
+    usual (under a process group its BatchNorms' global sums are kept); the
+    recompute in the backward runs each train-mode BatchNorm on the same
+    batch statistics (the kept sums, with no collective) and leaves the
+    running buffers and ``num_batches_tracked`` as the first pass left
+    them.  JAX's ``jax.checkpoint`` needs none of this: its statistics are
+    outputs, not state."""
+
+    def __init__(self, stage):
+        self.layers = [m for m in stage.modules() if isinstance(m, ConvBNLeaky)]
+        self.sums = {}
+        self.replaying = False
+
+    @contextlib.contextmanager
+    def _active(self, replaying):
+        self.replaying = replaying
+        for m in self.layers:
+            m.replay = self
+        try:
+            yield
+        finally:
+            for m in self.layers:
+                m.replay = None
+
+    def contexts(self):
+        return self._active(False), self._active(True)
 
 
 class _GlobalSums(torch.autograd.Function):
@@ -100,10 +173,15 @@ class _GlobalSums(torch.autograd.Function):
     the global loss is the sum of the ranks')."""
 
     @staticmethod
-    def forward(ctx, y):
-        yf = y.float()
-        sums = torch.stack([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))])
-        dist.all_reduce(sums)
+    def forward(ctx, y, kept=None):
+        """``kept``: the sums of the first pass, in a rematerialized
+        stage's recompute (no collective then)."""
+        if kept is None:
+            yf = y.float()
+            sums = torch.stack([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))])
+            dist.all_reduce(sums)
+        else:
+            sums = torch.stack(kept)
         ctx.save_for_backward(y)
         return sums[0], sums[1]
 
@@ -113,10 +191,10 @@ class _GlobalSums(torch.autograd.Function):
         g = torch.stack([g_sum, g_sum_sq])
         dist.all_reduce(g)
         dy = g[0][None, :, None, None] + 2.0 * y.float() * g[1][None, :, None, None]
-        return dy.to(y.dtype)
+        return dy.to(y.dtype), None
 
 
-def sync_batch_norm(y, bn):
+def sync_batch_norm(y, bn, replay=None):
     """Train-mode BatchNorm of ``y`` (N, C, H, W) over every rank's batch,
     with ``bn``'s affine and running buffers, as JAX ``bn_act`` computes it
     on a global batch (``orienmask_tpu/models/layers.py:170-183``): mean and
@@ -124,16 +202,22 @@ def sync_batch_norm(y, bn):
     unbiased with the global count, the affine in ``y``'s dtype.  Every
     rank's batch has ``y``'s shape, as the shards of a JAX global batch do.
     Not ``nn.SyncBatchNorm``: it refuses CPU tensors and takes another
-    formula."""
+    formula.  In a ``StageReplay``'s recompute the first pass's sums serve
+    and the buffers stay as they are."""
     count = y.shape[0] * y.shape[2] * y.shape[3] * get_world_size()
-    s, s_sq = _GlobalSums.apply(y)
+    replaying = replay is not None and replay.replaying
+    s, s_sq = _GlobalSums.apply(y, replay.sums[id(bn)] if replaying else None)
+    if replay is not None and not replaying:
+        replay.sums[id(bn)] = (s.detach(), s_sq.detach())
     mean, mean_sq = s / count, s_sq / count
     var = mean_sq - mean.square()
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-        bn.running_var.copy_((1 - m) * bn.running_var + m * (var * (count / max(count - 1, 1))))
-        bn.num_batches_tracked += 1
+    if not replaying:
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1 - m) * bn.running_var
+                                 + m * (var * (count / max(count - 1, 1))))
+            bn.num_batches_tracked += 1
     inv = bn.weight * torch.rsqrt(var + bn.eps)
     shift = bn.bias - mean * inv
     return y * inv.to(y.dtype)[None, :, None, None] + shift.to(y.dtype)[None, :, None, None]

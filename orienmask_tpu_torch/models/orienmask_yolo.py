@@ -24,8 +24,10 @@ class OrienMaskYOLO(BaseOrienMask):
         "bbox_head8", "bbox_head16", "bbox_head32", "orien_head",
     )
 
-    def __init__(self, num_anchors, num_classes, backbone_stage_blocks=None):
-        super().__init__(num_anchors, num_classes, backbone_stage_blocks)
+    def __init__(self, num_anchors, num_classes, backbone_stage_blocks=None,
+                 freeze_backbone=False, backbone_batchnorm_eval=False):
+        super().__init__(num_anchors, num_classes, backbone_stage_blocks, freeze_backbone,
+                         backbone_batchnorm_eval)
         bbox_dim = num_anchors * (5 + num_classes)
         self.neck32 = build_neck(1024, 512)
         self.neck16 = build_neck(768, 256)

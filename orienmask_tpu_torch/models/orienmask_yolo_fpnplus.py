@@ -56,11 +56,13 @@ class BaseOrienMask(nn.Module):
 
     HEAD_NAMES = ()
 
-    def __init__(self, num_anchors, num_classes, backbone_stage_blocks=None):
+    def __init__(self, num_anchors, num_classes, backbone_stage_blocks=None,
+                 freeze_backbone=False, backbone_batchnorm_eval=False):
         super().__init__()
         self.num_anchors = num_anchors
         self.num_classes = num_classes
-        self.backbone = DarkNet53(stage_blocks=backbone_stage_blocks)
+        self.backbone = DarkNet53(backbone_stage_blocks, freeze_backbone,
+                                  backbone_batchnorm_eval)
 
     def module_names(self):
         return ("backbone",) + self.HEAD_NAMES
@@ -77,11 +79,13 @@ class BaseOrienMask(nn.Module):
         return self._heads(
             lambda name, inp: getattr(self, name).apply_folded(folded[name], inp, dtype), feats)
 
-    def forward(self, x, dtype=torch.float32):
-        """Unfolded forward (JAX ``apply``), BatchNorm by ``self.training``.
-        x: (B, 3, H, W) -> three (bbox, orien) pairs in the JAX layout
-        (B, h, w, C) that the loss reshapes (views of channels_last NCHW)."""
-        feats = self.backbone(x, dtype)
+    def forward(self, x, dtype=torch.float32, remat=False):
+        """Unfolded forward (JAX ``apply``), BatchNorm by ``self.training``;
+        ``remat`` rematerializes the backbone's stages in training (JAX's
+        ``ctx['remat']``).  x: (B, 3, H, W) -> three (bbox, orien) pairs in
+        the JAX layout (B, h, w, C) that the loss reshapes (views of
+        channels_last NCHW)."""
+        feats = self.backbone(x, dtype, remat)
         predict = self._heads(lambda name, inp: getattr(self, name)(inp, dtype), feats)
         return tuple((b.permute(0, 2, 3, 1), o.permute(0, 2, 3, 1)) for b, o in predict)
 
@@ -109,8 +113,10 @@ class OrienMaskYOLOFPNPlus(BaseOrienMask):
         "skip32", "skip16", "skip8", "skip4", "orien_head",
     )
 
-    def __init__(self, num_anchors, num_classes, backbone_stage_blocks=None):
-        super().__init__(num_anchors, num_classes, backbone_stage_blocks)
+    def __init__(self, num_anchors, num_classes, backbone_stage_blocks=None,
+                 freeze_backbone=False, backbone_batchnorm_eval=False):
+        super().__init__(num_anchors, num_classes, backbone_stage_blocks, freeze_backbone,
+                         backbone_batchnorm_eval)
         bbox_dim = num_anchors * (5 + num_classes)
         self.neck32 = build_neck(1024, 512)
         self.neck16 = build_neck(768, 256)

@@ -3,20 +3,28 @@
 
 One call runs resize + normalize, the BN-folded forward (bf16 convolutions
 on cuDNN, channels_last, f32 heads), the detect stage and the mask assembly,
-with no host round trip except the NMS convergence check.
+with no host round trip except the NMS convergence check.  ``quantize_int8``
+turns the ConvBNLeaky convolutions into int8 ones (``models/quantize.py``).
 """
 
 import torch
 
 from .device import resolve_device
+from .models.quantize import calibrate_folded, cast_kernels, quantize_folded
 
 
 def folded_to_device(tree, device, dtype):
     """BN-folded weights (``model.fold()``) on ``device``: conv kernels in
     ``dtype`` and channels_last for cuDNN, ConvBNLeaky biases in ``dtype``
-    (the same bits as a cast per call), the heads' ``bias_f32`` in f32."""
+    (the same bits as a cast per call), the heads' ``bias_f32`` in f32.
+    int8 leaves (``quantize_folded``) keep their types: ``qkernel``
+    channels_last, ``in_inv``, ``oscale`` and ``bias`` f32."""
     if isinstance(tree, list):
         return [folded_to_device(t, device, dtype) for t in tree]
+    if isinstance(tree, dict) and "qkernel" in tree:
+        return {"qkernel": tree["qkernel"].to(device).contiguous(
+                    memory_format=torch.channels_last),
+                **{k: tree[k].to(device, torch.float32) for k in ("in_inv", "oscale", "bias")}}
     if isinstance(tree, dict) and "weight" in tree:
         weight = tree["weight"].to(device, dtype)
         out = {"weight": weight.contiguous(memory_format=torch.channels_last)}
@@ -46,6 +54,23 @@ class InferencePipeline:
         h, w = transform.size
         # transform resizes to the exact network size; padding is a no-op
         self.pad_info = (0, 0, 0, 0, h, w)
+
+    def quantize_int8(self, calib_images, stem=False):
+        """Switch the folded forward to int8 convolutions (JAX
+        ``InferencePipeline.quantize_int8``): the model's folded weights
+        with their kernels in the compute dtype (JAX's ``self.folded``) are
+        calibrated on ``calib_images`` (raw (N, H, W, 3) images, through
+        this pipeline's transform, in f32 on its device), quantized, and put
+        on the device.  ``stem=True`` quantizes conv1, conv2 and conv3[0]
+        too; the heads' logit convolutions stay float.  The contract of
+        ``run_device`` and ``__call__`` is unchanged."""
+        folded = cast_kernels(self.model.fold(), self.dtype)
+        scales = calibrate_folded(self.model, folded_to_device(folded, self.device, torch.float32),
+                                  calib_images, self.transform)
+        self.folded = folded_to_device(
+            quantize_folded(self.model, folded, scales, exclude_stem=not stem), self.device,
+            self.dtype)
+        return self
 
     @torch.inference_mode()
     def heads(self, image):

@@ -2,10 +2,11 @@
 ``orienmask_tpu/trainer/builder.py``).
 
 A config block's ``type`` names a class of the port (``data``, ``ops``,
-``optim``); its other keys are the constructor's arguments.  What is not
-ported is refused with a message, never trained as if unset:
-``param_groups``, ``freeze_backbone``, ``backbone_batchnorm_eval`` and
-``remat`` (ROADMAP Queue 1 item 7) and spatial training (item 10).  The
+``optim``); its other keys are the constructor's arguments.  The
+optimizer's ``param_groups`` become per-parameter factors of ``SGD``
+(``optim/param_groups.py``) and the model's frozen stages its
+``freeze_mask``.  What is not ported is refused with a message, never
+trained as if unset: spatial training (ROADMAP Queue 1 item 10).  The
 port runs one process a device: the JAX package asserts that the mesh
 spans ``n_device`` devices, and here the process group must span
 ``n_device`` ranks (one process and no group: 1), unless
@@ -118,14 +119,28 @@ def _check_u8_transport_normalize(transform):
                                  f"std=255); got mean={mean} std={std}")
 
 
+def _freeze_mask(model):
+    """One bool a parameter of ``model.parameters()`` (True: in a frozen
+    backbone stage), or None when no stage is frozen."""
+    backbone = model.backbone
+    frozen = {id(p) for name in backbone.frozen_stages()
+              for p in getattr(backbone, name).parameters()}
+    return [id(p) in frozen for p in model.parameters()] if frozen else None
+
+
 def build_optimizer(config, model):
+    """SGD over ``model.parameters()``; ``param_groups`` (a sub-config of
+    ``norm_weight_decay``, ``bias_lr_factor`` and ``bias_weight_decay``, the
+    base ``weight_decay`` taken from the optimizer's) gives per-parameter lr
+    factors and weight decays, and the model's frozen stages the mask."""
     cfg = copy.deepcopy(config)
     if cfg.pop("type") != "SGD":
         raise ValueError("only SGD is shipped")
-    if cfg.pop("param_groups", None):
-        raise ValueError("param_groups is not ported yet (ROADMAP Queue 1 item 7): the port "
-                         "would train every parameter alike")
-    return optim_module.SGD(model.parameters(), **cfg)
+    groups = cfg.pop("param_groups", None)
+    if groups:
+        cfg["lr_factors"], cfg["wd_factors"] = optim_module.param_group_factors(
+            model, weight_decay=cfg.get("weight_decay", 0.0), **groups)
+    return optim_module.SGD(model.parameters(), freeze_mask=_freeze_mask(model), **cfg)
 
 
 def build_lr_scheduler(config, base_lr):

@@ -78,13 +78,15 @@ def _setup(model, loss_fn, compute_dtype, device):
 
 
 def make_train_step(model, loss_fn, optimizer, accumulate=1, compute_dtype="float32",
-                    device=None):
+                    device=None, remat=False):
     """Returns ``train_step(batch, lr, do_step=True) -> logs``.
 
     ``model`` moves to ``device`` (None: the card), channels_last there;
     ``optimizer`` is an ``SGD`` over ``model.parameters()``.  ``lr`` is the
     scheduled rate of this step.  ``do_step`` (a Python bool) applies the
-    accumulated gradients when ``accumulate > 1``.
+    accumulated gradients when ``accumulate > 1``.  ``remat`` (the config
+    key) rematerializes the backbone's stages (``models/darknet.py``): the
+    same values, less memory, the stages' forward run twice.
 
     NaN guard: a step whose loss or any gradient is not finite logs
     ``skipped = 1`` and leaves the parameters, the momentum, the step counter
@@ -104,7 +106,8 @@ def make_train_step(model, loss_fn, optimizer, accumulate=1, compute_dtype="floa
         model.train()
         stats = [b.clone() for b in buffers]
         x = _image_f32(batch["image"]).permute(0, 3, 1, 2)  # NCHW view, channels_last
-        loss_sum, loss_log, _ = loss_fn(model(x, dtype), unpack_target(batch), training=True)
+        loss_sum, loss_log, _ = loss_fn(model(x, dtype, remat=remat), unpack_target(batch),
+                                        training=True)
         grads = all_reduce_flat(torch.autograd.grad(loss_sum, params))
         logs = reduce_logs(dict({k: v.detach() for k, v in loss_log.items()},
                                 loss=loss_sum.detach()))

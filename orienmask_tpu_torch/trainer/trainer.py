@@ -61,9 +61,6 @@ class Trainer(BaseTrainer):
     def __init__(self, model, loss, optimizer, lr_scheduler, config, train_loader, val_loader,
                  postprocess, device=None, resume=None, weights=None):
         super().__init__(config, resume, weights)
-        if config.get("remat"):
-            raise ValueError("remat is not ported yet (ROADMAP Queue 1 item 7): the port "
-                             "would train without it")
         self.device = resolve_device(device)
         self.model = model
         self.loss = loss
@@ -74,7 +71,8 @@ class Trainer(BaseTrainer):
         self.postprocess = postprocess
         dtype = config.get("compute_dtype", "float32")
         self.train_step = make_train_step(model, loss, optimizer, accumulate=self.accumulate,
-                                          compute_dtype=dtype, device=self.device)
+                                          compute_dtype=dtype, device=self.device,
+                                          remat=bool(config.get("remat", False)))
         self.eval_step = make_eval_step(model, loss, dtype, self.device)
         self.coco_metrics = None
         if val_loader is not None and config.get("val_gt_file"):

@@ -33,7 +33,7 @@ def main():
     cs.log("[17]")
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
-        counts, paint_err, timings = cs.check_train_files(Path(workdir))
+        counts, paint_err, timings, _ = cs.check_train_files(Path(workdir))
     cs.log(f"phase 17 {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t0:.1f} s")
     out = Path(sys.argv[1] if len(sys.argv) > 1 else "probe/build/train_files_phase.json")
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -72,7 +72,8 @@ def test_pipeline_imports_with_jax_blocked():
             "orienmask_tpu_torch.utils.profiler, orienmask_tpu_torch.data.image_io, "
             "orienmask_tpu_torch.data.jpeg, orienmask_tpu_torch.utils.visualizer, "
             "orienmask_tpu_torch.native, orienmask_tpu_torch.ops.recover, "
-            "orienmask_tpu_torch.ops.resize\n"
+            "orienmask_tpu_torch.ops.resize, orienmask_tpu_torch.ops.int8_conv, "
+            "orienmask_tpu_torch.models.quantize, orienmask_tpu_torch.optim.param_groups\n"
             "from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer\n"
             "InferenceVisualizer('COCO')\n"
             "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "

@@ -250,19 +250,45 @@ def test_unfolded_forward_matches_jax(models, train, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [("freeze_backbone", 2), ("backbone_batchnorm_eval", True)])
-def test_build_model_refuses_unported_trainer_keys(key, value):
-    """The JAX package honours both keys (``trainer/builder.py::_freeze_mask``
-    freezes the backbone stages; DarkNet53 keeps its BatchNorms in eval
-    mode); the port does not implement them yet, so ``build_model`` refuses
-    a config that sets either instead of training every parameter."""
+def test_build_model_takes_trainer_keys(models, key, value):
+    """``build_model`` passes both keys to the backbone, as the JAX package
+    does: ``freeze_backbone: 2`` freezes stages conv1 and conv2 (JAX's
+    ``frozen_stages``) and keeps their BatchNorms in eval mode through
+    ``train()``; ``backbone_batchnorm_eval`` keeps every backbone BatchNorm
+    in eval mode.  The train-mode forward then matches JAX's, whose frozen
+    and ``batchnorm_eval`` stages run on their running statistics, at
+    ``test_unfolded_forward_matches_jax``'s train rtol and an atol of 5e-3
+    (measured 2.6e-3 at worst, on one of 3,072 orientation outputs with
+    ``backbone_batchnorm_eval``: the heads' train-mode BatchNorms at 64²
+    amplify the eval-mode backbone's rounding); the frozen stages' buffers
+    do not move."""
     from orienmask_tpu_torch.models import build_model
 
-    model_cfg = dict(train_cfg["model"], **{key: value})
-    jm = JaxModel(num_anchors=3, num_classes=80, backbone_stage_blocks=SLIM,
-                  **{key: value})
-    if key == "freeze_backbone":
-        assert jm.frozen_param_paths()
-    with pytest.raises(ValueError, match=key):
-        build_model(model_cfg, backbone_stage_blocks=SLIM)
-    assert isinstance(build_model(dict(model_cfg, **{key: False}), backbone_stage_blocks=SLIM),
-                      OrienMaskYOLOFPNPlus)
+    _, variables, _ = models
+    jm = JaxModel(num_anchors=3, num_classes=80, backbone_stage_blocks=SLIM, **{key: value})
+    jm.backbone.s2d_stem = False
+    pm = build_model(dict(train_cfg["model"], **{key: value}), backbone_stage_blocks=SLIM)
+    pm.load_state_dict(variables_from_jax(pm, variables), strict=True)
+    assert pm.backbone.frozen_stages() == jm.backbone.frozen_stages()
+    eval_stages = pm.backbone.stage_names if key == "backbone_batchnorm_eval" else \
+        ["conv1", "conv2"]
+    pm.eval()
+    pm.train()
+    for name, m in pm.named_modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            stage = name.split(".")[1] if name.startswith("backbone.") else None
+            assert m.training is (stage not in eval_stages), name
+    x = np.random.default_rng(4).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    want, _ = jax.jit(lambda x: jm.apply(variables["params"], variables["batch_stats"], x,
+                                             default_ctx(train=True)))(jnp.asarray(x))
+    before = {k: t.clone() for k, t in pm.state_dict().items()}
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x).permute(0, 3, 1, 2), torch.float32)
+    for (wb, wo), (gb, go) in zip(want, got):
+        np.testing.assert_allclose(gb.numpy(), np.asarray(wb), rtol=2e-3, atol=5e-3)
+        np.testing.assert_allclose(go.numpy(), np.asarray(wo), rtol=2e-3, atol=5e-3)
+    for k, t in pm.state_dict().items():
+        if k.startswith("backbone.") and k.split(".")[1] in eval_stages:
+            assert torch.equal(t, before[k]), k
+    assert isinstance(build_model(dict(train_cfg["model"], **{key: False}),
+                                  backbone_stage_blocks=SLIM), OrienMaskYOLOFPNPlus)

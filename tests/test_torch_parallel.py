@@ -34,6 +34,11 @@ from measurement (worst seen in brackets):
   by 3.3% and 2.7% there); BN running statistics to 1e-3 with an atol of
   5e-5 of the tensor's largest value.
   Both ranks end equal by bits.
+* ``remat`` with ``freeze_backbone: 2`` (one step on 2 + 2 images): each
+  rank's state equal by bits to its step without ``remat``, both ranks
+  equal by bits, the frozen stages unchanged with zero momentum; against
+  one process at the step's tolerances; the recompute issues no collective
+  and the frozen stages' eval-mode BatchNorms none either.
 """
 
 import datetime
@@ -72,6 +77,7 @@ from orienmask_tpu_torch.ops import OrienMaskYOLOMultiScaleLoss
 from orienmask_tpu_torch.optim import SGD
 from orienmask_tpu_torch.parallel import mesh
 from orienmask_tpu_torch.trainer import make_train_step
+from orienmask_tpu_torch.trainer.builder import _freeze_mask
 from orienmask_tpu_torch.utils import envs
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -239,6 +245,23 @@ def _steps(init, rank=None):
     return out
 
 
+def _option_steps(init, rank=None):
+    """One step on this rank's share of A (``rank`` None: one process, all
+    4 images) with ``freeze_backbone: 2``, with ``remat`` and without."""
+    a = _samples(0, COUNTS_A)
+    if rank is not None:
+        a = _share(a, rank)
+    out = {}
+    for case, remat in (("options_remat", True), ("options", False)):
+        pm = OrienMaskYOLOFPNPlus(3, NUM_CLASSES, backbone_stage_blocks=SLIM, freeze_backbone=2)
+        pm.load_state_dict(init, strict=True)
+        opt = SGD(pm.parameters(), freeze_mask=_freeze_mask(pm), **SGD_KW)
+        step = make_train_step(pm, OrienMaskYOLOMultiScaleLoss(device="cpu", **LOSS), opt,
+                               device="cpu", remat=remat)
+        out[case] = _port_state(pm, opt, step(_batch(a), LR))
+    return out
+
+
 # ------------------------------------------------------------- the ranks
 
 def _count_collectives(log):
@@ -281,10 +304,12 @@ def rank_main(rank, world, workdir):
         pm.load_state_dict(init)
     mesh.replicate_global([*pm.parameters(), *pm.buffers()])
     out["replicated"] = {"state": pm.state_dict(), "digest": _digest(pm.state_dict())}
+    collectives.append("options")
+    out.update(_option_steps(init, rank))
     dist.destroy_process_group()
     out["collectives"] = collectives
     if rank != 0:  # rank 0 keeps the tensors; the others their digests
-        for case in ("step", "nan", "accumulate", "replicated"):
+        for case in ("step", "nan", "accumulate", "replicated", "options", "options_remat"):
             out[case].pop("state")
             out[case].pop("momentum", None)
     torch.save(out, workdir / f"rank{rank}.pt")
@@ -333,7 +358,7 @@ def runs(tmp_path_factory):
     try:
         one = {"bn": _run_bn(*_bn_inputs()[1:]),
                "loss": {case: _run_loss(case, slice(0, 4)) for case in LOSS_CASES},
-               **_steps(init)}
+               **_steps(init), **_option_steps(init)}
         want = _jax_steps(jm, variables)
         for r, p in enumerate(procs):
             text, _ = p.communicate(timeout=RANK_DEADLINE_S)
@@ -517,6 +542,45 @@ def test_collectives_match_in_count_and_size(runs):
     # step, NaN step, two accumulate microbatches
     assert len(steps) == 4 * one_step, (len(steps), one_step)
     assert all(name == "all_reduce" for name, _, _ in steps)
+
+
+def test_remat_and_frozen_stages_on_two_ranks(runs):
+    """``remat`` and ``freeze_backbone: 2`` under a group: the recompute
+    takes the first pass's global statistics (no collective, the buffers
+    updated once), so each rank ends where its step without ``remat`` ends,
+    by bits, and both ranks equal; the frozen stages keep their parameters
+    and buffers with zero momentum; against one process at the step's
+    tolerances.  A step issues two collectives a BatchNorm outside the
+    frozen stages, one for the loss's counts, one a bucket and one for the
+    logs, on both ranks alike."""
+    ranks, one, _, (pm, _, init) = runs
+    for r in (*ranks, one):
+        assert r["options_remat"]["digest"] == r["options"]["digest"]
+        assert r["options_remat"]["logs"] == r["options"]["logs"]
+    got = ranks[0]["options_remat"]
+    assert got["digest"] == ranks[1]["options_remat"]["digest"]
+    assert got["logs"] == ranks[1]["options_remat"]["logs"] and got["step"] == 1
+    frozen = ("backbone.conv1.", "backbone.conv2.")
+    for name, t in init.items():
+        if name.startswith(frozen):
+            assert torch.equal(got["state"][name], t), name
+    names = [n for n in got["momentum"] if not n.startswith(frozen)]
+    assert all(not m.any() for n, m in got["momentum"].items() if n.startswith(frozen))
+    ref = one["options_remat"]
+    for key, value in ref["logs"].items():
+        np.testing.assert_allclose(got["logs"][key], value, rtol=2e-4,
+                                   atol=2e-6 * ref["logs"]["loss"], err_msg=key)
+    worst, together = _grad_errors(got, ref, init, names)
+    assert worst < 0.05 and together < 0.04, (worst, together)
+
+    seq = [r["collectives"] for r in ranks]
+    assert seq[0] == seq[1]
+    steps = seq[0][seq[0].index("options") + 1:]
+    n_bn = sum(isinstance(m, ConvBNLeaky) for m in pm.modules())
+    n_frozen = sum(isinstance(m, ConvBNLeaky) for name in ("conv1", "conv2")
+                   for m in getattr(pm.backbone, name).modules())
+    one_step = 2 * (n_bn - n_frozen) + 1 + len(mesh._buckets(list(pm.parameters()))) + 1
+    assert len(steps) == 2 * one_step and all(name == "all_reduce" for name, _, _ in steps)
 
 
 def test_backend_rule(monkeypatch):

@@ -9,7 +9,8 @@ B = 4 (2 steps an epoch).
   ``-w`` starts from a checkpoint's weights.
 * A launch that cannot form a process group and every unported option
   exit or raise with their messages (``--num-processes 1`` trains as one
-  process); the default device raises without a card; the ``n_device``
+  process); ``remat``, ``param_groups`` and ``freeze_backbone`` build a
+  trainer that honours them; the default device raises without a card; the ``n_device``
   check against the group's size and its ``ORIENMASK_ANY_DEVICES`` opt-out; a non-finite loss exits 1 and
   ``max_iter`` exits 0 after its checkpoint.
 * One subprocess, ``python -m orienmask_tpu_torch.train``, one epoch of 2
@@ -189,14 +190,48 @@ def test_clis_default_to_the_card(trained, monkeypatch):
 @pytest.mark.parametrize("updates,message", [
     ({"n_device": 2}, r"config n_device=2 but the process group spans 1 device\(s\)"),
     ({"n_space": 2}, "spatial training"),
-    ({"remat": True}, "remat is not ported"),
-    ({"optimizer": {"param_groups": {"bias_lr_factor": 2}}}, "param_groups is not ported"),
-    ({"model": {"freeze_backbone": 2}}, "freeze_backbone is not ported"),
 ])
 def test_unported_options_are_refused(trained, tmp_path, updates, message):
     _, paths, _, _ = trained
     with pytest.raises(ValueError, match=message):
         builder.build_trainer(_config(paths, str(tmp_path), **updates), device="cpu")
+
+
+@pytest.mark.parametrize("updates", [
+    {"remat": True},
+    {"optimizer": {"param_groups": {"bias_lr_factor": 2}}},
+    {"model": {"freeze_backbone": 2}},
+], ids=["remat", "param_groups", "freeze_backbone"])
+def test_trainer_options_are_honoured(trained, tmp_path, monkeypatch, updates):
+    """The keys the port refused until it ported them build a trainer that
+    honours them: the train step rematerializes, SGD holds the param
+    groups' factors, the frozen stages' mask and eval-mode BatchNorms."""
+    from orienmask_tpu_torch.models.layers import Conv
+    from orienmask_tpu_torch.trainer import trainer as trainer_module
+
+    _, paths, _, _ = trained
+    steps = []
+    make = trainer_module.make_train_step
+    monkeypatch.setattr(trainer_module, "make_train_step",
+                        lambda *a, **kw: steps.append(kw) or make(*a, **kw))
+    trainer = builder.build_trainer(_config(paths, str(tmp_path), **updates), device="cpu")
+    model, opt = trainer.model, trainer.optimizer
+    assert steps[0]["remat"] is ("remat" in updates)
+    conv_biases = {id(m.bias) for m in model.modules() if isinstance(m, Conv)}
+    want_lr = [2.0 if id(p) in conv_biases and "optimizer" in updates else 1.0
+               for p in model.parameters()]
+    assert opt.lr_factors == want_lr
+    frozen = {id(p) for name in ("conv1", "conv2")
+              for p in getattr(model.backbone, name).parameters()} if "model" in updates else set()
+    assert opt.freeze_mask == [id(p) in frozen for p in model.parameters()]
+    model.train()
+    for name in model.backbone.stage_names:
+        bns = [m for m in getattr(model.backbone, name).modules()
+               if isinstance(m, torch.nn.BatchNorm2d)]
+        assert all(bn.training is not ("model" in updates and name in ("conv1", "conv2"))
+                   for bn in bns), name
+    batch, _ = list(trainer.train_loader)[:2]
+    assert np.isfinite(float(trainer.train_step(batch, 1e-4)["loss"]))
 
 
 def test_any_devices_trains_one_devices_share(trained, tmp_path, monkeypatch):
