@@ -179,11 +179,22 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    checkpoint in the pipeline in f32, bf16 and int8 (calibrated on the
    first 8 val scenes), the 32 val scenes through each as the infer CLI's
    ``-j`` runs them: detections matched to f32's, matched masks' pixel
-   agreement and IoU, bbox and segm AP through the port's COCO evaluation.
+   agreement and IoU, bbox and segm AP through the port's COCO evaluation;
+21. serving: the 544² infer config's bf16 pipeline exported through
+   ``serving.export_pipeline`` (``torch.export``, kernels 1 and 2 as custom
+   operators) at (1, 480, 640, 3) and (8, 480, 640, 3) and its int8 pipeline
+   (calibrated as in phase 20) at (1, 480, 640, 3), into a temporary
+   directory; each artifact loaded and run by a fresh process that cannot
+   import ``orienmask_tpu_torch.models``, its outputs bit-identical to the
+   live ``run_device``'s on phase 4's seeded image(s), kernels 1 and 2
+   launched 2 and 1 times a served call; export and load seconds, the
+   artifacts' bytes, and served against live e2e FPS at batch 1 (3 windows
+   a turn; live, served, served, live).
 
 The last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``train_544_b8``, ``eval_544_b16``, ``train_files_544_b8``,
-``dp_train_544_b8x2``, ``train_options_544_b8``, ``int8_544``);
+``dp_train_544_b8x2``, ``train_options_544_b8``, ``int8_544``,
+``serving_544``);
 ``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
 "depth2": ..., "staged_fps": ...}, "jpeg": {...}}``; the card's name and
 power limit; the kernels' JSON record: every kernel carries per-path launch
@@ -191,8 +202,9 @@ counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
 jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
 validation; each also train_cli and test_cli; kernels 1, 2 and 6 dp_train
 and dp_test, kernel 5 dp_train, both ranks' counts summed; kernel 5 remat,
-train_options and options_cli; kernels 1 and 2 int8, and with kernel 6
-accuracy_f32, accuracy_bf16 and accuracy_int8), kernels 1 and
+train_options and options_cli; kernels 1 and 2 int8, serving and
+serving_int8, and with kernel 6 accuracy_f32, accuracy_bf16 and
+accuracy_int8), kernels 1 and
 2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
 kernel 6 phase 16's cases; the last line is ``{"ok": true, "device":
 {...}}``.  ``--profile DIR`` also writes
@@ -721,8 +733,9 @@ def run_main_path(pipe, image, requests):
 
 
 def mask_tensor_ops(pipe, image):
-    """The aten operators of one frame that take or give a tensor of the
-    packed masks' shape; kernel 2's launch through ctypes is none of them."""
+    """The operators of one frame that take or give a tensor of the packed
+    masks' shape: kernel 2's custom operator ``omt::assemble_masks_packed``
+    gives them (its allocation and launch inside it are none of them)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
 
@@ -752,10 +765,10 @@ def check_main_path(pipe, pp_kw, image):
         raise AssertionError(f"expected {2 * requests} top-k and {requests} mask launches, "
                              f"got {counts}")
     # kernel 2 writes the masks whole, invalid rows included: no operator
-    # touches them after their allocation (no masks *= valid)
+    # touches them after the custom operator gives them (no masks *= valid)
     ops = mask_tensor_ops(pipe, image)
-    if not ops or any(not op.startswith("aten.empty") for op in ops):
-        raise AssertionError(f"operators on the masks besides their allocation: {ops}")
+    if ops != ["omt.assemble_masks_packed.default"]:
+        raise AssertionError(f"operators on the masks besides kernel 2's: {ops}")
     log(f"  operators on the masks' tensor in one frame: {ops} (kernel 2 writes them whole)")
     check_outputs(out, 1)
     n = int(out["valid"][0].sum())
@@ -923,14 +936,14 @@ def time_mask_case(name, args, thresh, valid):
                 / SCALAR_OPS_PER_S * 1e3, tiles=tiles)
 
 
-def e2e_fps(pipe, image):
+def e2e_fps(pipe, image, windows=5):
     """bench.py's method: 10 warm-ups, then 5 windows of 200 frames with
     outputs left on the card and one synchronize per window; the median."""
     for _ in range(10):
         pipe.run_device(image)
     torch.cuda.synchronize()
     rates = []
-    for _ in range(5):
+    for _ in range(windows):
         start = time.perf_counter()
         for _ in range(200):
             pipe.run_device(image)
@@ -3665,6 +3678,180 @@ def check_int8(workdir, files_cfg, best):
     return counts, dict(timings, **accuracy, phase_s=seconds)
 
 
+# -------------------------------------------------------------- serving
+
+SERVING_SHAPES = ((1, 480, 640, 3), (8, 480, 640, 3))
+SERVING_WINDOWS = 3  # e2e_fps windows a turn; turns: live, served, served, live
+SERVING_DEADLINE_S = 300
+
+
+def serve_artifacts(spec_path, out_path):
+    """Phase 21's serving host, run in a fresh process with
+    ``orienmask_tpu_torch.models`` unimportable: load each artifact of the
+    spec, run each of its images once with the launch counts read around
+    the call, and write the outputs (``<dir>/served_<name>_<B>.npz``), the
+    counts and the load seconds to ``out_path``."""
+    torch.backends.cudnn.allow_tf32 = False  # as main() sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.serving import load_serving
+
+    spec = json.loads(Path(spec_path).read_text())
+    result = {}
+    for name, job in spec.items():
+        t = time.perf_counter()
+        served = load_serving(job["dir"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        calls = {}
+        for image_path in job["images"]:
+            image = torch.from_numpy(np.load(image_path)).cuda()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            out = served.run_device(image)
+            torch.cuda.synchronize()
+            counts = dict(kernels.launches)
+            b = image.shape[0]
+            path = Path(spec_path).parent / f"served_{name}_{b}.npz"
+            np.savez(path, **{k: v.cpu().numpy() for k, v in out.items()})
+            calls[b] = {"launches": counts, "outputs": str(path)}
+        result[name] = {"load_s": load_s, "calls": calls}
+    loaded = [m for m, v in sys.modules.items() if v is not None]
+    result["model_modules"] = [m for m in loaded if m.startswith("orienmask_tpu_torch.models")]
+    Path(out_path).write_text(json.dumps(result))
+
+
+def start_serving_host(spec_path, out_path):
+    """``serve_artifacts`` in a fresh Python process that cannot import
+    ``orienmask_tpu_torch.models``, started in the background; its handle
+    for ``finish_serving_host``."""
+    code = ("import sys\n"
+            "sys.modules['orienmask_tpu_torch.models'] = None\n"
+            "import chip_smoke\n"
+            "chip_smoke.serve_artifacts(sys.argv[1], sys.argv[2])\n")
+    log_path = Path(out_path).with_suffix(".log")
+    with open(log_path, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(spec_path), str(out_path)],
+                                cwd=Path(__file__).resolve().parent, stdout=fh,
+                                stderr=subprocess.STDOUT)
+    return proc, Path(out_path), log_path, time.perf_counter()
+
+
+def finish_serving_host(host):
+    """Wait for a serving host (killing it past ``SERVING_DEADLINE_S``);
+    its result, or raise with its output."""
+    proc, out_path, log_path, t0 = host
+    try:
+        proc.wait(timeout=max(1.0, SERVING_DEADLINE_S - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"the serving host failed ({proc.returncode}):\n"
+                             f"{log_path.read_text()[-6000:]}")
+    result = json.loads(out_path.read_text())
+    result["process_s"] = time.perf_counter() - t0
+    return result
+
+
+def artifact_bytes(out_dir):
+    return {p.name: p.stat().st_size for p in sorted(Path(out_dir).iterdir())}
+
+
+def check_serving():
+    """Phase 21: the 544² infer config's bf16 pipeline exported for
+    ``SERVING_SHAPES`` and its int8 pipeline (calibrated as phase 20
+    calibrates) for batch 1, into a temporary directory outside the
+    repository; each artifact served in a fresh process without the model
+    code, its outputs bit-identical to the live ``run_device``'s, kernels 1
+    and 2 launched 2 and 1 times a served call; then served against live
+    e2e FPS at batch 1, in turns."""
+    from orienmask_tpu_torch.serving import export_pipeline, load_serving
+
+    t0 = time.perf_counter()
+    bf16, _ = build_pipeline()
+    int8 = copy.copy(bf16)  # one model; each its own folded weights
+    batch = np.random.default_rng(SEED).integers(
+        0, 256, (max(s[0] for s in SERVING_SHAPES), 480, 640, 3), dtype=np.uint8)
+    images = {s[0]: batch[:s[0]] for s in SERVING_SHAPES}  # image 0: phases 4 and 20's
+    int8.quantize_int8(torch.from_numpy(images[1]).cuda())
+    pipes = {"bf16": (bf16, SERVING_SHAPES), "int8": (int8, SERVING_SHAPES[:1])}
+    res = {"export_s": {}, "bytes": {}, "load_s": {}, "host_process_s": {}}
+    counts = {}
+    hosts = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        work = Path(workdir)
+        try:
+            # each artifact's host starts as soon as it is written: it loads
+            # while the next one exports
+            for name, (pipe, shapes) in pipes.items():
+                out_dir = work / name
+                t = time.perf_counter()
+                manifest = export_pipeline(pipe, shapes, out_dir)
+                res["export_s"][name] = time.perf_counter() - t
+                res["bytes"][name] = artifact_bytes(out_dir)
+                log(f"  {name}: exported {len(manifest['programs'])} program(s) and "
+                    f"{manifest['n_weights']} weights in {res['export_s'][name]:.1f} s; bytes "
+                    f"{res['bytes'][name]}")
+                paths = []
+                for b in (s[0] for s in shapes):
+                    paths.append(str(work / f"image_{b}.npy"))
+                    np.save(paths[-1], images[b])
+                spec = work / f"spec_{name}.json"
+                spec.write_text(json.dumps({name: {"dir": str(out_dir), "images": paths}}))
+                hosts[name] = start_serving_host(spec, work / f"served_{name}.json")
+            served_by = {name: finish_serving_host(host) for name, host in hosts.items()}
+        finally:
+            for proc, *_ in hosts.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for name, (pipe, shapes) in pipes.items():
+            host = served_by[name]
+            if host["model_modules"]:
+                raise AssertionError(f"the serving host loaded model code: "
+                                     f"{host['model_modules']}")
+            res["load_s"][name] = host[name]["load_s"]
+            res["host_process_s"][name] = host["process_s"]
+            log(f"  {name}: served in a fresh process without orienmask_tpu_torch.models, "
+                f"{host['process_s']:.1f} s in all, the artifact loaded in "
+                f"{host[name]['load_s']:.2f} s")
+            counts[name] = {"exact_topk": 0, "assemble_masks_packed": 0}
+            for b, call in host[name]["calls"].items():
+                launched = call["launches"]
+                if launched["exact_topk"] != 2 or launched["assemble_masks_packed"] != 1 \
+                        or sum(launched.values()) != 3:
+                    raise AssertionError(f"{name} B={b}: a served call launched {launched}")
+                for k in counts[name]:
+                    counts[name][k] += launched[k]
+                got = dict(np.load(call["outputs"]))
+                want = pipe.run_device(torch.from_numpy(images[int(b)]).cuda())
+                torch.cuda.synchronize()
+                check_outputs(want, int(b))
+                for key in want:
+                    if not np.array_equal(got[key], want[key].cpu().numpy()) \
+                            or got[key].dtype != want[key].cpu().numpy().dtype:
+                        raise AssertionError(f"{name} B={b}: served '{key}' differs from the "
+                                             "live run_device")
+                log(f"  {name} B={b}: served == live by bits ({int(want['valid'].sum())} valid "
+                    f"detections); kernel 1 x2, kernel 2 x1 a served call")
+
+        served = load_serving(work / "bf16")
+        image = torch.from_numpy(images[1]).cuda()
+        turns = []
+        for name, p in (("live", bf16), ("served", served), ("served", served), ("live", bf16)):
+            fps, windows = e2e_fps(p, image, SERVING_WINDOWS)
+            turns.append({"run": name, "fps": fps, "windows": windows})
+            log(f"  {name}: e2e {fps:.2f} FPS at batch 1 (median of {SERVING_WINDOWS} windows "
+                f"of 200 frames: {', '.join(f'{x:.2f}' for x in windows)})")
+        del served
+    res["fps_turns"] = turns
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 21 in {res['phase_s']:.1f} s; card: {card_line()}")
+    return {"serving": counts["bf16"], "serving_int8": counts["int8"]}, res
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -3778,6 +3965,8 @@ def main(argv=None):
             Path(files_dir), files_run["cfg"])
         log("[20] int8: the int8 convolutions, the quantized pipeline against bf16, accuracy")
         int8_counts, int8 = check_int8(Path(files_dir), files_run["cfg"], files_run["best"])
+    log("[21] serving: bf16 and int8 artifacts through torch.export, served without model code")
+    serving_counts, serving = check_serving()
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -3803,7 +3992,8 @@ def main(argv=None):
     for path, launched in dp_counts.items():  # phase 18's, both ranks' counts summed
         for name, n in launched.items():
             paths[name][path] = n
-    for path, launched in {**options_counts, **int8_counts}.items():  # phases 19 and 20's
+    # phases 19, 20 and 21's
+    for path, launched in {**options_counts, **int8_counts, **serving_counts}.items():
         for name, n in launched.items():
             if n:
                 paths[name][path] = n
@@ -3847,7 +4037,7 @@ def main(argv=None):
     log(json.dumps({"e2e_fps_544_bs1": fps, "windows": rates, "train_544_b8": train,
                     "eval_544_b16": eval_times, "train_files_544_b8": train_files,
                     "dp_train_544_b8x2": dp_train, "train_options_544_b8": options,
-                    "int8_544": int8}))
+                    "int8_544": int8, "serving_544": serving}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
                     "stream_736": stream_fps, "jpeg": jpeg}))
     log(card_line())

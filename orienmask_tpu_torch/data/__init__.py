@@ -1,4 +1,4 @@
-from .collate import collate
+from .collate import collate, collate_plus
 from .dataloader import AspectRatioGroupedDataloader, DataLoader
 from .dataset import COCODataset, VOCDataset
 from .synthetic import ArrayDataset, ArrayLoader, make_scenes
@@ -6,4 +6,4 @@ from .transform import COCOTransform, FastCOCOTransform
 
 __all__ = ["ArrayDataset", "ArrayLoader", "AspectRatioGroupedDataloader", "COCODataset",
            "COCOTransform", "DataLoader", "FastCOCOTransform", "VOCDataset", "collate",
-           "make_scenes"]
+           "collate_plus", "make_scenes"]

@@ -1,5 +1,5 @@
 """Static-shape batch collation (counterpart of
-``orienmask_tpu/data/collate.py::collate``).
+``orienmask_tpu/data/collate.py::collate`` and ``collate_plus``).
 
 Every sample is padded to ``max_instances`` with a validity mask, so one
 train step serves every batch.  A sample with more instances keeps its
@@ -9,6 +9,7 @@ is logged.  Masks can be bit-packed, 8 pixels a byte, MSB first.
 """
 
 import logging
+import math
 
 import numpy as np
 
@@ -58,3 +59,29 @@ def collate(batch, max_instances=100, pack_masks=False, image_transport="float32
     if "info" in batch[0]:
         out["info"] = [s["info"] for s in batch]
     return out
+
+
+def collate_plus(batch, max_instances=100, pack_masks=False, size_divisor=32, pad_value=0.0):
+    """Pads every image of the batch to one shape, each side a multiple of
+    ``size_divisor``, centred, moving the normalized boxes with it and
+    recording ``info['collate_pad']`` = (left, right, top, down, H, W); then
+    ``collate``.  The samples are padded in place."""
+    max_h = int(math.ceil(max(s["image"].shape[0] for s in batch) / size_divisor) * size_divisor)
+    max_w = int(math.ceil(max(s["image"].shape[1] for s in batch) / size_divisor) * size_divisor)
+    for s in batch:
+        h, w = s["image"].shape[:2]
+        left, top = (max_w - w) // 2, (max_h - h) // 2
+        right, down = max_w - w - left, max_h - h - top
+        s["image"] = np.pad(s["image"], ((top, down), (left, right), (0, 0)),
+                            constant_values=pad_value)
+        bb = s["bbox"]
+        if bb.shape[0]:
+            bb[:, 0] = (bb[:, 0] * w + left) / max_w
+            bb[:, 1] = (bb[:, 1] * h + top) / max_h
+            bb[:, 2] = bb[:, 2] * w / max_w
+            bb[:, 3] = bb[:, 3] * h / max_h
+        if "mask" in s and len(s["mask"]):
+            s["mask"] = np.pad(s["mask"], ((0, 0), (top, down), (left, right)))
+        if "info" in s:
+            s["info"]["collate_pad"] = (left, right, top, down, max_h, max_w)
+    return collate(batch, max_instances, pack_masks)

@@ -42,6 +42,14 @@ def leaky_relu(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
+def cast(x, dtype):
+    """``x.to(dtype)``, left out where ``x`` has that dtype already: the same
+    tensor, and no operator in a ``torch.export`` graph, where each no-op
+    ``.to`` is two (an assert and the cast: 370 of the 809 operators of the
+    full model's bf16 program)."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 def quantize_i8(x, in_inv):
     """Symmetric per-tensor int8 quantization of an activation (JAX
     ``layers.quantize_i8``): ``round(x * in_inv)`` in f32, half to even,
@@ -116,9 +124,8 @@ class ConvBNLeaky(nn.Module):
         if self.observer is not None:
             self.observer(x)
         # Stays in the compute dtype between folded convs; the bias is added
-        # in that dtype, as JAX's apply_folded does (``.to`` is a no-op on a
-        # bias the pipeline has already cast).
-        y = F.conv2d(x.to(dtype), folded["weight"], folded["bias"].to(dtype),
+        # in that dtype, as JAX's apply_folded does (the pipeline has cast it).
+        y = F.conv2d(cast(x, dtype), folded["weight"], cast(folded["bias"], dtype),
                      self.stride, self.padding)
         return leaky_relu(y) if self.activation == "leaky" else y
 
@@ -237,7 +244,7 @@ class Conv(nn.Module):
         return {"weight": self.weight.detach(), "bias_f32": self.bias.detach()}
 
     def apply_folded(self, folded, x, dtype):
-        y = F.conv2d(x.to(dtype), folded["weight"], None, self.stride, self.padding)
+        y = F.conv2d(cast(x, dtype), folded["weight"], None, self.stride, self.padding)
         return y.float() + folded["bias_f32"][:, None, None]
 
     def forward(self, x, dtype):

@@ -18,7 +18,9 @@ columns).
 
 Each ``*_plain`` function is the same expressions, op by op, in torch.  The
 wrappers take the plain version for a CPU tensor; for a CUDA tensor they
-launch the kernel of ``csrc/masks.cu`` or raise.  All three need W % 8 == 0,
+launch the kernel of ``csrc/masks.cu`` or raise.  Kernel 2's wrapper does
+so as the custom operator ``omt::assemble_masks_packed``
+(``kernels/ops.py``), which ``torch.export`` traces.  All three need W % 8 == 0,
 as the TPU kernels assert.  Zero-sized (padded) detections and detections
 whose anchor index is off the table give empty masks; kernel 2 also takes
 the detections' validity and gives an invalid detection an empty mask.
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import ops as kernel_ops
 from .maskops import pack_bits
 
 # kernel 2's limits (csrc/masks.cu); kernels 3 and 4 take any K and A
@@ -278,17 +281,10 @@ def assemble_masks_bitpacked(field, boxes, anchor_wh, anchor_idx, orien_thresh=0
                           field.shape[-1] // 8)
 
 
-def assemble_masks_packed(field, boxes, anchor_idx, anchor_table,
-                          orien_thresh=0.3, coord_h=None, row0=0, valid=None):
-    """field (B, A, 2, H, W) f32, boxes (B, K, 4) normalized cxcywh,
-    anchor_idx (B, K) int32, anchor_table (A, 2) normalized anchor sizes
-    -> (B, K, H, W/8) uint8.  ``coord_h``/``row0``: the global image height
-    and the field's first global row, for a row block of a taller image.
-    ``valid`` (B, K) bool, or None for all valid: an invalid detection gets
-    an empty mask."""
-    if field.device.type == "cpu":
-        return assemble_masks_packed_plain(field, boxes, anchor_idx, anchor_table,
-                                           orien_thresh, coord_h, row0, valid)
+def assemble_masks_packed_cuda(field, boxes, anchor_idx, anchor_table, orien_thresh=0.3,
+                               coord_h=None, row0=0, valid=None):
+    """Kernel 2 on the card (the CUDA implementation of
+    ``omt::assemble_masks_packed``)."""
     b, a, two, h, w = field.shape
     k = boxes.shape[1]
     checks = [
@@ -312,3 +308,18 @@ def assemble_masks_packed(field, boxes, anchor_idx, anchor_table,
                        _f32(1.0 / w), _f32(1.0 / (coord_h or h)), int(row0))
         kernels.launches["assemble_masks_packed"] += 1
     return out
+
+
+def assemble_masks_packed(field, boxes, anchor_idx, anchor_table,
+                          orien_thresh=0.3, coord_h=None, row0=0, valid=None):
+    """field (B, A, 2, H, W) f32, boxes (B, K, 4) normalized cxcywh,
+    anchor_idx (B, K) int32, anchor_table (A, 2) normalized anchor sizes
+    -> (B, K, H, W/8) uint8.  ``coord_h``/``row0``: the global image height
+    and the field's first global row, for a row block of a taller image.
+    ``valid`` (B, K) bool, or None for all valid: an invalid detection gets
+    an empty mask.  A call of the custom operator
+    ``omt::assemble_masks_packed`` (``kernels/ops.py``)."""
+    if field.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"assemble_masks_packed: unsupported device {field.device}")
+    return kernel_ops.assemble_masks_packed(field, boxes, anchor_idx, anchor_table,
+                                            float(orien_thresh), coord_h, int(row0), valid)

@@ -4,9 +4,12 @@
 In descending-score order the greedy kept set satisfies
 ``kept[j] = not any(i < j, kept[i], IoU(i, j) >= t)``; iterating that
 recurrence from ``kept = valid`` reaches the unique greedy solution.  JAX runs
-it in a ``while_loop``; here the rounds run in chunks of ``ROUND_CHUNK`` with
-one convergence check (one host sync) per chunk.  A round past the fixpoint
-changes nothing, so the result is exactly the fixpoint.
+it in a ``while_loop``; here a ``torch.while_loop`` runs chunks of
+``ROUND_CHUNK`` rounds until a chunk's last round changes nothing.  Traced
+(``torch.export``), the loop is the ``while_loop`` operator of the exported
+graph; eager, the same body runs in a Python loop with one convergence
+check (one host sync) after each chunk.  A round past the fixpoint changes
+nothing, so the result is exactly the fixpoint.
 """
 
 import torch
@@ -31,18 +34,33 @@ def greedy_nms_fixpoint(boxes, scores, n_keep, iou_threshold=0.5):
         & svalid[:, :, None] & svalid[:, None, :]
     suppress_f = suppress.float()
 
-    kept = svalid
-    while True:
-        for _ in range(ROUND_CHUNK):
-            prev = kept
-            dominated = torch.bmm(kept.float()[:, None, :], suppress_f)[:, 0] > 0
-            kept = svalid & ~dominated
-        if not bool((kept != prev).any()):
-            break
+    kept = _fixpoint(svalid, suppress_f)
 
     ranked = torch.where(kept, -row, -(n + row))  # kept first, by ascending rank
     top = torch.sort(ranked, dim=-1, descending=True, stable=True)[1][:, :n_keep]
     return top, torch.gather(kept, 1, top)
+
+
+def _fixpoint(svalid, suppress_f):
+    """The kept set: chunks of ``ROUND_CHUNK`` rounds of the recurrence from
+    ``kept = svalid`` until a chunk's last round changes nothing."""
+    def cond(kept, changed):
+        return changed.clone()  # a loop's condition may not alias what it carries
+
+    def body(kept, changed):
+        for _ in range(ROUND_CHUNK):
+            prev = kept
+            dominated = torch.bmm(kept.float()[:, None, :], suppress_f)[:, 0] > 0
+            kept = svalid & ~dominated
+        return kept, (kept != prev).any()
+
+    if torch.compiler.is_compiling():
+        changed = torch.ones((), dtype=torch.bool, device=svalid.device)
+        return torch.while_loop(cond, body, (svalid.clone(), changed))[0]
+    kept, changed = svalid, True
+    while changed:
+        kept, changed = body(kept, changed)
+    return kept
 
 
 def batched_class_nms(boxes, scores, classes, n_keep, iou_threshold=0.5):

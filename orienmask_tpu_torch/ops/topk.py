@@ -7,17 +7,20 @@ feeds sigmoid products and the -1.0 below-threshold sentinel.
 
 * ``exact_topk_plain``: ``torch.sort(descending=True, stable=True)``, the
   spec.  ``torch.topk`` promises no order among ties and is not used.
-* ``exact_topk``: the wrapper.  A CPU tensor takes the plain version; a CUDA
-  tensor launches the kernel of ``csrc/topk.cu`` or raises.  ``launch_plan``
-  says how: a row over a cluster of C CTAs, or, for a row longer than one
-  launch takes (``MAX_P``), ``exact_topk_split``: the exact selection's
-  rows (18207 x 80 = 1,456,560 pairs) take two launches.
+* ``exact_topk``: the wrapper, a call of the custom operator
+  ``omt::exact_topk`` (``kernels/ops.py``).  A CPU tensor takes the plain
+  version; a CUDA tensor launches the kernel of ``csrc/topk.cu``
+  (``exact_topk_cuda``) or raises.  ``launch_plan`` says how: a row over a
+  cluster of C CTAs, or, for a row longer than one launch takes
+  (``MAX_P``), ``exact_topk_split``: the exact selection's rows (18207 x 80
+  = 1,456,560 pairs) take two launches.
 """
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..kernels import ops as kernel_ops
 
 # The kernel's limits, which omt_exact_topk also checks: k winners rank in
 # one CTA's shared memory; a CTA holds KEYS_PER_CTA keys in registers (512
@@ -89,11 +92,12 @@ def exact_topk_split(x, k, row_topk):
     return v2, torch.gather(idx, 1, j)
 
 
-def _exact_topk_cuda(x, k):
+def exact_topk_cuda(x, k):
+    """Kernel 1 on the card (the CUDA implementation of ``omt::exact_topk``)."""
     b, p = x.shape
     c, chunk = launch_plan(b, p)
     if chunk:
-        return exact_topk_split(x, k, _exact_topk_cuda)
+        return exact_topk_split(x, k, exact_topk_cuda)
     vals = torch.empty((b, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, k), dtype=torch.int64, device=x.device)
     if b:
@@ -103,16 +107,18 @@ def _exact_topk_cuda(x, k):
     return vals, idx
 
 
-def exact_topk(x, k):
-    """x: (B, P) f32 -> (values (B, k) f32, indices (B, k) int64)."""
-    if x.device.type == "cpu":
-        return exact_topk_plain(x, k)
-    if x.device.type != "cuda":
-        raise ValueError(f"exact_topk: unsupported device {x.device}")
+def check_topk_args(x, k):
+    """Raise unless kernel 1 takes ``x`` and ``k``."""
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("exact_topk: x must be a contiguous (B, P) float32 tensor, "
                          f"got {tuple(x.shape)} {x.dtype}")
     b, p = x.shape
     if not 1 <= k <= min(p, MAX_K):
         raise ValueError(f"exact_topk: need 1 <= k <= min(P, {MAX_K}); k={k}, P={p}")
-    return _exact_topk_cuda(x, k)
+
+
+def exact_topk(x, k):
+    """x: (B, P) f32 -> (values (B, k) f32, indices (B, k) int64)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"exact_topk: unsupported device {x.device}")
+    return kernel_ops.exact_topk(x, k)

@@ -5,6 +5,9 @@ One call runs resize + normalize, the BN-folded forward (bf16 convolutions
 on cuDNN, channels_last, f32 heads), the detect stage and the mask assembly,
 with no host round trip except the NMS convergence check.  ``quantize_int8``
 turns the ConvBNLeaky convolutions into int8 ones (``models/quantize.py``).
+``program`` is that call as a function of (folded weights, uint8 image):
+``run_device`` runs it on ``self.folded``, and ``serving.export_pipeline``
+traces it with ``torch.export``, so live and served run the same code.
 """
 
 import torch
@@ -72,21 +75,31 @@ class InferencePipeline:
             self.dtype)
         return self
 
+    def _heads(self, folded, image):
+        x = self.transform.apply(image.float())  # (B, h, w, 3) f32
+        x = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
+        predict = self.model.apply_folded(folded, x, self.dtype)
+        return tuple((b.permute(0, 2, 3, 1), o.permute(0, 2, 3, 1)) for b, o in predict)
+
     @torch.inference_mode()
     def heads(self, image):
         """image: (B, H, W, 3) uint8 (tensor or numpy, any device) -> three
         (bbox, orien) head pairs in the JAX layout (B, h, w, C), f32."""
-        x = torch.as_tensor(image).to(self.device).float()
-        x = self.transform.apply(x)  # (B, h, w, 3) f32
-        x = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
-        predict = self.model.apply_folded(self.folded, x, self.dtype)
-        return tuple((b.permute(0, 2, 3, 1), o.permute(0, 2, 3, 1)) for b, o in predict)
+        return self._heads(self.folded, torch.as_tensor(image).to(self.device))
+
+    def program(self, folded, image):
+        """(folded weights, (B, H, W, 3) uint8 image on the device) -> device
+        dict {'bbox', 'cls', 'mask', 'valid'} (JAX ``InferencePipeline
+        ._make_run``): transform, folded forward, postprocess.  Its constants
+        for an input shape (the transform's resize matrices, the orientation
+        upsample's) are built at its first eager call at that shape."""
+        return self.postprocess._run_batch(self._heads(folded, image))
 
     @torch.inference_mode()
     def run_device(self, image):
         """image: (B, H, W, 3) uint8 -> device output dict
         {'bbox', 'cls', 'mask', 'valid'}."""
-        return self.postprocess._run_batch(self.heads(image))
+        return self.program(self.folded, torch.as_tensor(image).to(self.device))
 
     def __call__(self, image):
         """image: (B, H, W, 3) -> (list of per-image detection dicts, pad_info)."""

@@ -91,12 +91,13 @@ def build_dataloader(config, seed=0, rank=0, world_size=1):
     dataset = build(dict(dataset_cfg, transform=None), data_module)
     dataset.transform = transform
     collate_cfg = cfg.pop("collate", {"type": "collate"})
-    if collate_cfg.get("type", "collate") != "collate":
-        raise ValueError(f"collate {collate_cfg.get('type')!r} is not ported yet")
     collate_kwargs = {"max_instances": cfg.pop("max_instances", 100),
                       "pack_masks": cfg.pop("pack_masks", True)}
     transport = cfg.pop("image_transport", None)
     if transport is not None:
+        if collate_cfg.get("type", "collate") != "collate":
+            raise ValueError(f"image_transport={transport!r} requires collate type 'collate' "
+                             f"(got {collate_cfg.get('type')!r})")
         if transport == "uint8":
             _check_u8_transport_normalize(transform)
         collate_kwargs["image_transport"] = transport

@@ -191,3 +191,40 @@ def test_wrappers_refuse_other_devices():
                           torch.zeros(1, dtype=torch.int32, device="meta"),
                           torch.zeros(1, 2, 8, 1, dtype=torch.uint8, device="meta"),
                           [[4, 6]], (8, 8))
+
+
+def test_serving_imports_without_model_code():
+    """A serving host loads ``serving.py`` and the operator library with
+    JAX, the JAX package, ``orienmask_tpu_torch.models`` and the host
+    packages the card's machine lacks unimportable; the export CLI imports
+    with JAX blocked."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'orienmask_tpu', 'orienmask_tpu_torch.models', 'cv2', "
+            "'PIL', 'tabulate', 'tqdm', 'pycocotools', 'matplotlib'): sys.modules[m] = None\n"
+            "import orienmask_tpu_torch.serving, orienmask_tpu_torch.kernels.ops, "
+            "orienmask_tpu_torch.ops.topk, orienmask_tpu_torch.ops.masks, "
+            "orienmask_tpu_torch.ops.nms\n"
+            "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
+            "assert not any(m.startswith(('orienmask_tpu_torch.models', "
+            "'orienmask_tpu_torch.pipeline')) for m in loaded), loaded\n"
+            "del sys.modules['orienmask_tpu_torch.models']\n"
+            "import orienmask_tpu_torch.export_serving, orienmask_tpu_torch.models.summary, "
+            "orienmask_tpu_torch.utils.debug\n"
+            "from orienmask_tpu_torch.ops import OrienMaskYOLOPostProcess\n"
+            "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "
+            "for m, v in sys.modules.items() if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_serving_defaults_to_the_card(monkeypatch, tmp_path):
+    from orienmask_tpu_torch import export_serving
+    from orienmask_tpu_torch.serving import ServingModel, load_serving
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for load in (ServingModel, load_serving):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_serving.main(["-c", "orienmask_yolo_coco_544_anchor4_fpn_plus_infer"])
