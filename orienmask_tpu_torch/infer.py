@@ -16,15 +16,26 @@ with -o it writes each drawing to ``<output>/<file name>`` with the extension
 JPEG encoder), and -s shows it with matplotlib.  --video with -o turns on -v
 and writes ``frame_%06d.png``.  Runs on the card (``--device cuda``, the
 default) unless ``--device cpu`` is asked for.  Refused until ported: video
-files in and out (``cv2.VideoCapture``/``VideoWriter`` in the JAX CLI) and
-row sharding over several devices (--spatial N > 1; --spatial 0 and 1 run
-the plain pipeline, as the JAX CLI does).  ``main(argv)`` is the entry point
-that tests and ``chip_smoke.py`` call in-process.
+files in and out (``cv2.VideoCapture``/``VideoWriter`` in the JAX CLI).
+
+``--spatial N`` (N > 1) shards each image's rows over N devices
+(``parallel/spatial.py``).  The JAX CLI runs one process over N local
+devices; the port runs one process a device, so this process spawns N
+ranks (``torch.multiprocessing``, a rendezvous on a free localhost port;
+rank r on ``cuda:(r % cards)``, gloo with CUDA tensors where ranks share a
+card, gloo on the CPU with ``--device cpu``).  Every rank reads the same
+inputs and runs the same loop, ``--video`` included; rank 0 alone prints,
+times and writes.  ``--spatial 0`` and ``1`` run the plain pipeline in this
+process, as the JAX CLI does.  ``main(argv)`` is the entry point that tests
+and ``chip_smoke.py`` call in-process.
 """
 
 import argparse
+import contextlib
 import json
 import os
+import socket
+import sys
 import time
 
 import numpy as np
@@ -38,6 +49,8 @@ from .device import resolve_device
 from .eval import COCOMetrics
 from .models import build_model, init_random
 from .ops import OrienMaskYOLOPostProcess
+from .parallel.mesh import destroy_distributed, init_distributed
+from .parallel.spatial import spatial_groups
 from .pipeline import InferencePipeline
 from .stream import StreamingPipeline
 from .trainer.checkpoint import load_checkpoint
@@ -49,9 +62,9 @@ REFUSED = {
     "video_output": "-o *.mp4/*.avi is not ported yet: the JAX CLI writes video files with "
                     "cv2.VideoWriter; pass a directory for frame_%06d.png files (ROADMAP "
                     "Queue 1, 'What the infer CLI still refuses')",
-    "spatial": "--spatial is not ported yet for N > 1: row sharding over several devices "
-               "(ROADMAP Queue 1, 'What the infer CLI still refuses')",
 }
+# how long the --spatial ranks may take to meet, and their collectives to wait
+SPATIAL_TIMEOUT_S = 600
 
 
 def build_parser():
@@ -75,7 +88,7 @@ def build_parser():
                         help="frames directory: streaming mode with an in-flight queue "
                              "(config stream_depth, e.g. the 736x736 config)")
     parser.add_argument("--spatial", default=None, type=int, metavar="N",
-                        help="shard each image's rows over N devices (not ported)")
+                        help="shard each image's rows over N devices, one rank each")
     parser.add_argument("--stream-depth", default=None, type=int,
                         help="override the in-flight frame depth for --video")
     parser.add_argument("--device", default="cuda", type=str,
@@ -90,7 +103,7 @@ def load_config(name):
     return getattr(config_module, name)
 
 
-def build_pipeline(config, args, device):
+def build_pipeline(config, args, device, space=None):
     model = build_model(config["model"])
     if args.weights:
         load_checkpoint(args.weights, model)
@@ -106,7 +119,7 @@ def build_pipeline(config, args, device):
         **{k: v for k, v in config["postprocess"].items() if k != "type"}, device=device)
     return InferencePipeline(model, transform, postprocess,
                              compute_dtype=config.get("compute_dtype", "bfloat16"),
-                             device=device)
+                             device=device, space=space)
 
 
 def load_image(path):
@@ -116,15 +129,16 @@ def load_image(path):
         raise SystemExit(str(e)) from None
 
 
-def run_video(args, config, pipeline, visualizer):
-    """Streaming mode: depth frames stay submitted but not fetched."""
+def run_video(args, config, pipeline, visualizer, primary=True):
+    """Streaming mode: depth frames stay submitted but not fetched.  Only
+    the ``primary`` rank writes."""
     depth = args.stream_depth or config.get("stream_depth", 2)
     stream = StreamingPipeline(pipeline, depth=depth, device=pipeline.device)
     try:
         paths = frame_paths(args.video, args.num_images)
     except UnsupportedImage as e:
         raise SystemExit(str(e)) from None
-    if args.output:
+    if args.output and primary:
         os.makedirs(args.output, exist_ok=True)
     src_frames = []  # parallel to the in-flight queue
     n_frames = n_out = 0
@@ -132,7 +146,7 @@ def run_video(args, config, pipeline, visualizer):
     def emit(predictions):
         nonlocal n_out
         src = src_frames.pop(0)
-        if visualizer is not None:
+        if visualizer is not None and primary:
             show = visualizer(predictions[0], src.astype(np.float32), pipeline.pad_info)
             if args.output:
                 write_png(os.path.join(args.output, f"frame_{n_out:06d}.png"), show)
@@ -200,9 +214,13 @@ def pyplot():
     return plt
 
 
-def run_images(args, pipeline, visualizer):
+def run_images(args, pipeline, visualizer, primary=True):
+    """The -i/-d/-j loop; only the ``primary`` rank converts, draws and
+    writes."""
     names, paths, infos, metrics = resolve_inputs(args)
-    if args.output:
+    if not primary:
+        metrics, visualizer = None, None
+    if args.output and primary:
         os.makedirs(args.output, exist_ok=True)
     timer.reset()
     if args.benchmark:
@@ -217,7 +235,7 @@ def run_images(args, pipeline, visualizer):
                 src_image = load_image(path)
             with timer.timer("Forward & Postprocess") as t:
                 out = t.sync(pipeline.run_device(src_image[None]))
-            if args.json_file and args.output:
+            if metrics is not None and args.output:
                 with timer.timer("Convert Format"):  # masks recovered where they lie
                     info = [dict(infos[idx], collate_pad=pipeline.pad_info)]
                     metrics.update_results(metrics.to_coco_format_device(
@@ -235,7 +253,7 @@ def run_images(args, pipeline, visualizer):
                         name = os.path.splitext(names[idx])[0] + ".png"
                         write_png(os.path.join(args.output, name), show)
 
-    if args.json_file and metrics is not None:
+    if metrics is not None:
         with open(metrics.bbox_pred_file, "w") as fh:
             json.dump(metrics.bbox_results, fh)
         with open(metrics.segm_pred_file, "w") as fh:
@@ -259,14 +277,20 @@ def main(argv=None):
         args.visualize = True
     if args.video and args.output and args.output.endswith((".mp4", ".avi")):
         raise SystemExit(REFUSED["video_output"])
-    if args.spatial is not None and args.spatial > 1:
-        raise SystemExit(REFUSED["spatial"])
     if args.visualize and args.show:
         pyplot()  # exits here, before the model is built, where it is missing
     if args.json_file and not args.output:
         print("WARNING: -j without -o accumulates no detections; the dumped "
               "prediction JSONs will be empty (pass -o to keep them)")
     device = resolve_device(args.device)
+    if args.spatial is not None and args.spatial > 1:
+        return run_spatial(argv, args.spatial)
+    return run(args, device)
+
+
+def run(args, device, space=None):
+    """The CLI's work on ``device``; under a space group this rank's."""
+    primary = space is None or space.rank == 0
     config = load_config(args.config)
     visualizer = None
     if args.visualize:
@@ -274,10 +298,52 @@ def main(argv=None):
             raise SystemExit(f"-v: config {args.config} has no visualizer block")
         visualizer = InferenceVisualizer(
             **{k: v for k, v in config["visualizer"].items() if k != "type"})
-    pipeline = build_pipeline(config, args, device)
+    pipeline = build_pipeline(config, args, device, space)
     if args.video:
-        return run_video(args, config, pipeline, visualizer)
-    return run_images(args, pipeline, visualizer)
+        return run_video(args, config, pipeline, visualizer, primary)
+    return run_images(args, pipeline, visualizer, primary)
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spatial_rank(rank, argv, n_space, port, threads):
+    """One rank of ``--spatial N``, spawned: joins the group, runs the CLI
+    under its space group (rank 0's prints alone reach the output) and
+    leaves the group."""
+    torch.set_num_threads(threads)
+    args = build_parser().parse_args(argv)
+    device = init_distributed(f"localhost:{port}", n_space, rank, args.device,
+                              timeout_s=SPATIAL_TIMEOUT_S)
+    try:
+        with contextlib.ExitStack() as stack:
+            if rank:
+                devnull = stack.enter_context(open(os.devnull, "w"))
+                stack.enter_context(contextlib.redirect_stdout(devnull))
+            rc = run(args, device, spatial_groups(n_space))
+        if rc:
+            raise SystemExit(rc)
+    finally:
+        destroy_distributed()
+
+
+def run_spatial(argv, n_space):
+    """``--spatial N``: N spawned ranks (this process waits for them); a
+    rank that fails fails the run."""
+    import torch.multiprocessing as mp
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    try:
+        mp.start_processes(spatial_rank, args=(argv, n_space, _free_port(),
+                                               torch.get_num_threads()),
+                           nprocs=n_space, join=True, start_method="spawn")
+    except mp.ProcessExitedException as e:
+        raise SystemExit(f"--spatial {n_space}: rank {e.error_index} exited with code "
+                         f"{e.exit_code}") from None
+    return 0
 
 
 if __name__ == "__main__":

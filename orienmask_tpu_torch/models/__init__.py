@@ -3,11 +3,25 @@ from .convert import (
     init_random,
     load_pretrained_backbone,
     load_reference_state_dict,
+    resnet_from_jax,
     variables_from_jax,
     variables_to_jax,
 )
 from .orienmask_yolo import OrienMaskYOLO
 from .orienmask_yolo_fpnplus import OrienMaskYOLOFPNPlus
+from .resnet import (
+    ResNet,
+    load_torchvision,
+    resnet18,
+    resnet34,
+    resnet50,
+    resnet101,
+    resnet152,
+    resnext50_32x4d,
+    resnext101_32x8d,
+    wide_resnet50_2,
+    wide_resnet101_2,
+)
 
 MODELS = {"OrienMaskYOLO": OrienMaskYOLO, "OrienMaskYOLOFPNPlus": OrienMaskYOLOFPNPlus}
 
@@ -24,6 +38,8 @@ def build_model(model_cfg, **overrides):
     return MODELS[model_cfg["type"]](**kw)
 
 
-__all__ = ["OrienMaskYOLO", "OrienMaskYOLOFPNPlus", "build_model", "folded_from_jax",
+__all__ = ["OrienMaskYOLO", "OrienMaskYOLOFPNPlus", "ResNet", "build_model", "folded_from_jax",
            "init_random", "load_pretrained_backbone", "load_reference_state_dict",
-           "variables_from_jax", "variables_to_jax"]
+           "load_torchvision", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+           "resnet_from_jax", "resnext50_32x4d", "resnext101_32x8d", "variables_from_jax",
+           "variables_to_jax", "wide_resnet50_2", "wide_resnet101_2"]

@@ -13,6 +13,8 @@
   with the JAX package's key handling and messages.
 * ``load_reference_state_dict``: a reference-layout ``.pth`` state dict
   (OIHW kernels, ``conv_block.{0,1}`` keys), loaded with ``strict=True``.
+* ``resnet_from_jax``: a JAX ResNet's (params, stats) to the port's
+  ResNet state dict (torchvision's keys).
 * ``init_random``: seeded random weights from a ``torch.Generator``, the
   JAX init's distributions (torch's kaiming-uniform(a=sqrt(5)) bound
   1/sqrt(fan_in), BN at identity); no weights file is needed.
@@ -152,6 +154,33 @@ def folded_from_jax(model, tree):
     out."""
     return {name: _folded_from_jax(getattr(model, name), tree[name])
             for name in model.module_names()}
+
+
+def _convbn_from_jax(params, stats, conv, bn, out):
+    out[f"{conv}.weight"] = _oihw(params["kernel"])
+    out[f"{bn}.weight"] = _t(params["scale"])
+    out[f"{bn}.bias"] = _t(params["bias"])
+    out[f"{bn}.running_mean"] = _t(stats["mean"])
+    out[f"{bn}.running_var"] = _t(stats["var"])
+    out[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+
+
+def resnet_from_jax(params, stats):
+    """A JAX ``ResNet``'s (params, stats) (numpy leaves: ``stem`` and
+    ``layer{i}`` lists of blocks, HWIO kernels) -> the port's ResNet state
+    dict, torchvision's keys (the inverse of JAX ``resnet_from_torch``)."""
+    out = {}
+    _convbn_from_jax(params["stem"], stats["stem"], "conv1", "bn1", out)
+    for i in range(1, 5):
+        for j, (bp, bs) in enumerate(zip(params[f"layer{i}"], stats[f"layer{i}"])):
+            prefix = f"layer{i}.{j}"
+            for name in sorted(k for k in bp if k.startswith("conv")):
+                k = name[len("conv"):]
+                _convbn_from_jax(bp[name], bs[name], f"{prefix}.conv{k}", f"{prefix}.bn{k}", out)
+            if "downsample" in bp:
+                _convbn_from_jax(bp["downsample"], bs["downsample"], f"{prefix}.downsample.0",
+                                 f"{prefix}.downsample.1", out)
+    return out
 
 
 def load_reference_state_dict(model, state_dict):

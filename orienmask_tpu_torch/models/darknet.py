@@ -22,10 +22,13 @@ into one region; one region a stage is its counterpart here.  Values do not
 change, only memory (and the forward runs twice).
 """
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import spatial
 from .layers import ConvBNLeaky, Sequential, StageReplay
 
 
@@ -102,6 +105,19 @@ class DarkNet53(nn.Module):
 
 def _remat_stage(stage, x, dtype):
     """``stage(x, dtype)`` under ``torch.utils.checkpoint``; the stages draw
-    no random numbers, so no RNG state is kept."""
+    no random numbers, so no RNG state is kept.  Under a space group the
+    recompute, which runs in the backward, enters the group's context again
+    (its halos are exchanged anew)."""
+    space = spatial.active()
+
+    @contextlib.contextmanager
+    def in_space(recompute):
+        with space.active(), recompute:
+            yield
+
+    def contexts():
+        first, recompute = StageReplay(stage).contexts()
+        return (first, recompute) if space is None else (first, in_space(recompute))
+
     return checkpoint(stage, x, dtype, use_reentrant=False, preserve_rng_state=False,
-                      context_fn=lambda: StageReplay(stage).contexts())
+                      context_fn=contexts)

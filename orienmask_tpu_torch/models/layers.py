@@ -2,7 +2,10 @@
 
 Modules keep the reference state-dict keys: ``{prefix}.conv_block.0.weight``
 and ``conv_block.1.{weight,bias,running_mean,running_var}`` for
-``ConvBNLeaky``, ``{prefix}.weight``/``.bias`` for ``Conv``.
+``ConvBNLeaky``, ``{prefix}.weight``/``.bias`` for ``Conv``.  Every
+convolution runs through ``conv2d`` (and the ResNet max pool through
+``max_pool_3x3_s2``), which take their halo rows from the neighbours
+under a space group (``parallel/spatial.py``).
 
 Inference runs on BN-folded weights: ``fold()`` returns a nested structure of
 ``{"weight", "bias"}`` tensors (``{"weight", "bias_f32"}`` for ``Conv``)
@@ -32,7 +35,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.envs import get_world_size, initialized
+from ..parallel import spatial
+from ..utils.envs import initialized
 
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.1
@@ -48,6 +52,37 @@ def cast(x, dtype):
     ``.to`` is two (an assert and the cast: 370 of the 809 operators of the
     full model's bf16 program)."""
     return x if x.dtype == dtype else x.to(dtype)
+
+
+def shard_padding(x, ksize, stride, padding):
+    """(input, padding) of a ``ksize`` convolution with symmetric
+    ``padding``: ``x`` and ``padding`` as they are, or under an active space
+    group (``parallel/spatial.py::SpaceGroup.active``), where ``x`` is a row
+    shard, ``x`` with its neighbours' rows (``padding`` from above,
+    ``ksize - padding - stride`` from below; the convolution's zeros at the
+    image's edges) and the padding of the columns alone."""
+    space = spatial.active()
+    if space is None:
+        return x, padding
+    return space.halo(x, padding, ksize - padding - stride), (0, padding)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, groups=1):
+    """``F.conv2d`` with symmetric ``padding``, row-sharded under a space
+    group (``shard_padding``): every float convolution of the port's models
+    goes through here; with no space group it is the plain call."""
+    x, padding = shard_padding(x, weight.shape[-2], stride, padding)
+    return F.conv2d(x, weight, bias, stride, padding, 1, groups)
+
+
+def max_pool_3x3_s2(x):
+    """3x3 max pool, stride 2, padded with -inf (JAX ``resnet._maxpool_3x3_s2``,
+    which ``F.max_pool2d``'s implicit padding is); under a space group the
+    row above comes from the neighbour (-inf at the image's top)."""
+    space = spatial.active()
+    if space is None:
+        return F.max_pool2d(x, 3, 2, 1)
+    return F.max_pool2d(space.halo(x, 1, 0, fill=float("-inf")), 3, 2, (0, 1))
 
 
 def quantize_i8(x, in_inv):
@@ -116,8 +151,10 @@ class ConvBNLeaky(nn.Module):
             # as JAX's do (imported here: ``ops`` imports this module)
             from ..ops.int8_conv import conv2d_int8
 
+            # a shard's halo rows arrive in the compute dtype, then quantize
+            x, padding = shard_padding(x, folded["qkernel"].shape[-2], self.stride, self.padding)
             y = conv2d_int8(quantize_i8(x, folded["in_inv"]), folded["qkernel"], self.stride,
-                            self.padding)
+                            padding)
             y = y.float() * folded["oscale"][:, None, None] + folded["bias"][:, None, None]
             y = leaky_relu(y) if self.activation == "leaky" else y
             return y.to(dtype)
@@ -125,13 +162,13 @@ class ConvBNLeaky(nn.Module):
             self.observer(x)
         # Stays in the compute dtype between folded convs; the bias is added
         # in that dtype, as JAX's apply_folded does (the pipeline has cast it).
-        y = F.conv2d(cast(x, dtype), folded["weight"], cast(folded["bias"], dtype),
-                     self.stride, self.padding)
+        y = conv2d(cast(x, dtype), folded["weight"], cast(folded["bias"], dtype),
+                   self.stride, self.padding)
         return leaky_relu(y) if self.activation == "leaky" else y
 
     def forward(self, x, dtype):
         conv, bn = self.conv_block
-        y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, self.stride, self.padding)
+        y = conv2d(x.to(dtype), conv.weight.to(dtype), None, self.stride, self.padding)
         if bn.training and initialized():
             y = sync_batch_norm(y, bn, self.replay)
         elif bn.training and self.replay is not None and self.replay.replaying:
@@ -174,10 +211,12 @@ class StageReplay:
 
 
 class _GlobalSums(torch.autograd.Function):
-    """(Σy, Σy²) per channel over the global batch, in f32: one
-    ``all_reduce`` of both in the forward, one of their gradients in the
-    backward (each rank's loss reaches the sums through its own outputs;
-    the global loss is the sum of the ranks')."""
+    """(Σy, Σy², count) per channel over the global batch, in f32: one
+    ``all_reduce`` of all three in the forward (the count too, since the
+    ranks' shapes may differ: a space group's row shards are uneven), one
+    of the sums' gradients in the backward (each rank's loss reaches the
+    sums through its own outputs; the global loss is the sum of the
+    ranks').  With no process group the sums are the rank's own."""
 
     @staticmethod
     def forward(ctx, y, kept=None):
@@ -185,18 +224,22 @@ class _GlobalSums(torch.autograd.Function):
         stage's recompute (no collective then)."""
         if kept is None:
             yf = y.float()
-            sums = torch.stack([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))])
-            dist.all_reduce(sums)
+            count = y.new_full((1,), y.shape[0] * y.shape[2] * y.shape[3], dtype=torch.float32)
+            sums = torch.cat([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3)), count])
+            if initialized():
+                dist.all_reduce(sums)
         else:
-            sums = torch.stack(kept)
+            sums = torch.cat(kept)
         ctx.save_for_backward(y)
-        return sums[0], sums[1]
+        c = y.shape[1]
+        return sums[:c], sums[c:2 * c], sums[2 * c]
 
     @staticmethod
-    def backward(ctx, g_sum, g_sum_sq):
+    def backward(ctx, g_sum, g_sum_sq, g_count):
         (y,) = ctx.saved_tensors
         g = torch.stack([g_sum, g_sum_sq])
-        dist.all_reduce(g)
+        if initialized():
+            dist.all_reduce(g)
         dy = g[0][None, :, None, None] + 2.0 * y.float() * g[1][None, :, None, None]
         return dy.to(y.dtype), None
 
@@ -206,16 +249,17 @@ def sync_batch_norm(y, bn, replay=None):
     with ``bn``'s affine and running buffers, as JAX ``bn_act`` computes it
     on a global batch (``orienmask_tpu/models/layers.py:170-183``): mean and
     E[y²] in f32, var = E[y²] - E[y]² to normalise, the running variance
-    unbiased with the global count, the affine in ``y``'s dtype.  Every
-    rank's batch has ``y``'s shape, as the shards of a JAX global batch do.
-    Not ``nn.SyncBatchNorm``: it refuses CPU tensors and takes another
-    formula.  In a ``StageReplay``'s recompute the first pass's sums serve
-    and the buffers stay as they are."""
-    count = y.shape[0] * y.shape[2] * y.shape[3] * get_world_size()
+    unbiased with the global count, the affine in ``y``'s dtype.  The count
+    is summed with the sums, so ranks of different shapes (a space group's
+    uneven row shards) count every pixel once.  With no process group it is
+    the same formula on the rank's batch (the ResNet BatchNorm's).  Not
+    ``nn.SyncBatchNorm``: it refuses CPU tensors and takes another formula.
+    In a ``StageReplay``'s recompute the first pass's sums serve and the
+    buffers stay as they are."""
     replaying = replay is not None and replay.replaying
-    s, s_sq = _GlobalSums.apply(y, replay.sums[id(bn)] if replaying else None)
+    s, s_sq, count = _GlobalSums.apply(y, replay.sums[id(bn)] if replaying else None)
     if replay is not None and not replaying:
-        replay.sums[id(bn)] = (s.detach(), s_sq.detach())
+        replay.sums[id(bn)] = (s.detach(), s_sq.detach(), count.detach()[None])
     mean, mean_sq = s / count, s_sq / count
     var = mean_sq - mean.square()
     if not replaying:
@@ -223,7 +267,7 @@ def sync_batch_norm(y, bn, replay=None):
             m = bn.momentum
             bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
             bn.running_var.copy_((1 - m) * bn.running_var
-                                 + m * (var * (count / max(count - 1, 1))))
+                                 + m * (var * (count / (count - 1).clamp_min(1))))
             bn.num_batches_tracked += 1
     inv = bn.weight * torch.rsqrt(var + bn.eps)
     shift = bn.bias - mean * inv
@@ -244,11 +288,11 @@ class Conv(nn.Module):
         return {"weight": self.weight.detach(), "bias_f32": self.bias.detach()}
 
     def apply_folded(self, folded, x, dtype):
-        y = F.conv2d(cast(x, dtype), folded["weight"], None, self.stride, self.padding)
+        y = conv2d(cast(x, dtype), folded["weight"], None, self.stride, self.padding)
         return y.float() + folded["bias_f32"][:, None, None]
 
     def forward(self, x, dtype):
-        y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.stride, self.padding)
+        y = conv2d(x.to(dtype), self.weight.to(dtype), None, self.stride, self.padding)
         return y.float() + self.bias[:, None, None]
 
 

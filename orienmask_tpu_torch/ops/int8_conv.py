@@ -33,10 +33,13 @@ def conv2d_int8_plain(q, qkernel, stride=1, padding=0):
 def im2col_nhwc(q, ksize, stride, padding):
     """q (B, C, H, W) (an NCHW view, channels_last in memory) -> the
     (B*Ho*Wo, ksize*ksize*C) matrix of its convolution windows in (kh, kw,
-    c) order, and (B, Ho, Wo)."""
+    c) order, and (B, Ho, Wo).  ``padding``: an int, or (rows, columns)
+    (a row shard whose halo rows are already in place pads its columns
+    alone)."""
     x = q.permute(0, 2, 3, 1)
-    if padding:
-        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    if ph or pw:
+        x = F.pad(x, (0, 0, pw, pw, ph, ph))
     b, hp, wp, c = x.shape
     ho, wo = (hp - ksize) // stride + 1, (wp - ksize) // stride + 1
     taps = [x[:, i:i + stride * (ho - 1) + 1:stride, j:j + stride * (wo - 1) + 1:stride]

@@ -18,6 +18,9 @@ box positives) are summed over the ranks, all three scales' in one
 without a group).  A rank's loss and log terms are its own numerators over
 those divisors, so the ranks' terms add up to the global batch's.  The
 metric pairs stay this rank's sums; the eval step adds them over the ranks.
+``reduce`` (default ``all_reduce_sum``) is that sum: under a space group
+the loss is whole on every space rank, and its counts sum over the data
+group (``parallel/spatial.py::all_reduce_data``).
 """
 
 import numpy as np
@@ -63,9 +66,9 @@ class OrienMaskYOLOLoss:
         self.mesh_y = torch.arange(self.grid_h, dtype=torch.float32, device=self.device)[:, None]
         self._resize = {}  # orientation map (h, w) -> x4 upsample matrices
 
-    def __call__(self, predict, target, training=True, orien=None):
+    def __call__(self, predict, target, training=True, orien=None, reduce=all_reduce_sum):
         terms = self._local_terms(predict, target, training, orien)
-        return self._combine(terms, all_reduce_sum(terms["counts"]))
+        return self._combine(terms, reduce(terms["counts"]))
 
     def _combine(self, terms, counts):
         """The loss of ``_local_terms``' numerators over the global
@@ -258,7 +261,7 @@ class OrienMaskYOLOMultiScaleLoss:
         ga = self._global_anchor(gt_bbox, gt_valid)
         return self.painter(gt_bbox, ga, ga >= 0, gt_mask)
 
-    def __call__(self, predict, target, training=True):
+    def __call__(self, predict, target, training=True, reduce=all_reduce_sum):
         pos9, neg9, tor9 = self._paint_shared_batch(target["bbox"], target["valid"],
                                                     target["mask"])
         terms = []
@@ -272,7 +275,7 @@ class OrienMaskYOLOMultiScaleLoss:
                 orien_i = (pos9[:, ids], neg9[:, ids], tor9[:, ids])
             terms.append(sl._local_terms(predict[i], target, training, orien=orien_i))
         # every scale's counts over the ranks in one collective
-        counts = all_reduce_sum(torch.stack([t["counts"] for t in terms]))
+        counts = reduce(torch.stack([t["counts"] for t in terms]))
         loss_list, loss_log, metric_log = [], {}, {}
         for i, sl in enumerate(self.scale_losses):
             s_loss, s_loss_log, s_metric_log = sl._combine(terms[i], counts[i])

@@ -101,11 +101,11 @@ class OrienMaskYOLOPostProcess:
         """Selection top-k (kernel 1 on the card)."""
         return exact_topk(x, k)
 
-    def _assemble_masks(self, field, boxes, anchor_idx, valid):
+    def _assemble_masks(self, field, boxes, anchor_idx, valid, coord_h=None, row0=0):
         """Packed masks of the kept detections, empty for the invalid ones
-        (kernel 2 on the card)."""
+        (kernel 2 on the card); ``coord_h``/``row0`` for a row block."""
         return assemble_masks_packed(field, boxes, anchor_idx, self.norm_anchors,
-                                     self.orien_thresh, valid=valid)
+                                     self.orien_thresh, coord_h=coord_h, row0=row0, valid=valid)
 
     def _flat_scores(self, pred_bboxes):
         """(B, P) per-detection max score, reduced in each head's native
@@ -205,10 +205,12 @@ class OrienMaskYOLOPostProcess:
 
     # -------------------------------------------------------------- masks
 
-    def _upsample_orientation(self, pred_oriens):
+    def _upsample_orientation(self, pred_oriens, rows=None):
         """3x (B, H/4, W/4, 2A_s) -> (B, A_total, 2, H, W) in global anchor
         order, the mask kernel's layout.  The channel permutation runs before
-        the x4 bilinear upsample (two matmuls, along H then W)."""
+        the x4 bilinear upsample (two matmuls, along H then W).  ``rows``
+        (first row, rows): that row block of the output alone, from the
+        same rows of the upsample matrix."""
         x = torch.cat([o.permute(0, 3, 1, 2) for o in pred_oriens], dim=1)
         x = x.index_select(1, self.orien_channel_perm)
         h4, w4 = x.shape[-2:]
@@ -217,8 +219,10 @@ class OrienMaskYOLOPostProcess:
                                      self.device)
             self._resize[(h4, w4)] = (mh, mw.t().contiguous())
         mh, mw_t = self._resize[(h4, w4)]
+        if rows is not None:
+            mh = mh[rows[0]:rows[0] + rows[1]]
         up = torch.matmul(torch.matmul(mh, x), mw_t)
-        return up.reshape(x.shape[0], self.num_anchors_total, 2, self.image_h, self.image_w)
+        return up.reshape(x.shape[0], self.num_anchors_total, 2, mh.shape[0], self.image_w)
 
     def _run_batch(self, predict):
         """predict: 3x (bbox, orien) in the JAX layout -> device dict

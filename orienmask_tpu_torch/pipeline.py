@@ -8,12 +8,20 @@ turns the ConvBNLeaky convolutions into int8 ones (``models/quantize.py``).
 ``program`` is that call as a function of (folded weights, uint8 image):
 ``run_device`` runs it on ``self.folded``, and ``serving.export_pipeline``
 traces it with ``torch.export``, so live and served run the same code.
+
+``space`` (a ``parallel/spatial.py::SpaceGroup``) row-shards the forward
+over the ranks of a space group, every rank running the same calls on the
+same images (JAX ``mesh=``): the transform on the whole image, the folded
+forward on the rank's rows with its halos, the heads gathered whole on
+every rank; with ``spatial_masks`` the postprocess's image-resolution tail
+too (``run_batch_spatial``).  Every rank returns the whole outputs.
 """
 
 import torch
 
 from .device import resolve_device
 from .models.quantize import calibrate_folded, cast_kernels, quantize_folded
+from .parallel.spatial import run_batch_spatial, spatial_forward
 
 
 def folded_to_device(tree, device, dtype):
@@ -41,10 +49,16 @@ def folded_to_device(tree, device, dtype):
 
 class InferencePipeline:
     def __init__(self, model, transform, postprocess, compute_dtype="bfloat16",
-                 device=None):
+                 device=None, space=None, spatial_masks="auto"):
         """``model``: an OrienMask model (either variant) holding its weights (on the
         CPU is fine: only its folded copy moves to ``device``).
-        ``postprocess`` must live on the same device."""
+        ``postprocess`` must live on the same device.  ``space``: this
+        rank's ``SpaceGroup`` (``parallel/spatial.py::spatial_groups``), or
+        None for one device.  ``spatial_masks`` (with a space group of more
+        than one rank): ``"auto"`` row-shards the postprocess's tail where
+        the network height divides by ``n_space``, True requires it, False
+        runs the replicated ``_run_batch`` on the gathered heads (JAX
+        ``InferencePipeline(mesh=, spatial_masks=)``)."""
         self.device = resolve_device(device)
         if postprocess.device != self.device:
             raise ValueError(f"postprocess is on {postprocess.device}, "
@@ -55,6 +69,14 @@ class InferencePipeline:
         self.dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[compute_dtype]
         self.folded = folded_to_device(model.fold(), self.device, self.dtype)
         h, w = transform.size
+        self.space = space
+        self.spatial_masks = False
+        if space is not None and space.n_space > 1:
+            divides = h % space.n_space == 0
+            if spatial_masks is True and not divides:
+                raise ValueError(f"spatial_masks: network height {h} not divisible by "
+                                 f"n_space={space.n_space}")
+            self.spatial_masks = spatial_masks is True or (spatial_masks == "auto" and divides)
         # transform resizes to the exact network size; padding is a no-op
         self.pad_info = (0, 0, 0, 0, h, w)
 
@@ -78,7 +100,10 @@ class InferencePipeline:
     def _heads(self, folded, image):
         x = self.transform.apply(image.float())  # (B, h, w, 3) f32
         x = x.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
-        predict = self.model.apply_folded(folded, x, self.dtype)
+        if self.space is not None:
+            predict = spatial_forward(self.model, self.space, self.dtype)(folded, x)
+        else:
+            predict = self.model.apply_folded(folded, x, self.dtype)
         return tuple((b.permute(0, 2, 3, 1), o.permute(0, 2, 3, 1)) for b, o in predict)
 
     @torch.inference_mode()
@@ -92,8 +117,12 @@ class InferencePipeline:
         dict {'bbox', 'cls', 'mask', 'valid'} (JAX ``InferencePipeline
         ._make_run``): transform, folded forward, postprocess.  Its constants
         for an input shape (the transform's resize matrices, the orientation
-        upsample's) are built at its first eager call at that shape."""
-        return self.postprocess._run_batch(self._heads(folded, image))
+        upsample's) are built at its first eager call at that shape.  Under
+        a space group this rank's share of it (``parallel/spatial.py``)."""
+        predict = self._heads(folded, image)
+        if self.spatial_masks:
+            return run_batch_spatial(self.postprocess, self.space, predict)
+        return self.postprocess._run_batch(predict)
 
     @torch.inference_mode()
     def run_device(self, image):

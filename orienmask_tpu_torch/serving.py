@@ -109,7 +109,12 @@ def export_pipeline(pipeline, input_shapes, out_dir, platforms=None):
     input_shapes: (B, H, W, 3) uint8 input shapes, one program each.
     platforms: the device types the artifact runs on; only the pipeline's
       own device is supported (cross-platform artifacts: ROADMAP Queue 1
-      item 9's remainder)."""
+      item 9's remainder).  A spatial pipeline (``space=``) is refused, as
+      JAX's ``export_pipeline`` refuses a mesh: its program is one of a
+      group of ranks, whose collectives an artifact cannot hold."""
+    if getattr(pipeline, "space", None) is not None:
+        raise ValueError("export_pipeline: a spatial pipeline (space=...) cannot be exported; "
+                         "export the one-device pipeline")
     own = [pipeline.device.type]
     if platforms is not None and list(platforms) != own:
         raise ValueError(f"platforms {list(platforms)}: an artifact runs on the device it was "

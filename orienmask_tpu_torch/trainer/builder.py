@@ -5,14 +5,16 @@ A config block's ``type`` names a class of the port (``data``, ``ops``,
 ``optim``); its other keys are the constructor's arguments.  The
 optimizer's ``param_groups`` become per-parameter factors of ``SGD``
 (``optim/param_groups.py``) and the model's frozen stages its
-``freeze_mask``.  What is not ported is refused with a message, never
-trained as if unset: spatial training (ROADMAP Queue 1 item 10).  The
-port runs one process a device: the JAX package asserts that the mesh
-spans ``n_device`` devices, and here the process group must span
-``n_device`` ranks (one process and no group: 1), unless
+``freeze_mask``.  The port runs one process a device: the JAX package
+asserts that the mesh spans ``n_device`` devices, and here the process
+group must span ``n_device`` ranks (one process and no group: 1), unless
 ``ORIENMASK_ANY_DEVICES`` is set (then the ranks train at another scale:
 the batch is per device).  Each rank's loaders take its share of the data
-(the rank split of ``data/dataloader.py``).
+(the rank split of ``data/dataloader.py``).  With ``n_space > 1``
+(spatial training, ``parallel/spatial.py``) the ranks form ``n_space``-rank
+space groups: a rank's loaders are split by its data index, so the ranks
+of one space group load the same images (``batch_size`` of them, a data
+index's share), and each trains on its rows of them.
 """
 
 import copy
@@ -29,6 +31,7 @@ from ..device import resolve_device
 from ..models import init_random, load_pretrained_backbone
 from ..ops import loss as loss_module
 from ..ops import postprocess as postprocess_module
+from ..parallel.spatial import spatial_groups
 from ..utils.envs import get_device_rank, get_local_device_count, get_world_size
 from .checkpoint import load_checkpoint, load_state, read_checkpoint
 from .tester import Tester
@@ -124,8 +127,9 @@ def _freeze_mask(model):
     """One bool a parameter of ``model.parameters()`` (True: in a frozen
     backbone stage), or None when no stage is frozen."""
     backbone = model.backbone
-    frozen = {id(p) for name in backbone.frozen_stages()
-              for p in getattr(backbone, name).parameters()}
+    stage = getattr(backbone, "stage_parameters",
+                    lambda name: getattr(backbone, name).parameters())
+    frozen = {id(p) for name in backbone.frozen_stages() for p in stage(name)}
     return [id(p) in frozen for p in model.parameters()] if frozen else None
 
 
@@ -164,14 +168,21 @@ def build_trainer(config, resume=None, weights=None, device=None):
     device = resolve_device(device)
     random.seed(config["seed"])
     np.random.seed(config["seed"])
-    if int(config.get("n_space", 1)) > 1:
-        raise ValueError("n_space > 1 (spatial training) is not ported yet "
-                         "(ROADMAP Queue 1 item 10)")
     rank, world_size = get_device_rank(), get_world_size()
+    n_space = int(config.get("n_space", 1))
+    space = None
+    if n_space > 1:
+        if world_size % n_space:
+            raise ValueError(f"config n_space={n_space} (spatial training) must divide the "
+                             f"process group's {world_size} rank(s), one a device (launch "
+                             "--num-processes N)")
+        space = spatial_groups(n_space)
+        rank, world_size = space.data_index, space.n_data  # the loaders' split
     n_cfg = _n_devices(config)
-    if not os.environ.get("ORIENMASK_ANY_DEVICES") and world_size != n_cfg:
+    if not os.environ.get("ORIENMASK_ANY_DEVICES") and get_world_size() != n_cfg:
         raise ValueError(
-            f"config n_device={n_cfg} but the process group spans {world_size} device(s), "
+            f"config n_device={n_cfg} but the process group spans {get_world_size()} "
+            "device(s), "
             "one a rank (launch --num-processes N); set ORIENMASK_ANY_DEVICES=1 to train "
             "at a different scale (effective batch = batch_size x devices)")
 
@@ -188,7 +199,7 @@ def build_trainer(config, resume=None, weights=None, device=None):
     optimizer = build_optimizer(config["optimizer"], model)
     lr_scheduler = build_lr_scheduler(config["lr_scheduler"], config["optimizer"]["lr"])
     return Trainer(model, loss, optimizer, lr_scheduler, config, train_loader, val_loader,
-                   postprocess, device, resume=resume, weights=weights)
+                   postprocess, device, resume=resume, weights=weights, space=space)
 
 
 def build_tester(config, checkpoint, device=None):

@@ -22,12 +22,23 @@ gradients, so ``DistributedDataParallel``, whose hooks fire on ``.grad``
 accumulation and which averages, has no place here.  With
 ``accumulate > 1`` each microbatch's gradients are summed over the ranks
 before they are accumulated, as JAX's microbatches are global ones.
+
+Under a space group (``space``, ``parallel/spatial.py``; JAX
+``spatial_train_step``) a rank holds its data index's whole images and
+runs the forward on its rows of them, with the halos; the heads are
+gathered whole on every space rank with a backward that keeps the rank's
+own rows, the loss runs whole on every space rank with its divisors and
+logs summed over the data group (one rank of each data index), and the
+gradient sum stays over the world, which adds the space ranks' row shares.
+BatchNorm statistics sum over the world with the ranks' counts.
 """
+
 
 import torch
 
 from ..device import resolve_device
 from ..parallel.mesh import all_reduce_flat, shard_batch
+from ..parallel.spatial import all_reduce_data, shard_spatial_batch
 from ..utils.envs import all_reduce_sum, initialized
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -52,15 +63,15 @@ def unpack_target(batch):
 to_device = shard_batch  # a collated batch (numpy arrays or tensors) on a device
 
 
-def reduce_logs(logs):
+def reduce_logs(logs, reduce=all_reduce_sum):
     """A dict of device scalars (or pairs of them) summed over the ranks in
-    one ``all_reduce`` of their stacked vector; the dict itself without a
-    group."""
+    one ``all_reduce`` of their stacked vector (``reduce``); the dict itself
+    without a group."""
     if not initialized():
         return logs
     keys = list(logs)
     flat = [x for k in keys for x in (logs[k] if isinstance(logs[k], tuple) else (logs[k],))]
-    summed = iter(all_reduce_sum(torch.stack(
+    summed = iter(reduce(torch.stack(
         [torch.as_tensor(x, dtype=torch.float32, device=flat[0].device) for x in flat])))
     return {k: (tuple(next(summed) for _ in logs[k]) if isinstance(logs[k], tuple)
                 else next(summed)) for k in keys}
@@ -77,12 +88,31 @@ def _setup(model, loss_fn, compute_dtype, device):
     return device, dtype
 
 
+def _space_reduce(space):
+    """The sum over the ranks that the loss's counts and the logs take:
+    the data group under a space group, else the world."""
+    return all_reduce_sum if space is None else lambda t: all_reduce_data(t, space)
+
+
+def _forward(model, x, dtype, remat, space, full_h):
+    """The unfolded forward of ``x`` (B, 3, h, W); under ``space`` ``x`` is
+    this rank's rows of ``full_h`` and the heads (JAX layout, (B, h, w, C))
+    come back gathered whole."""
+    if space is None:
+        return model(x, dtype, remat=remat)
+    with space.active():
+        predict = model(x, dtype, remat=remat)
+    return tuple(tuple(space.gather_rows(t, full_h, dim=1) for t in pair) for pair in predict)
+
+
 def make_train_step(model, loss_fn, optimizer, accumulate=1, compute_dtype="float32",
-                    device=None, remat=False):
+                    device=None, remat=False, space=None):
     """Returns ``train_step(batch, lr, do_step=True) -> logs``.
 
     ``model`` moves to ``device`` (None: the card), channels_last there;
-    ``optimizer`` is an ``SGD`` over ``model.parameters()``.  ``lr`` is the
+    ``optimizer`` is an ``SGD`` over ``model.parameters()``.  ``space``:
+    this rank's ``SpaceGroup`` for spatial training (the batch holds its
+    data index's whole images; the step keeps its rows).  ``lr`` is the
     scheduled rate of this step.  ``do_step`` (a Python bool) applies the
     accumulated gradients when ``accumulate > 1``.  ``remat`` (the config
     key) rematerializes the backbone's stages (``models/darknet.py``): the
@@ -100,17 +130,22 @@ def make_train_step(model, loss_fn, optimizer, accumulate=1, compute_dtype="floa
         raise ValueError("the optimizer must hold model.parameters(), in order")
     buffers = list(model.buffers())
     grad_acc = [torch.zeros_like(p) for p in params] if accumulate > 1 else None
+    reduce = _space_reduce(space)
 
     def train_step(batch, lr, do_step=True):
         batch = shard_batch(batch, device)
+        full_h = batch["image"].shape[1]
+        if space is not None:
+            batch = shard_spatial_batch(batch, space)
         model.train()
         stats = [b.clone() for b in buffers]
         x = _image_f32(batch["image"]).permute(0, 3, 1, 2)  # NCHW view, channels_last
-        loss_sum, loss_log, _ = loss_fn(model(x, dtype, remat=remat), unpack_target(batch),
-                                        training=True)
+        predict = _forward(model, x, dtype, remat, space, full_h)
+        loss_sum, loss_log, _ = loss_fn(predict, unpack_target(batch), training=True,
+                                        reduce=reduce)
         grads = all_reduce_flat(torch.autograd.grad(loss_sum, params))
         logs = reduce_logs(dict({k: v.detach() for k, v in loss_log.items()},
-                                loss=loss_sum.detach()))
+                                loss=loss_sum.detach()), reduce)
         with torch.no_grad():
             finite = torch.stack([torch.isfinite(logs["loss"])]
                                  + [torch.isfinite(g).all() for g in grads]).all()
@@ -130,19 +165,23 @@ def make_train_step(model, loss_fn, optimizer, accumulate=1, compute_dtype="floa
     return train_step
 
 
-def make_eval_step(model, loss_fn, compute_dtype="float32", device=None):
+def make_eval_step(model, loss_fn, compute_dtype="float32", device=None, space=None):
     """Returns ``eval_step(batch) -> (heads, loss log, metric log)``: the
     forward with the running statistics and the loss with its metrics, the
-    logs summed over the ranks (one collective)."""
+    logs summed over the ranks (one collective).  Under a space group the
+    images are whole on every space rank (JAX evaluates them replicated
+    over space) and the sums run over the data group."""
     device, dtype = _setup(model, loss_fn, compute_dtype, device)
+    reduce = _space_reduce(space)
 
     @torch.no_grad()
     def eval_step(batch):
         batch = shard_batch(batch, device)
         model.eval()
         out = model(_image_f32(batch["image"]).permute(0, 3, 1, 2), dtype)
-        loss_sum, loss_log, metric_log = loss_fn(out, unpack_target(batch), training=False)
-        logs = reduce_logs(dict(loss_log, loss=loss_sum, **metric_log))
+        loss_sum, loss_log, metric_log = loss_fn(out, unpack_target(batch), training=False,
+                                                 reduce=reduce)
+        logs = reduce_logs(dict(loss_log, loss=loss_sum, **metric_log), reduce)
         return (out, {k: logs[k] for k in (*loss_log, "loss")},
                 {k: logs[k] for k in metric_log})
 

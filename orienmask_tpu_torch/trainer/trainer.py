@@ -23,6 +23,12 @@ postprocess on this rank's heads (kernels 1 and 2 on the card) and
 ``COCOMetrics.to_coco_format_device`` on its rows (kernel 6 recovers the
 masks where they lie); the other ranks' results reach rank 0 through JSON
 files after a barrier, and rank 0 scores them (``coco_eval``).
+
+Spatial training (``space``, ``parallel/spatial.py``): the train step
+runs each rank's rows of its data index's images; validation runs whole
+images on every space rank (JAX evaluates them replicated over space),
+its sums over the data group, and only space rank 0 of each data index
+adds to the COCO results.
 """
 
 import os
@@ -59,9 +65,10 @@ def _host(logs):
 
 class Trainer(BaseTrainer):
     def __init__(self, model, loss, optimizer, lr_scheduler, config, train_loader, val_loader,
-                 postprocess, device=None, resume=None, weights=None):
+                 postprocess, device=None, resume=None, weights=None, space=None):
         super().__init__(config, resume, weights)
         self.device = resolve_device(device)
+        self.space = space
         self.model = model
         self.loss = loss
         self.optimizer = optimizer
@@ -72,8 +79,9 @@ class Trainer(BaseTrainer):
         dtype = config.get("compute_dtype", "float32")
         self.train_step = make_train_step(model, loss, optimizer, accumulate=self.accumulate,
                                           compute_dtype=dtype, device=self.device,
-                                          remat=bool(config.get("remat", False)))
-        self.eval_step = make_eval_step(model, loss, dtype, self.device)
+                                          remat=bool(config.get("remat", False)),
+                                          space=space)
+        self.eval_step = make_eval_step(model, loss, dtype, self.device, space=space)
         self.coco_metrics = None
         if val_loader is not None and config.get("val_gt_file"):
             self.coco_metrics = COCOMetrics(
@@ -197,7 +205,8 @@ class Trainer(BaseTrainer):
                     counter.update(k, host[k])
             for k in metric_log:
                 counter.update(k, (host[f"{k}/0"], host[f"{k}/1"]))
-            if self.coco_metrics is not None and info is not None:
+            if self.coco_metrics is not None and info is not None \
+                    and (self.space is None or self.space.space_index == 0):
                 device_out = self.postprocess.apply_device(out)
                 self.coco_metrics.update_results(self.coco_metrics.to_coco_format_device(
                     info, device_out, self.postprocess.image_w))

@@ -147,7 +147,6 @@ def test_image_mode_prints_the_timer_report(inputs, capsys):
 @pytest.mark.parametrize("extra,message", [
     (["--video", "clip.mp4"], "cv2.VideoCapture"),
     (["--video", "frames", "-o", "out.mp4"], "cv2.VideoWriter"),
-    (["--spatial", "2"], "--spatial is not ported"),
 ])
 def test_refused_flags_exit_with_their_message(inputs, extra, message):
     torch.set_num_threads(1)
@@ -205,6 +204,52 @@ def test_spatial_0_and_1_dump_what_no_flag_dumps(inputs, no_flag_dump, tmp_path,
         name = f"{kind}_prediction.json"
         assert (tmp_path / name).read_bytes() == (no_flag_dump / name).read_bytes()
     assert json.loads((tmp_path / "bbox_prediction.json").read_text())
+
+
+def test_spatial_2_dumps_what_no_flag_dumps(inputs, tmp_path, capfd):
+    """--spatial 2 shards each image's rows over two spawned ranks (gloo on
+    the CPU), on the spread-logit weights: rank 0 alone prints and writes,
+    and its JSON files hold no flag's detections in no flag's order, boxes
+    to 1e-4 pixels and scores to 1e-6, as against the JAX CLI (measured 0
+    and 3.0e-7 over 400 detections: the row-sharded forward's heads differ
+    from the whole image's in the last bits), and the same masks' RLEs."""
+    dumps = {}
+    for name, extra in (("no_flag", []), ("spatial", ["--spatial", "2"])):
+        _run_main(_args(inputs, tmp_path / name) + extra)
+        dumps[name] = {kind: json.loads((tmp_path / name / f"{kind}_prediction.json").read_text())
+                       for kind in ("bbox", "segm")}
+    out = capfd.readouterr().out
+    assert out.count("The inference takes") == 2 and "2 ranks over gloo on the CPU" in out
+    assert sorted(p.name for p in (tmp_path / "spatial").iterdir()) == [
+        "bbox_prediction.json", "segm_prediction.json"]
+    want, got = dumps["no_flag"]["bbox"], dumps["spatial"]["bbox"]
+    assert len(got) == len(want) > 0
+    assert [(d["image_id"], d["category_id"]) for d in got] == \
+        [(d["image_id"], d["category_id"]) for d in want]
+    np.testing.assert_allclose([d["bbox"] for d in got], [d["bbox"] for d in want],
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose([d["score"] for d in got], [d["score"] for d in want],
+                               rtol=0, atol=1e-6)
+    assert [d["segmentation"] for d in dumps["spatial"]["segm"]] == \
+        [d["segmentation"] for d in dumps["no_flag"]["segm"]]
+
+
+def test_spatial_2_without_a_card_raises_before_spawning(inputs, monkeypatch):
+    """No fallback: --spatial 2 on the default device, with no card, raises
+    in this process before a rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer.main(["-c", str(inputs / "config.json"), "--random-weights", "-i", "x.png",
+                    "--spatial", "2"])
+
+
+def test_spatial_2_streams_a_frame_directory(inputs, frames, capfd):
+    """--video under --spatial 2: both ranks run the stream's loop, rank 0
+    alone reports."""
+    _run_main(["-c", str(inputs / "config.json"), "-w", str(inputs / "weights.ckpt"),
+               "--video", str(frames), "--stream-depth", "1", "--spatial", "2"])
+    out = capfd.readouterr().out
+    assert out.count("Streamed 3 frames (depth=1)") == 1
 
 
 @pytest.fixture(scope="module")

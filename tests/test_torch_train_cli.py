@@ -189,7 +189,8 @@ def test_clis_default_to_the_card(trained, monkeypatch):
 
 @pytest.mark.parametrize("updates,message", [
     ({"n_device": 2}, r"config n_device=2 but the process group spans 1 device\(s\)"),
-    ({"n_space": 2}, "spatial training"),
+    ({"n_space": 2}, r"n_space=2 \(spatial training\) must divide the process group's 1 "
+                     r"rank\(s\)"),
 ])
 def test_unported_options_are_refused(trained, tmp_path, updates, message):
     _, paths, _, _ = trained
