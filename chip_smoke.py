@@ -6,8 +6,8 @@ It needs one CUDA card and ``nvcc``; without a card it exits non-zero and
 prints no result.  Phases, in order (any failure raises and exits non-zero):
 
 1. build the hand-written kernels of ``orienmask_tpu_torch/csrc`` with nvcc
-   for sm_90a and the host libraries (``csrc/*.cc``: the JPEG scans, the
-   native host library ``omtpu``) with g++; print the card, the build time
+   for sm_90a and the host libraries (``csrc/*.cc``: the JPEG scans and
+   coder, TIFF's LZW codec, the native host library ``omtpu``) with g++; print the card, the build time
    and ptxas's registers, shared memory and spills for kernels 1–4 and 6;
 2. kernel 1 (exact top-k) against its plain version on the card: values and
    indices bit-identical on every case, each with its launch plan (C, chunk),
@@ -102,8 +102,9 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    outputs identical to the plain-version postprocess on its heads, kernel 1
    twice and kernel 2 once an image (kernel 6 once with -j), the JSONs'
    entry counts and their identity with the host route's, every written
-   PNG identical to the port's visualizer on the plain-version host list
-   under the same ``random.seed``; a host list with spread scores drawn too
+   file (JPEG under each input's name, ``frame_%06d.jpg``) the bytes
+   ``write_image`` writes for the port's visualizer on the plain-version
+   host list under the same ``random.seed``; a host list with spread scores drawn too
    (random weights put nothing above conf_thresh 0.3); the reports' Load
    data, Forward & Postprocess and Visualize ms an image;
 16. kernel 6 (mask recovery, ``csrc/recover.cu``) against its plain version
@@ -207,7 +208,25 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    process at phase 18's tolerances, then the train CLI with ``n_space=2``
    for one epoch on phase 17's kind of dataset (launches: kernel 5 on both
    ranks, kernels 1, 2 and 6 on space rank 0 alone); (f) resnet50 at 544²
-   on the card against its CPU forward.
+   on the card against its CPU forward;
+23. image files in and out, and the train resizes: (a) the infer CLI at
+   544² (full width, seeded random weights) with -v -o over a directory of
+   a JPEG, a PNG, a 24-bit BMP and an LZW TIFF with the predictor written
+   by the port's writers and the committed RLE8 BMP, PackBits TIFF and
+   tiled Deflate TIFF of ``tests/image_fixtures``, then --video -o over it:
+   every output under its input's name and in its format (``frame_%06d.jpg``
+   for --video), read back by the port's readers and equal to the bytes
+   ``write_image`` writes for the visualizer on the plain-version host
+   list, kernel 1 twice and kernel 2 once an image, every image's device
+   outputs identical to the plain-version postprocess on its heads; (b) on
+   the host, the C++ Huffman coder against the plain one byte for byte on
+   six sizes that are not whole MCUs, colour and grey, at qualities 75, 95
+   and 98, the C++ LZW codec against the plain one, and the ms of a 480x640
+   JPEG encode and decode, BMP write and read, TIFF write and read; (c)
+   ``COCODataset`` over the port's mini dataset (8 scenes) through the
+   published train transform with its Resize at area, cubic and lanczos4
+   in turn, one B = 8 train step at full width for each: a finite loss,
+   kernel 5 launched once and equal to its plain version on the batch.
 
 Each phase's first line gives the seconds since the script's start.  The
 last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
@@ -215,7 +234,7 @@ last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``dp_train_544_b8x2``, ``train_options_544_b8``, ``int8_544``,
 ``serving_544``, ``spatial_544``);
 ``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
-"depth2": ..., "staged_fps": ...}, "jpeg": {...}}``; the card's name and
+"depth2": ..., "staged_fps": ...}, "jpeg": {...}, "image_files": {...}}``; the card's name and
 power limit; the kernels' JSON record: every kernel carries per-path launch
 counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
 jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
@@ -224,7 +243,8 @@ and dp_test, kernel 5 dp_train, both ranks' counts summed; kernel 5 remat,
 train_options and options_cli; kernels 1 and 2 int8, serving and
 serving_int8, and with kernel 6 accuracy_f32, accuracy_bf16 and
 accuracy_int8; kernels 1 and 2 spatial and spatial_int8, kernel 5
-spatial_train, kernels 5, 1, 2 and 6 spatial_train_cli), kernels 1 and
+spatial_train, kernels 5, 1, 2 and 6 spatial_train_cli; kernels 1 and 2
+image_files_cli and image_files_video, kernel 5 train_resizes), kernels 1 and
 2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
 kernel 6 phase 16's cases; the last line is ``{"ok": true, "device":
 {...}}``.  ``--profile DIR`` also writes
@@ -2182,11 +2202,12 @@ def report_ms(lines):
 
 
 def check_drawings(name, out_dir, written, wants, plain, paths, config, seed):
-    """Each PNG the CLI wrote equals the port's visualizer drawing the
+    """Each file the CLI wrote holds the bytes ``write_image`` writes, in
+    the format of its name, for the port's visualizer drawing the
     plain-version host list of the same image under the same seed."""
     import random
 
-    from orienmask_tpu_torch.data.image_io import read_image
+    from orienmask_tpu_torch.data.image_io import encode_image, read_image
     from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer
 
     vis = InferenceVisualizer(**_kw(config["visualizer"]))
@@ -2198,11 +2219,12 @@ def check_drawings(name, out_dir, written, wants, plain, paths, config, seed):
         host = plain.to_host_list(want)[0]
         drawn += int((host["bbox"][:, 4] > vis.conf_thresh).sum())
         expected = vis(host, read_image(path).astype(np.float32), pad_info)
-        if not np.array_equal(read_image(out_dir / out), expected):
+        if (out_dir / out).read_bytes() != encode_image(os.path.splitext(out)[1], expected):
             raise AssertionError(f"{name}: {out} differs from the visualizer on the "
                                  "plain-version host list")
-    log(f"  {name}: {len(written)} PNGs identical to the visualizer on the plain-version "
-        f"host lists ({drawn} detections above conf_thresh {vis.conf_thresh})")
+    log(f"  {name}: {len(written)} files identical to the visualizer on the plain-version "
+        f"host lists, each in its name's format ({drawn} detections above conf_thresh "
+        f"{vis.conf_thresh})")
     return vis, pad_info
 
 
@@ -2265,7 +2287,9 @@ def check_jpeg_cli(workdir):
         f"{launched}; report: " + "; ".join(lines))
     expect("-v -o", calls, launched, n)
     plain, wants = check_against_plain("-v -o", calls, _kw(config["postprocess"]), 544)
-    written = [os.path.splitext(p)[0] + ".png" for p in names]
+    written = sorted(p.name for p in out.iterdir())
+    if written != names:
+        raise AssertionError(f"-v -o wrote {written} for {names}")
     vis, pad_info = check_drawings("-v -o", out, written, wants, plain, paths, config, SEED)
     reports["visualize"] = report_ms(lines)
 
@@ -2309,7 +2333,7 @@ def check_jpeg_cli(workdir):
                 if not np.array_equal(got_r[key], want_r[key]):
                     raise AssertionError(f"--video -o: the streamed host '{key}' differs")
     written = sorted(p.name for p in out.iterdir())
-    if written != [f"frame_{i:06d}.png" for i in range(n)]:
+    if written != [f"frame_{i:06d}.jpg" for i in range(n)]:
         raise AssertionError(f"--video -o wrote {written}")
     check_drawings("--video -o", out, written, wants, plain, paths, config, SEED + 1)
     stream_line = [ln for ln in lines if ln.startswith("The average streaming time")]
@@ -4371,6 +4395,223 @@ def check_spatial(workdir):
 
 # ------------------------------------------------------------------- main
 
+# ---------------------------------------------------- image files (phase 23)
+
+IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "image_fixtures"
+# the encoded sizes and qualities (b) holds the native coder to the plain one at:
+# none a whole number of 16x16 MCUs, and grey
+CODER_SIZES = ((1, 1), (7, 9), (17, 33), (9, 40), (31, 17), (23, 57))
+CODER_QUALITIES = (75, 95, 98)
+CODEC_REPEATS = 5
+RESIZE_IMAGES = 8  # one B = 8 train step an interpolation
+
+
+def image_files_inputs(workdir):
+    """Phase 23 (a)'s directory: the committed RLE8 BMP, PackBits TIFF and
+    tiled Deflate TIFF, and a JPEG, a PNG, a 24-bit BMP and an LZW TIFF with
+    the predictor written by the port's writers from those fixtures' pixels."""
+    from orienmask_tpu_torch.data.image_io import read_image, write_image
+
+    images = workdir / "image_files"
+    images.mkdir()
+    sources = {}
+    for name, fixture in (("d_rle8.bmp", "rle8.bmp"), ("f_packbits.tif", "packbits.tif"),
+                          ("g_tiled_deflate.tif", "tiled_deflate.tif")):
+        (images / name).write_bytes((IMAGE_FIXTURES / fixture).read_bytes())
+        sources[fixture] = read_image(IMAGE_FIXTURES / fixture)
+    for name, pixels in (("a_writer.jpg", sources["rle8.bmp"]),
+                         ("b_writer.png", sources["packbits.tif"]),
+                         ("c_writer_24bit.bmp", sources["tiled_deflate.tif"]),
+                         ("e_writer_lzw_predictor.tif", sources["rle8.bmp"][::-1].copy())):
+        write_image(images / name, pixels)
+    return images
+
+
+MAGIC = {".jpg": b"\xff\xd8\xff", ".png": b"\x89PNG", ".bmp": b"BM", ".tif": b"II*\x00"}
+
+
+def check_image_files_cli(workdir):
+    """Phase 23 (a): the infer CLI on the card at 544² (the full-width
+    model, seeded random weights) with -v -o over a directory of JPEG, PNG,
+    BMP (24-bit and RLE8) and TIFF (LZW with the predictor, PackBits, tiled
+    Deflate) files, then --video -o over the same directory: each output
+    under its input's name and in its format, read back by the port, the
+    bytes ``write_image`` writes for the visualizer's drawing of the
+    plain-version host list; kernel 1 twice and kernel 2 once an image, the
+    device outputs identical to the plain-version postprocess on the same
+    heads; --video writes frame_%06d.jpg."""
+    import random
+
+    import orienmask_tpu_torch.config as configs
+    from orienmask_tpu_torch.data.image_io import image_names, read_image
+
+    images = image_files_inputs(workdir)
+    names = image_names(images)
+    paths = [images / n for n in names]
+    n = len(names)
+    name = "orienmask_yolo_coco_544_anchor4_fpn_plus_infer"
+    config = getattr(configs, name)
+    counts = {}
+    for tag, argv, written in (
+            ("-v -o", ["-d", str(images), "-v"], names),
+            ("--video -o", ["--video", str(images)], [f"frame_{i:06d}.jpg" for i in range(n)])):
+        out = workdir / ("drawn" if tag == "-v -o" else "frames")
+        random.seed(SEED + 23)
+        t = time.perf_counter()
+        lines, calls, _, launched, _ = run_cli(["-c", name, "--random-weights", *argv,
+                                                "-o", str(out)])
+        log(f"  {tag}: {len(calls)} images in {time.perf_counter() - t:.2f} s (model build "
+            f"included), launches: {launched}; report: " + "; ".join(lines))
+        if len(calls) != n or launched["exact_topk"] != 2 * n \
+                or launched["assemble_masks_packed"] != n:
+            raise AssertionError(f"{tag}: expected {n} images, kernel 1 twice and kernel 2 "
+                                 f"once an image; got {len(calls)}, {launched}")
+        got = sorted(p.name for p in out.iterdir())
+        if got != written:
+            raise AssertionError(f"{tag} wrote {got}, expected {written}")
+        for file in written:
+            data = (out / file).read_bytes()
+            if not data.startswith(MAGIC[os.path.splitext(file)[1]]):
+                raise AssertionError(f"{tag}: {file} is not in its name's format")
+            read_image(out / file)
+        plain, wants = check_against_plain(tag, calls, _kw(config["postprocess"]), 544)
+        check_drawings(tag, out, written, wants, plain, paths, config, SEED + 23)
+        counts[tag] = launched
+    log(f"  inputs: {', '.join(names)}; every output under its input's name (--video: "
+        f"frame_%06d.jpg), in its format, read back by the port's readers")
+    return counts
+
+
+def median_ms(fn, n=CODEC_REPEATS):
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(times))
+
+
+def check_codecs():
+    """Phase 23 (b): on the card's host, the C++ Huffman coder against the
+    plain Python coder, byte for byte, at ``CODER_SIZES`` in colour and grey
+    at ``CODER_QUALITIES``; the C++ LZW codec against the plain one; then
+    the host ms (median of ``CODEC_REPEATS``) of a 480x640 JPEG encode and
+    decode, BMP write and read and TIFF write and read."""
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.data import bmp, jpeg, jpeg_encode, tiff
+    from orienmask_tpu_torch.utils.mini_dataset import make_scene
+
+    t = time.perf_counter()
+    kernels.host_library("jpeg_host")
+    build_s = time.perf_counter() - t
+    rng = np.random.default_rng(SEED + 23)
+    checked = 0
+    for h, w in CODER_SIZES:
+        if h % 16 == 0 and w % 16 == 0:
+            raise AssertionError(f"{h}x{w} is a whole number of MCUs")
+        image = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        for grey in (False, True):
+            pixels = image[..., 0] if grey else image
+            for quality in CODER_QUALITIES:
+                coefs, comps, _ = jpeg_encode.component_blocks(pixels, quality)
+                ncomp = 1 if grey else 3
+                if jpeg_encode.encode_blocks_native(coefs, comps, ncomp) != \
+                        jpeg_encode.encode_blocks_py(coefs, comps, ncomp):
+                    raise AssertionError(f"the C++ Huffman coder differs from the plain one at "
+                                         f"{h}x{w}, grey={grey}, quality {quality}")
+                checked += 1
+    data = rng.integers(0, 4, 100_000, dtype=np.uint8).tobytes()
+    if tiff.lzw_encode_native(data) != tiff.lzw_encode(data) or \
+            tiff.lzw_decode_native(tiff.lzw_encode(data), len(data)) != data:
+        raise AssertionError("the C++ LZW codec differs from the plain one")
+    log(f"  the C++ Huffman coder gives the plain coder's bytes on {checked} cases "
+        f"({len(CODER_SIZES)} sizes, none whole MCUs, colour and grey, qualities "
+        f"{CODER_QUALITIES}); the C++ LZW codec the plain one's (host libraries ready in "
+        f"{build_s:.2f} s)")
+
+    image, _ = make_scene(np.random.default_rng(SEED + 23), 480, 640, 0, 80, 1)
+    encoded = {"jpeg": jpeg_encode.encode(image), "bmp": bmp.encode(image),
+               "tiff": tiff.encode(image)}
+    for kind, decode in (("jpeg", jpeg.decode), ("bmp", bmp.decode), ("tiff", tiff.decode)):
+        back = decode(encoded[kind])
+        if kind != "jpeg" and not np.array_equal(back, image):
+            raise AssertionError(f"the {kind} file does not read back to its pixels")
+    ms = {"jpeg_encode": median_ms(lambda: jpeg_encode.encode(image)),
+          "jpeg_decode": median_ms(lambda: jpeg.decode(encoded["jpeg"])),
+          "bmp_write": median_ms(lambda: bmp.encode(image)),
+          "bmp_read": median_ms(lambda: bmp.decode(encoded["bmp"])),
+          "tiff_write": median_ms(lambda: tiff.encode(image)),
+          "tiff_read": median_ms(lambda: tiff.decode(encoded["tiff"]))}
+    log("  host ms a 480x640 image (median of " + f"{CODEC_REPEATS}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()) + f"; bytes: " + ", ".join(
+        f"{k} {len(v)}" for k, v in encoded.items()) + f"; card: {card_line()}")
+    return {"coder_cases": checked, "host_ms_480x640": ms,
+            "bytes_480x640": {k: len(v) for k, v in encoded.items()}}
+
+
+def check_train_resizes(workdir):
+    """Phase 23 (c): ``COCODataset`` over the port's mini dataset through
+    the published train transform with its Resize at ``area``, ``cubic``
+    and ``lanczos4`` in turn, collated to B = 8, then one train step on the
+    card at full width for each: a finite loss, kernel 5 launched once and
+    equal to its plain version on the batch's painter inputs."""
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.data import collate
+    from orienmask_tpu_torch.data.dataset import COCODataset
+    from orienmask_tpu_torch.ops import targets
+    from orienmask_tpu_torch.trainer.builder import build_transform
+    from orienmask_tpu_torch.trainer.train_state import to_device
+    from orienmask_tpu_torch.utils.mini_dataset import write_mini_dataset
+
+    t = time.perf_counter()
+    paths = write_mini_dataset(workdir / "resize_data", RESIZE_IMAGES, FILES_SIZES, seed=SEED)
+    tp = TrainPath()
+    log(f"  dataset of {RESIZE_IMAGES} scenes and the full-width train path set up in "
+        f"{time.perf_counter() - t:.2f} s")
+    loader = tp.cfg["train_loader"]
+    painter = tp.loss.painter
+    counts, err, out = {}, 0.0, {}
+    for name in ("area", "cubic", "lanczos4"):
+        cfg = copy.deepcopy(loader["transform"])
+        for step in cfg["pipeline"]:
+            if step["type"] == "Resize":
+                step["interpolation"] = name
+        transform = build_transform(cfg)
+        dataset = COCODataset(paths["list_file"], paths["image_dir"], paths["anno_file"],
+                              transform)
+        t = time.perf_counter()
+        samples = []
+        for i in range(RESIZE_IMAGES):
+            transform.reseed(SEED + i)
+            samples.append(dataset[i])
+        host_ms = 1e3 * (time.perf_counter() - t) / RESIZE_IMAGES
+        batch = to_device(collate(samples, max_instances=loader["max_instances"],
+                                  pack_masks=loader["pack_masks"]), "cuda")
+        painted = []
+        with mock.patch.object(targets, "paint_orientation",
+                               lambda geom, n_last, masks, *rest: painted.append(
+                                   (geom.clone(), n_last.clone(), masks.clone()))):
+            tp.loss._paint_shared_batch(batch["bbox"], batch["valid"], batch["mask"])
+        err = max(err, check_paint_case(f"{name}'s batch", *painted[0], painter.pixel_anchors,
+                                        (painter.image_h, painter.image_w)))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        logs = tp.step(batch=batch)
+        torch.cuda.synchronize()
+        launched = dict(kernels.launches)
+        loss = float(logs["loss"])
+        if not np.isfinite(loss) or launched["paint_orientation"] != 1:
+            raise AssertionError(f"{name}: loss {loss}, launches {launched}")
+        counts[name] = launched
+        out[name] = {"loss": loss, "host_ms_an_image": host_ms,
+                     "instances": int(batch["valid"].sum())}
+        log(f"  {name}: {RESIZE_IMAGES} samples through the train transform at "
+            f"{host_ms:.1f} ms an image on the host; one B = {RESIZE_IMAGES} step, loss "
+            f"{loss:.4f}, launches {launched}")
+    del tp
+    return counts, err, out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="also write a torch.profiler table")
@@ -4490,6 +4731,16 @@ def main(argv=None):
         "each image over both; inference, int8, the train step and CLIs; resnet50")
     with tempfile.TemporaryDirectory() as workdir:
         spatial_counts, spatial_544 = check_spatial(Path(workdir))
+    header("[23] image files in and out, the train resizes: the infer CLI over JPEG, PNG, BMP "
+           "and TIFF (-v -o, --video -o), the codecs on the host, area/cubic/lanczos4 steps")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        files_cli_counts = check_image_files_cli(Path(workdir))
+        codecs = check_codecs()
+        resize_counts, resize_paint_err, resizes = check_train_resizes(Path(workdir))
+    image_files = {"codecs": codecs, "train_resizes": resizes,
+                   "phase_s": time.perf_counter() - t}
+    log(f"  phase 23 in {image_files['phase_s']:.1f} s; card: {card_line()}")
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -4509,12 +4760,17 @@ def main(argv=None):
     paths["paint_orientation"] = {"train": train_counts["paint_orientation"]}
     for name in ("assemble_masks", "assemble_masks_bitpacked"):
         paths[name] = {"validation": per_det_counts[name]}
+    for name in ("exact_topk", "assemble_masks_packed"):  # phase 23 (a)
+        paths[name]["image_files_cli"] = files_cli_counts["-v -o"][name]
+        paths[name]["image_files_video"] = files_cli_counts["--video -o"][name]
     for name in paths:  # phase 17's CLIs, each kernel's count around each
         for cli, launched in files_counts.items():
             paths[name][cli] = launched[name]
     for path, launched in dp_counts.items():  # phase 18's, both ranks' counts summed
         for name, n in launched.items():
             paths[name][path] = n
+    paths["paint_orientation"]["train_resizes"] = sum(
+        c["paint_orientation"] for c in resize_counts.values())  # phase 23 (c)
     # phases 19, 20, 21 and 22's
     for path, launched in {**options_counts, **int8_counts, **serving_counts,
                            **spatial_counts}.items():
@@ -4548,7 +4804,8 @@ def main(argv=None):
              replaces="orienmask_tpu/ops/pallas_paint.py:149",
              launches=sum(paths["paint_orientation"].values()),
              paths=paths["paint_orientation"],
-             max_abs_err=max(paint_err, files_paint_err, dp_paint_err, options_paint_err),
+             max_abs_err=max(paint_err, files_paint_err, dp_paint_err, options_paint_err,
+                             resize_paint_err),
              **times["paint_orientation"]),
         dict(name="recover_masks", route="cuda", source="orienmask_tpu_torch/csrc/recover.cu",
              replaces="orienmask_tpu/eval/coco_eval.py:147",
@@ -4563,7 +4820,7 @@ def main(argv=None):
                     "dp_train_544_b8x2": dp_train, "train_options_544_b8": options,
                     "int8_544": int8, "serving_544": serving, "spatial_544": spatial_544}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
-                    "stream_736": stream_fps, "jpeg": jpeg}))
+                    "stream_736": stream_fps, "jpeg": jpeg, "image_files": image_files}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 // Entropy decoder of one JPEG scan (Huffman, sequential or progressive):
 // the host-side counterpart of data/jpeg.py::decode_scan_py, which is its
-// spec.  It turns one scan's entropy-coded bytes (byte stuffing and RSTn
+// spec; and the entropy coder of the writer's one sequential scan, the
+// counterpart of data/jpeg_encode.py::encode_blocks_py.  It turns one scan's entropy-coded bytes (byte stuffing and RSTn
 // markers included) into the quantized coefficient blocks of the scan's
 // components, in place: the blocks are the progressive state that later
 // scans refine.  Plain C++ with a C interface, built with the host compiler
@@ -277,6 +278,43 @@ int decode_block(Reader& r, const Component& c, int by, int bx, const Huffman* t
   return decode_ac_refine(r, block, ac, sc);
 }
 
+// The writer's bit buffer: bits go in MSB first; each whole byte goes out,
+// followed by a stuffed 0x00 where it is 0xFF (jchuff.c's emit_bits).
+struct Writer {
+  uint8_t* out;
+  int64_t cap, n = 0;
+  uint64_t buf = 0;
+  int nbits = 0;
+  bool full = false;
+
+  void put_byte(uint8_t b) {
+    if (n + 2 > cap) {
+      full = true;
+      return;
+    }
+    out[n++] = b;
+    if (b == 0xFF) out[n++] = 0;
+  }
+
+  void put(uint32_t value, int size) {
+    buf = (buf << size) | (value & ((1u << size) - 1));
+    nbits += size;
+    while (nbits >= 8) {
+      nbits -= 8;
+      put_byte(static_cast<uint8_t>(buf >> nbits));
+    }
+  }
+
+  // the last byte padded with 1-bits
+  void flush() { put(0x7F, 7 - ((nbits + 7) % 8)); }
+};
+
+inline int magnitude_bits(int v) {
+  int n = 0;
+  for (unsigned a = static_cast<unsigned>(v < 0 ? -v : v); a; a >>= 1) ++n;
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -341,6 +379,53 @@ int omj_decode_scan(const uint8_t* seg, int64_t n, int16_t* coefs, const int64_t
     if (err) return err;
   }
   return r.overran() ? kTruncated : kOk;
+}
+
+// blocks: n quantized blocks of 64 coefficients (natural order) in MCU
+// order; comp[b]: block b's component; tables[2 * c], tables[2 * c + 1]:
+// component c's DC and AC table; codes, sizes: 8 tables (DC 0-3, AC 0-3)
+// of 256 codes and their lengths.  Writes the scan's bytes to out (cap
+// bytes) and returns their number, or -1 where cap is too small, -2 where
+// a coefficient needs more than 11 bits (a DC difference more than 12).
+int64_t omj_encode_blocks(const int16_t* blocks, int64_t n, const uint8_t* comp,
+                          const int32_t* tables, int ncomp, const uint32_t* codes,
+                          const uint8_t* sizes, uint8_t* out, int64_t cap) {
+  Writer w{out, cap};
+  int last_dc[4] = {0, 0, 0, 0};
+  for (int64_t b = 0; b < n; ++b) {
+    const int16_t* block = blocks + 64 * b;
+    int c = comp[b];
+    if (c >= ncomp) return -2;
+    const uint32_t* dc_code = codes + 256 * tables[2 * c];
+    const uint8_t* dc_size = sizes + 256 * tables[2 * c];
+    const uint32_t* ac_code = codes + 256 * (4 + tables[2 * c + 1]);
+    const uint8_t* ac_size = sizes + 256 * (4 + tables[2 * c + 1]);
+    int diff = block[0] - last_dc[c];
+    last_dc[c] = block[0];
+    int nbits = magnitude_bits(diff);
+    if (nbits > 11 + 1) return -2;
+    w.put(dc_code[nbits], dc_size[nbits]);
+    if (nbits) w.put(static_cast<uint32_t>(diff < 0 ? diff - 1 : diff), nbits);
+    int run = 0;
+    for (int k = 1; k < 64; ++k) {
+      int v = block[kNatural[k]];
+      if (v == 0) {
+        ++run;
+        continue;
+      }
+      for (; run > 15; run -= 16) w.put(ac_code[0xF0], ac_size[0xF0]);
+      nbits = magnitude_bits(v);
+      if (nbits > 11) return -2;
+      int symbol = (run << 4) + nbits;
+      w.put(ac_code[symbol], ac_size[symbol]);
+      w.put(static_cast<uint32_t>(v < 0 ? v - 1 : v), nbits);
+      run = 0;
+    }
+    if (run) w.put(ac_code[0], ac_size[0]);
+    if (w.full) return -1;
+  }
+  w.flush();
+  return w.full ? -1 : w.n;
 }
 
 const char* omj_error_string(int err) {

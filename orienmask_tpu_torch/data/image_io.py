@@ -1,5 +1,6 @@
 """Image files without cv2 or PIL: the port's replacement for the JAX CLI's
-``cv2.imread`` + ``cvtColor`` and ``cv2.VideoCapture`` (``infer.py``).
+and datasets' ``cv2.imread`` + ``cvtColor``, ``cv2.imwrite`` and
+``cv2.VideoCapture`` (``infer.py``, ``data/dataset.py``).
 
 Reads, as (H, W, 3) uint8 RGB, what ``cv2.imread(IMREAD_COLOR)`` gives:
 
@@ -11,14 +12,26 @@ Reads, as (H, W, 3) uint8 RGB, what ``cv2.imread(IMREAD_COLOR)`` gives:
   decoded with ``zlib``;
 * JPEG, through ``data/jpeg.py`` (baseline, extended and progressive
   Huffman, 8-bit, 1 or 3 components, EXIF orientation applied);
+* BMP, through ``data/bmp.py`` (1-, 4- and 8-bit palette images, RLE4 and
+  RLE8, 16-bit 5-5-5 and 5-6-5, 24 and 32 bits, either row order, OS/2
+  core headers);
+* TIFF, through ``data/tiff.py`` (the first page: strips or tiles, chunky
+  or planar, uncompressed, PackBits, LZW or Deflate, the horizontal
+  predictor, grey, RGB and palette images at 1-16 bits, alpha dropped as
+  libtiff drops it);
 * binary PPM (P6, maxval 255);
 * ``.npy`` arrays of shape (H, W, 3) and dtype uint8.
 
-Anything else (BMP, TIFF, WebP, a video file, the JPEG forms ``data/jpeg.py``
-refuses) is refused with ``UnsupportedImage``, whose message names the form
-and what is read.  Nothing tries another decoder.  ``write_png`` writes
-(H, W, 3) uint8 arrays; a directory of readable files, sorted, is a video
-source (``frame_paths``).  Directories are filtered by ``IMAGE_EXTENSIONS``.
+Anything else (WebP, a video file, the JPEG, BMP and TIFF forms those
+modules refuse) is refused with ``UnsupportedImage``, whose message names
+the form and what is read.  Nothing tries another decoder.
+
+``write_image`` writes (H, W, 3) uint8 RGB arrays as ``cv2.imwrite``
+writes them, the format chosen by the extension: JPEG (``data/
+jpeg_encode.py``, cv2's bytes at quality 95), PNG (``write_png``), BMP
+(cv2's bytes), TIFF (LZW, as cv2 writes it) or PPM (P6).  A directory of
+readable files, sorted, is a video source (``frame_paths``).  Directories
+are filtered by ``IMAGE_EXTENSIONS``.
 """
 
 import os
@@ -27,16 +40,21 @@ import zlib
 
 import numpy as np
 
+from . import bmp, jpeg_encode, tiff
 from .jpeg import UnsupportedJpeg
 from .jpeg import decode as decode_jpeg
 
 READABLE = ("PNG (every colour type and bit depth, interlaced or not), JPEG (baseline, "
-            "extended or progressive Huffman, 8-bit, 1 or 3 components), binary PPM (P6) "
-            "and .npy (H, W, 3) uint8")
+            "extended or progressive Huffman, 8-bit, 1 or 3 components), BMP (palette, RLE4, "
+            "RLE8, 16, 24 and 32 bits), TIFF (uncompressed, PackBits, LZW or Deflate; grey, "
+            "RGB or palette), binary PPM (P6) and .npy (H, W, 3) uint8")
 # What a directory of images or frames is filtered to: the JAX CLI's image
-# extensions and the port's own.  BMP, TIFF and WebP among them are refused
-# when read.
+# extensions and the port's own.  WebP among them is refused when read.
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp", ".ppm", ".npy")
+# write_image: extension -> encoder of (H, W, 3) uint8 RGB to bytes, as
+# cv2.imwrite chooses it
+WRITERS = {".jpg": jpeg_encode.encode, ".jpeg": jpeg_encode.encode, ".bmp": bmp.encode,
+           ".tif": tiff.encode, ".tiff": tiff.encode}
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -44,15 +62,14 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
 # files refused by name, by their first bytes
-_REFUSED_MAGIC = ((b"BM", 0, "a BMP file"), (b"II*\x00", 0, "a TIFF file"),
-                  (b"MM\x00*", 0, "a TIFF file"), (b"WEBP", 8, "a WebP file"),
-                  (b"ftyp", 4, "a video file"), (b"AVI ", 8, "a video file"))
+_REFUSED_MAGIC = ((b"WEBP", 8, "a WebP file"), (b"ftyp", 4, "a video file"),
+                  (b"AVI ", 8, "a video file"))
 
 
 class UnsupportedImage(ValueError):
     def __init__(self, path, why):
         super().__init__(f"cannot read {path}: {why}; this build reads {READABLE} only "
-                         "(ROADMAP Queue 1, 'What the infer CLI still refuses')")
+                         "(ROADMAP Queue 1 item 1, 'What the infer CLI still refuses')")
 
 
 def read_image(path):
@@ -71,6 +88,16 @@ def read_image(path):
         try:
             return decode_jpeg(data)
         except UnsupportedJpeg as e:
+            raise UnsupportedImage(path, str(e)) from None
+    if data[:2] == b"BM":
+        try:
+            return bmp.decode(data)
+        except bmp.UnsupportedBmp as e:
+            raise UnsupportedImage(path, str(e)) from None
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        try:
+            return tiff.decode(data)
+        except tiff.UnsupportedTiff as e:
             raise UnsupportedImage(path, str(e)) from None
     for magic, at, what in _REFUSED_MAGIC:
         if data[at:at + len(magic)] == magic:
@@ -232,12 +259,13 @@ def _unfilter_sequential(line, prev, bpp, kind):
     return np.frombuffer(bytes(cur), np.uint8)
 
 
-def write_png(path, image):
-    """Write an (H, W, 3) uint8 RGB array as an 8-bit PNG (filter type 0 on
-    every row, fast zlib compression)."""
+def png_bytes(image):
+    """An 8-bit RGB PNG of (H, W, 3) uint8 ``image`` (filter type 0 on every
+    row, fast zlib compression)."""
     image = np.asarray(image)
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
-        raise ValueError(f"write_png takes (H, W, 3) uint8, got {image.dtype} {image.shape}")
+        raise ValueError(f"the PNG writer takes (H, W, 3) uint8, got {image.dtype} "
+                         f"{image.shape}")
     height, width = image.shape[:2]
     body = np.concatenate([np.zeros((height, 1), np.uint8), image.reshape(height, -1)], axis=1)
 
@@ -246,6 +274,38 @@ def write_png(path, image):
                 + struct.pack(">I", zlib.crc32(kind + payload)))
 
     ihdr = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    return (_PNG_SIGNATURE + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(body.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_png(path, image):
+    """Write (H, W, 3) uint8 RGB ``image`` as ``png_bytes`` encodes it."""
+    data = png_bytes(image)
     with open(path, "wb") as fh:
-        fh.write(_PNG_SIGNATURE + chunk(b"IHDR", ihdr)
-                 + chunk(b"IDAT", zlib.compress(body.tobytes(), 1)) + chunk(b"IEND", b""))
+        fh.write(data)
+
+def encode_image(ext, image):
+    """The bytes ``cv2.imwrite`` writes for (H, W, 3) uint8 RGB ``image``
+    under extension ``ext`` (one of ``WRITERS`` or ``.png``, ``.ppm``)."""
+    ext = ext.lower()
+    if ext in WRITERS:
+        return WRITERS[ext](image)
+    if ext == ".png":
+        return png_bytes(image)
+    if ext == ".ppm":
+        height, width = image.shape[:2]
+        return b"P6\n%d %d\n255\n" % (width, height) + np.ascontiguousarray(image).tobytes()
+    raise ValueError(f"cannot write {ext!r} files: the writers are "
+                     f"{sorted([*WRITERS, '.png', '.ppm'])}")
+
+
+def write_image(path, image):
+    """Write (H, W, 3) uint8 RGB ``image`` to ``path`` in the format its
+    extension names, as ``cv2.imwrite`` chooses it; any other extension
+    raises, naming it."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"write_image takes (H, W, 3) uint8, got {image.dtype} {image.shape}")
+    data = encode_image(os.path.splitext(str(path))[1], image)
+    with open(path, "wb") as fh:
+        fh.write(data)

@@ -14,8 +14,10 @@ The JAX package calls cv2; here numpy does OpenCV's arithmetic:
   ``adjust_hue`` kept).  OpenCV finishes a row that is not a whole number of
   vectors with scalar code whose rounding differs by an ulp at some pixels;
   ``tests/test_torch_transform.py`` states the figure;
-* ``resize`` INTER_LINEAR on images through ``ops/resize.py::resize_linear``
-  (bit for bit) and INTER_NEAREST on masks (``floor(x * src / dst)``);
+* ``resize`` on images through ``ops/resize.py``: INTER_LINEAR, INTER_AREA
+  and INTER_LANCZOS4 bit for bit, INTER_CUBIC within the difference
+  ``tests/test_torch_transform.py`` states (cv2 hands images of 1, 3 or 4
+  channels to IPP); and INTER_NEAREST on masks (``floor(x * src / dst)``);
 * ``copyMakeBorder`` with a constant: a number fills the first channel only
   and the others with 0, as cv2 reads a number as a ``Scalar``.
 
@@ -29,9 +31,11 @@ import numpy as np
 import torch
 
 from ..models.layers import resize_matrices, resize_nhwc
-from ..ops.resize import _fma32, resize_linear
+from ..ops.resize import _fma32, resize_area, resize_cubic, resize_lanczos4, resize_linear
 
-INTERPOLATIONS = ("nearest", "linear")
+INTERPOLATIONS = ("nearest", "linear", "area", "cubic", "lanczos4")
+_FLOAT_RESIZES = {"linear": resize_linear, "area": resize_area, "cubic": resize_cubic,
+                  "lanczos4": resize_lanczos4}
 # cv2's float RGB -> grey weights
 _R2Y, _G2Y, _B2Y = np.float32(0.299), np.float32(0.587), np.float32(0.114)
 _EPS = np.float32(np.finfo(np.float32).eps)
@@ -134,11 +138,12 @@ def adjust_hue(image, f):
 
 
 def imresize(image, size_wh, interpolation):
-    """``cv2.resize(image, size_wh, interpolation=...)``: ``linear`` for
-    float32 images, ``nearest`` for any array."""
+    """``cv2.resize(image, size_wh, interpolation=...)``: ``linear``,
+    ``area``, ``cubic`` and ``lanczos4`` for float32 images, ``nearest``
+    for any array."""
     width, height = size_wh
-    if interpolation == "linear":
-        return resize_linear(np.asarray(image, np.float32), width, height)
+    if interpolation in _FLOAT_RESIZES:
+        return _FLOAT_RESIZES[interpolation](np.asarray(image, np.float32), width, height)
     if interpolation != "nearest":
         raise ValueError(f"interpolation {interpolation!r} is not one of {INTERPOLATIONS}")
     src_h, src_w = image.shape[:2]
@@ -270,8 +275,8 @@ class COCOTransform(BaseTransform):
                      jitter=0., random_place=False, pad_p=0., pad_ratio=0.,
                      pad_value=255 / 2):
             if interpolation not in INTERPOLATIONS:
-                raise ValueError(f"interpolation {interpolation!r} is not ported: "
-                                 f"{INTERPOLATIONS} are")
+                raise ValueError(f"interpolation {interpolation!r} is not one of "
+                                 f"{INTERPOLATIONS}")
             self.size = _pair(size)
             self.aspect_ratio = self.size[1] / self.size[0]
             self.interpolation = interpolation
@@ -358,8 +363,8 @@ class COCOTransform(BaseTransform):
     class ShortEdgeResize:
         def __init__(self, short_length, max_size, interpolation="linear"):
             if interpolation not in INTERPOLATIONS:
-                raise ValueError(f"interpolation {interpolation!r} is not ported: "
-                                 f"{INTERPOLATIONS} are")
+                raise ValueError(f"interpolation {interpolation!r} is not one of "
+                                 f"{INTERPOLATIONS}")
             self.short_length = short_length
             self.max_size = max_size
             self.interpolation = interpolation

@@ -9,14 +9,16 @@ Input modes: one image (-i), a directory (-d, optionally a list file -l),
 COCO images json (-j, with -d; -o keeps the bbox and segm prediction json
 files), a frame directory streamed through ``StreamingPipeline`` (--video,
 ``--stream-depth`` or the config's ``stream_depth``).  Images are read by
-``data/image_io.py`` (JPEG, PNG, PPM, .npy).  -v draws each image with
-``utils/visualizer.py::InferenceVisualizer`` (the config's visualizer block);
-with -o it writes each drawing to ``<output>/<file name>`` with the extension
-``.png`` (the JAX CLI writes JPEG under the file's own name; the port has no
-JPEG encoder), and -s shows it with matplotlib.  --video with -o turns on -v
-and writes ``frame_%06d.png``.  Runs on the card (``--device cuda``, the
-default) unless ``--device cpu`` is asked for.  Refused until ported: video
-files in and out (``cv2.VideoCapture``/``VideoWriter`` in the JAX CLI).
+``data/image_io.py`` (JPEG, PNG, BMP, TIFF, PPM, .npy).  -v draws each image
+with ``utils/visualizer.py::InferenceVisualizer`` (the config's visualizer
+block); with -o it writes each drawing to ``<output>/<the input's file
+name>`` through ``image_io.write_image``, in the format the name's extension
+gives (JPEG, PNG, BMP, TIFF or PPM, as the JAX CLI's ``cv2.imwrite`` does;
+``.npy`` inputs, the port's own form, are drawn to ``<name>.png``), and -s
+shows it with matplotlib.  --video with -o turns on -v and writes
+``frame_%06d.jpg``.  Runs on the card (``--device cuda``, the default) unless
+``--device cpu`` is asked for.  Refused until ported: video files in and out
+(``cv2.VideoCapture``/``VideoWriter`` in the JAX CLI).
 
 ``--spatial N`` (N > 1) shards each image's rows over N devices
 (``parallel/spatial.py``).  The JAX CLI runs one process over N local
@@ -44,7 +46,7 @@ import torch
 from . import config as config_module
 from .data import FastCOCOTransform
 from .data.dataset import COCODataset
-from .data.image_io import UnsupportedImage, frame_paths, image_names, read_image, write_png
+from .data.image_io import UnsupportedImage, frame_paths, image_names, read_image, write_image
 from .device import resolve_device
 from .eval import COCOMetrics
 from .models import build_model, init_random
@@ -60,8 +62,9 @@ from .utils.visualizer import InferenceVisualizer
 
 REFUSED = {
     "video_output": "-o *.mp4/*.avi is not ported yet: the JAX CLI writes video files with "
-                    "cv2.VideoWriter; pass a directory for frame_%06d.png files (ROADMAP "
-                    "Queue 1, 'What the infer CLI still refuses')",
+                    "cv2.VideoWriter; pass a directory for frame_%06d.jpg files, the JPEG "
+                    "frames the JAX CLI writes there (ROADMAP Queue 1 item 1, 'What the infer "
+                    "CLI still refuses')",
 }
 # how long the --spatial ranks may take to meet, and their collectives to wait
 SPATIAL_TIMEOUT_S = 600
@@ -149,7 +152,7 @@ def run_video(args, config, pipeline, visualizer, primary=True):
         if visualizer is not None and primary:
             show = visualizer(predictions[0], src.astype(np.float32), pipeline.pad_info)
             if args.output:
-                write_png(os.path.join(args.output, f"frame_{n_out:06d}.png"), show)
+                write_image(os.path.join(args.output, f"frame_{n_out:06d}.jpg"), show)
         n_out += 1
 
     t_start = time.perf_counter()
@@ -204,6 +207,14 @@ def resolve_inputs(args):
     raise ValueError("Either image or image_dir should be given.")
 
 
+def output_name(name):
+    """Where -v -o writes the drawing of input ``name``: under the same
+    name, so in the same format, except that an ``.npy`` input is drawn
+    to ``<name>.png``."""
+    stem, ext = os.path.splitext(name)
+    return stem + ".png" if ext.lower() == ".npy" else name
+
+
 def pyplot():
     """matplotlib.pyplot for -s, or the exit that names what is missing."""
     try:
@@ -249,9 +260,8 @@ def run_images(args, pipeline, visualizer, primary=True):
                         plt = pyplot()
                         plt.imshow(show)
                         plt.show()
-                    if args.output:  # the image's name, as PNG (the JAX CLI writes JPEG)
-                        name = os.path.splitext(names[idx])[0] + ".png"
-                        write_png(os.path.join(args.output, name), show)
+                    if args.output:  # the input's name and its format, as cv2.imwrite
+                        write_image(os.path.join(args.output, output_name(names[idx])), show)
 
     if metrics is not None:
         with open(metrics.bbox_pred_file, "w") as fh:

@@ -12,7 +12,7 @@ raises when that is not 0.  ``launches`` holds one count per kernel, which
 its wrapper raises by one where it launches the kernel.
 
 Host code with a C interface, ``csrc/<name>.cc`` (the JPEG entropy
-decoder, the native host library ``omtpu``), is built the same way with the
+decoder and coder, TIFF's LZW codec, the native host library ``omtpu``), is built the same way with the
 host C++ compiler (``g++``, which nvcc itself needs) into
 ``csrc/build/lib<name>.so`` by ``host_library``; it runs on the CPU, so the
 tests build and call it too.  It raises when the build fails: nothing falls
@@ -81,6 +81,14 @@ HOST_SIGNATURES = {
         "omj_decode_scan": (_I, [_P, _L, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I]),
         "omj_error_string": (ctypes.c_char_p, [_I]),
+        # blocks, n, each block's component, tables of each component,
+        # components, codes, code lengths, out, its capacity
+        "omj_encode_blocks": (_L, [_P, _L, _P, _P, _I, _P, _P, _P, _L]),
+    },
+    "tiff_host": {
+        # in, its length, out, its capacity
+        "omt_lzw_decode": (_L, [_P, _L, _P, _L]),
+        "omt_lzw_encode": (_L, [_P, _L, _P, _L]),
     },
     "omtpu": {
         # dets (n, 5), n, threshold, keep

@@ -2,8 +2,9 @@
 which the JAX CLI reads with (``cv2.imread`` + ``cvtColor``): every PNG
 colour type and bit depth, interlaced or not, and every filter type,
 exactly (16 bits reduced to the high byte, as cv2 reduces them); PPM and
-``.npy`` round trips; the formats it refuses, with the message.  JPEG has
-its own file, ``test_torch_jpeg.py``."""
+``.npy`` round trips; cv2's BMP and TIFF; the formats it refuses, with the
+message.  JPEG has its own file, ``test_torch_jpeg.py``; the BMP and TIFF
+forms ``test_torch_bmp_tiff.py``, the writers ``test_torch_image_write.py``."""
 
 import struct
 import zlib
@@ -130,8 +131,6 @@ def test_ppm_and_npy_round_trip(tmp_path):
 
 def test_refused_formats_name_what_is_read(tmp_path):
     image = np.random.default_rng(6).integers(0, 256, (8, 8, 3), dtype=np.uint8)
-    cv2.imwrite(str(tmp_path / "a.bmp"), image)
-    cv2.imwrite(str(tmp_path / "a.tif"), image)
     cv2.imwrite(str(tmp_path / "a.webp"), image)
     Image.fromarray(image).convert("CMYK").save(tmp_path / "cmyk.jpg")
     # a bit depth the colour type does not allow
@@ -140,15 +139,26 @@ def test_refused_formats_name_what_is_read(tmp_path):
     np.save(tmp_path / "f32.npy", image.astype(np.float32))
     (tmp_path / "clip.mp4").write_bytes(b"\x00\x00\x00\x18ftypmp42")
     (tmp_path / "notes.txt").write_bytes(b"hello")
-    for name, why in (("a.bmp", "a BMP file"), ("a.tif", "a TIFF file"),
-                      ("a.webp", "a WebP file"), ("cmyk.jpg", "4-component JPEG"),
+    for name, why in (("a.webp", "a WebP file"), ("cmyk.jpg", "4-component JPEG"),
                       ("rgb4.png", "colour type 2 at 4 bits"), ("f32.npy", "float32"),
                       ("clip.mp4", "a video file"), ("notes.txt", "not an image file")):
         with pytest.raises(UnsupportedImage, match=why) as err:
             read_image(tmp_path / name)
         assert "this build reads PNG (every colour type" in str(err.value), name
+        assert "ROADMAP Queue 1 item 1" in str(err.value), name
     with pytest.raises(UnsupportedImage, match="video file"):
         frame_paths(tmp_path / "clip.mp4")
+
+
+@pytest.mark.parametrize("name", ["a.bmp", "a.tif"])
+def test_bmp_and_tiff_written_by_opencv_read_as_opencv_reads_them(tmp_path, name):
+    """The BMP and TIFF that were refusal cases above until the port read
+    them (``data/bmp.py``, ``data/tiff.py``; their forms are in
+    ``test_torch_bmp_tiff.py``): cv2's own files, read as cv2 reads them."""
+    image = np.random.default_rng(6).integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    cv2.imwrite(str(tmp_path / name), image)
+    np.testing.assert_array_equal(read_image(tmp_path / name), _cv2_rgb(tmp_path / name))
+    np.testing.assert_array_equal(read_image(tmp_path / name), image[..., ::-1])
 
 
 def _pack(samples, depth):

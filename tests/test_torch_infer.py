@@ -164,6 +164,8 @@ def test_video_output_implies_visualize_then_refuses(inputs, capsys):
                     "--random-weights", "--video", "frames", "-o", "out.avi"])
     assert "--output implies --visualize" in capsys.readouterr().out
     assert "cv2.VideoWriter" in str(err.value.code)
+    assert "frame_%06d.jpg" in str(err.value.code)
+    assert "ROADMAP Queue 1 item 1" in str(err.value.code)
 
 
 def test_jpeg_input_exits_with_the_formats_read(inputs, tmp_path):
@@ -277,10 +279,11 @@ def _config_with_visualizer(inputs, conf_thresh=0.3):
 
 def test_visualize_over_a_jpeg_directory_writes_one_png_each(inputs, jpeg_dir, tmp_path,
                                                              capsys):
-    """-d <JPEGs> -v -o: one PNG per image under the image's name with the
-    extension .png, each the JAX visualizer's drawing of the port's
-    detections on cv2's decode of the JPEG (conf_thresh 0 draws every box,
-    label and mask), and Visualize in the timer report."""
+    """-d <JPEGs> -v -o: one JPEG per image under the image's own name, as
+    the JAX CLI's cv2.imwrite writes it: byte for byte cv2's JPEG of the
+    JAX visualizer's drawing of the port's detections on cv2's decode of
+    the input (conf_thresh 0 draws every box, label and mask), and
+    Visualize in the timer report."""
     import random
 
     from orienmask_tpu.utils.visualizer import InferenceVisualizer as JaxVisualizer
@@ -301,7 +304,7 @@ def test_visualize_over_a_jpeg_directory_writes_one_png_each(inputs, jpeg_dir, t
         _run_main(["-c", str(_config_with_visualizer(inputs, 0.0)), "-w",
                    str(inputs / "weights.ckpt"), "-d", str(jpeg_dir), "-v", "-o", str(tmp_path)])
     assert "Visualize: " in capsys.readouterr().out
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["im0.png", "im1.png", "im2.png"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["im0.jpg", "im1.jpg", "im2.jpg"]
     from orienmask_tpu_torch.config import coco_visualizer
 
     ref = JaxVisualizer(**{k: v for k, v in dict(coco_visualizer, conf_thresh=0.0).items()
@@ -312,15 +315,62 @@ def test_visualize_over_a_jpeg_directory_writes_one_png_each(inputs, jpeg_dir, t
         np.testing.assert_array_equal(np.asarray(image), src)
         assert len(detections["bbox"]) > 0
         want = ref(detections, src.astype(np.float32), pad_info)
-        np.testing.assert_array_equal(read_image(tmp_path / f"im{i}.png"), want)
+        written = tmp_path / f"im{i}.jpg"
+        assert written.read_bytes() == cv2.imencode(".jpg", cv2.cvtColor(want, cv2.COLOR_RGB2BGR))[
+            1].tobytes()
+        np.testing.assert_array_equal(read_image(written),
+                                      cv2.cvtColor(cv2.imread(str(written)), cv2.COLOR_BGR2RGB))
 
 
 def test_video_output_writes_a_png_frame_each(inputs, jpeg_dir, tmp_path, capsys):
-    """--video <JPEG frames> -o <dir>: frame_%06d.png, one a frame."""
+    """--video <JPEG frames> -o <dir>: frame_%06d.jpg, one JPEG a frame, as
+    the JAX CLI writes them."""
     _run_main(["-c", str(_config_with_visualizer(inputs)), "--random-weights", "--video",
                str(jpeg_dir), "-o", str(tmp_path), "--stream-depth", "2"])
     assert "Streamed 3 frames (depth=2)" in capsys.readouterr().out
-    assert sorted(p.name for p in tmp_path.iterdir()) == [f"frame_{i:06d}.png" for i in range(3)]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [f"frame_{i:06d}.jpg" for i in range(3)]
+    for path in tmp_path.iterdir():
+        assert path.read_bytes()[:4] == b"\xff\xd8\xff\xe0"
+        assert cv2.imread(str(path)).shape == (96, 128, 3)
+
+
+def test_visualize_writes_each_input_name_in_its_format(inputs, tmp_path):
+    """-v -o over .jpg, .bmp, .tif, .png and .npy inputs (96x128, the slim
+    model, on the CPU): each drawing under its input's own name, in that
+    name's format, the bytes cv2.imwrite writes for the drawing (JPEG, BMP,
+    PNG's pixels; TIFF read back to them by cv2 and the port); an .npy
+    input, the port's own form, drawn to .png."""
+    from orienmask_tpu_torch.data.image_io import read_image
+
+    images = tmp_path / "images"
+    images.mkdir()
+    rng = np.random.default_rng(10)
+    for name in ("a.jpg", "b.bmp", "c.tif", "d.png"):
+        cv2.imwrite(str(images / name), rng.integers(0, 256, (96, 128, 3), dtype=np.uint8))
+    np.save(images / "e.npy", rng.integers(0, 256, (96, 128, 3), dtype=np.uint8))
+    written = []
+    real = infer.write_image
+
+    def keep(path, image):
+        written.append((os.path.basename(path), image.copy()))
+        real(path, image)
+
+    out = tmp_path / "out"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(infer, "write_image", keep)
+        _run_main(["-c", str(_config_with_visualizer(inputs, 0.0)), "--random-weights", "-d",
+                   str(images), "-v", "-o", str(out)])
+    names = ["a.jpg", "b.bmp", "c.tif", "d.png", "e.png"]
+    assert sorted(p.name for p in out.iterdir()) == names == [n for n, _ in written]
+    for name, drawing in written:
+        bgr = cv2.cvtColor(drawing, cv2.COLOR_RGB2BGR)
+        data = (out / name).read_bytes()
+        if name.endswith((".jpg", ".bmp")):
+            assert data == cv2.imencode(os.path.splitext(name)[1], bgr)[1].tobytes(), name
+        else:
+            np.testing.assert_array_equal(cv2.imread(str(out / name)), bgr)
+            np.testing.assert_array_equal(read_image(out / name), drawing)
+    assert (out / "c.tif").read_bytes()[:4] == b"II*\x00"
 
 
 def test_show_without_matplotlib_exits_with_its_message(inputs, monkeypatch):

@@ -1,9 +1,12 @@
 """The port's host augmentation (orienmask_tpu_torch/data/transform.py)
 against orienmask_tpu.data.transform, which calls cv2, from the same seeds.
 
-* cv2's arithmetic, op by op, on seeded float32 images: INTER_LINEAR
-  resizes of images and INTER_NEAREST resizes of masks, copyMakeBorder and
-  HSV -> RGB bit for bit; RGB -> grey and RGB -> HSV bit for bit where
+* cv2's arithmetic, op by op, on seeded float32 images: INTER_LINEAR,
+  INTER_AREA and INTER_LANCZOS4 resizes of images and INTER_NEAREST resizes
+  of masks, copyMakeBorder and HSV -> RGB bit for bit; INTER_CUBIC bit for
+  bit where cv2 runs its own loops (2 or 5 channels) and within
+  ``CUBIC_ATOL`` where it hands the image to IPP (1, 3 or 4 channels:
+  measured at most 9.2e-5 on the 0-255 scale over the cases below); RGB -> grey and RGB -> HSV bit for bit where
   OpenCV's vector loop covers the row (widths that are multiples of 16).
   On a row's last ``width % 16`` pixels OpenCV's scalar code rounds in
   another order: measured at most 1 ulp (grey) and 2 ulps (hue).
@@ -28,6 +31,14 @@ from orienmask_tpu_torch.trainer.builder import build_transform
 from orienmask_tpu_torch.utils.mini_dataset import _resized
 
 IMAGE_ATOL = 1e-6
+# INTER_CUBIC on 1, 3 or 4 channels (IPP's arithmetic): measured 9.2e-5
+CUBIC_ATOL = 1e-3
+NEW_INTERPOLATIONS = ("area", "cubic", "lanczos4")
+# (source, output size): down-, up- and mixed scales, whole-number factors
+# (2x and 4x down, 2x up, one axis kept), and the letterbox of 480x640 to 544
+RESIZE_CASES = [((48, 64), (32, 24)), ((48, 64), (16, 12)), ((48, 64), (128, 96)),
+                ((48, 64), (64, 16)), ((48, 64), (40, 30)), ((37, 53), (100, 71)),
+                ((37, 53), (30, 50)), ((37, 53), (21, 13)), ((480, 640), (544, 408))]
 SHAPES = [(48, 64), (43, 61), (120, 90), (61, 43)]
 
 
@@ -74,6 +85,61 @@ def test_resizes_match_cv2(size):
     mask = (np.random.default_rng(3).random((37, 64)) > 0.5).astype(np.uint8)
     np.testing.assert_array_equal(transform.imresize(mask, size, "nearest"),
                                   cv2.resize(mask, size, interpolation=cv2.INTER_NEAREST))
+
+
+def _held_to_jax(name, got, want):
+    if name == "cubic":
+        np.testing.assert_allclose(got, want, rtol=0, atol=CUBIC_ATOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("channels", [3, 1, 2])
+@pytest.mark.parametrize("case", RESIZE_CASES,
+                         ids=[f"{s[0]}x{s[1]}_to_{d[1]}x{d[0]}" for s, d in RESIZE_CASES])
+@pytest.mark.parametrize("name", NEW_INTERPOLATIONS)
+def test_new_interpolations_match_jax(name, case, channels):
+    """``imresize`` against the JAX package's (cv2.resize with the flag of
+    ``name``): area and lanczos4 by bits, cubic as the module states; 2
+    channels (no IPP) by bits for all three."""
+    (h, w), size = case
+    img = np.random.default_rng(h + channels).uniform(0, 255, (h, w, channels)).astype(np.float32)
+    if channels == 1:
+        img = img[..., 0]
+    got = transform.imresize(img, size, name)
+    want = jax_transform.imresize(img, size, jax_transform._INTERP[name])
+    assert got.shape == want.shape and got.dtype == want.dtype == np.float32
+    if channels == 2:
+        np.testing.assert_array_equal(got, want)
+    else:
+        _held_to_jax(name, got, want)
+
+
+@pytest.mark.parametrize("step", ["Resize", "ShortEdgeResize"])
+@pytest.mark.parametrize("name", NEW_INTERPOLATIONS)
+def test_resize_steps_with_new_interpolations_match_jax(name, step):
+    """``COCOTransform.Resize`` (letterbox with jitter, random placement
+    and padding) and ``ShortEdgeResize`` with each new interpolation, from
+    the same seeds: sizes, boxes, nearest-resized masks and infos identical,
+    images as ``imresize`` holds them."""
+    for seed in range(6):
+        sample = _sample(seed)
+        if step == "Resize":
+            kw = dict(size=64, interpolation=name, jitter=0.3, random_place=True, pad_p=0.5,
+                      pad_ratio=0.2, warp_p=0.2)
+        else:
+            kw = dict(short_length=[40, 56], max_size=96, interpolation=name)
+        got = getattr(transform.COCOTransform, step)(**kw)(
+            copy.deepcopy(sample), np.random.default_rng(seed))
+        want = getattr(jax_transform.COCOTransform, step)(**kw)(
+            copy.deepcopy(sample), np.random.default_rng(seed))
+        assert got["info"] == want["info"], seed
+        np.testing.assert_array_equal(got["bbox"], want["bbox"])
+        assert len(got["mask"]) == len(want["mask"])
+        for m, n in zip(got["mask"], want["mask"]):
+            np.testing.assert_array_equal(m, n)
+        assert got["image"].shape == want["image"].shape
+        _held_to_jax(name, got["image"], want["image"])
 
 
 @pytest.mark.parametrize("value", [255 / 2, (123.675, 116.28, 103.53), 0])
@@ -139,5 +205,12 @@ def test_train_pipeline_takes_every_step():
 
 
 def test_unported_interpolation_is_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        transform.COCOTransform.Resize(64, interpolation="cubic")
+    """Every cv2 flag the JAX transform names is taken; a name it does not
+    know is refused, naming those that are."""
+    for step in (lambda i: transform.COCOTransform.Resize(64, interpolation=i),
+                 lambda i: transform.COCOTransform.ShortEdgeResize([64], 96, interpolation=i)):
+        for name in jax_transform._INTERP:
+            step(name)
+        with pytest.raises(ValueError, match="not one of .*'lanczos4'"):
+            step("bicubic")
+    assert set(transform.INTERPOLATIONS) == set(jax_transform._INTERP)
