@@ -7,7 +7,8 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
 
 1. build the hand-written kernels of ``orienmask_tpu_torch/csrc`` with nvcc
    for sm_90a and the host libraries (``csrc/*.cc``: the JPEG scans and
-   coder, TIFF's LZW codec, the native host library ``omtpu``) with g++; print the card, the build time
+   coder, TIFF's LZW codec, WebP's VP8 and VP8L loops, the native host library
+   ``omtpu``) with g++; print the card, the build time
    and ptxas's registers, shared memory and spills for kernels 1–4 and 6;
 2. kernel 1 (exact top-k) against its plain version on the card: values and
    indices bit-identical on every case, each with its launch plan (C, chunk),
@@ -226,7 +227,20 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    ``COCODataset`` over the port's mini dataset (8 scenes) through the
    published train transform with its Resize at area, cubic and lanczos4
    in turn, one B = 8 train step at full width for each: a finite loss,
-   kernel 5 launched once and equal to its plain version on the batch.
+   kernel 5 launched once and equal to its plain version on the batch;
+24. WebP and platforms: (a) the infer CLI at 544² (as phase 23) with -v -o
+   and --video -o over the committed WebP fixtures (VP8L, VP8 at qualities
+   50 and 95, VP8X with ALPH, a 3-frame animation, EXIF orientation 6, a
+   33x65 image): each drawing written to its .webp name as VP8L, the bytes
+   ``write_image`` writes for the plain-version drawing, read back by the
+   port; every WebP fixture read on the host to its committed digest
+   (cv2's pixels); the C++ VP8 and VP8L loops equal to their plain
+   versions on the fixtures; the host ms of a 480x640 VP8L write and read
+   and of the committed 480x640 VP8 read; (b) the bf16 544² pipeline
+   exported at (1, 480, 640, 3) for ``["cpu", "cuda"]`` into one artifact,
+   loaded by a fresh process without the model code on the card and then
+   on the CPU, each served program equal by bits to the live pipeline on
+   its device, kernels 1 and 2 launched twice and once a CUDA call.
 
 Each phase's first line gives the seconds since the script's start.  The
 last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
@@ -234,7 +248,8 @@ last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``dp_train_544_b8x2``, ``train_options_544_b8``, ``int8_544``,
 ``serving_544``, ``spatial_544``);
 ``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
-"depth2": ..., "staged_fps": ...}, "jpeg": {...}, "image_files": {...}}``; the card's name and
+"depth2": ..., "staged_fps": ...}, "jpeg": {...}, "image_files": {...},
+"webp": {...}}``; the card's name and
 power limit; the kernels' JSON record: every kernel carries per-path launch
 counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
 jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
@@ -244,7 +259,8 @@ train_options and options_cli; kernels 1 and 2 int8, serving and
 serving_int8, and with kernel 6 accuracy_f32, accuracy_bf16 and
 accuracy_int8; kernels 1 and 2 spatial and spatial_int8, kernel 5
 spatial_train, kernels 5, 1, 2 and 6 spatial_train_cli; kernels 1 and 2
-image_files_cli and image_files_video, kernel 5 train_resizes), kernels 1 and
+image_files_cli and image_files_video, kernel 5 train_resizes; kernels 1 and
+2 webp_cli, webp_video and platforms_cuda), kernels 1 and
 2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
 kernel 6 phase 16's cases; the last line is ``{"ok": true, "device":
 {...}}``.  ``--profile DIR`` also writes
@@ -3749,10 +3765,11 @@ SERVING_DEADLINE_S = 300
 
 
 def serve_artifacts(spec_path, out_path):
-    """Phase 21's serving host, run in a fresh process with
+    """Phase 21's (and 24's) serving host, run in a fresh process with
     ``orienmask_tpu_torch.models`` unimportable: load each artifact of the
-    spec, run each of its images once with the launch counts read around
-    the call, and write the outputs (``<dir>/served_<name>_<B>.npz``), the
+    spec on its job's device (the card unless ``device`` says), run each of
+    its images once with the launch counts read around the call, and write
+    the outputs (``<dir>/served_<name>_<B>.npz``), the
     counts and the load seconds to ``out_path``."""
     torch.backends.cudnn.allow_tf32 = False  # as main() sets them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3762,13 +3779,14 @@ def serve_artifacts(spec_path, out_path):
     spec = json.loads(Path(spec_path).read_text())
     result = {}
     for name, job in spec.items():
+        device = job.get("device", "cuda")
         t = time.perf_counter()
-        served = load_serving(job["dir"])
+        served = load_serving(job["dir"], device)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t
         calls = {}
         for image_path in job["images"]:
-            image = torch.from_numpy(np.load(image_path)).cuda()
+            image = torch.from_numpy(np.load(image_path)).to(device)
             torch.cuda.synchronize()
             kernels.reset_launches()
             out = served.run_device(image)
@@ -4427,25 +4445,31 @@ def image_files_inputs(workdir):
     return images
 
 
-MAGIC = {".jpg": b"\xff\xd8\xff", ".png": b"\x89PNG", ".bmp": b"BM", ".tif": b"II*\x00"}
+MAGIC = {".jpg": b"\xff\xd8\xff", ".png": b"\x89PNG", ".bmp": b"BM", ".tif": b"II*\x00",
+         ".webp": b"RIFF"}
 
 
 def check_image_files_cli(workdir):
-    """Phase 23 (a): the infer CLI on the card at 544² (the full-width
-    model, seeded random weights) with -v -o over a directory of JPEG, PNG,
-    BMP (24-bit and RLE8) and TIFF (LZW with the predictor, PackBits, tiled
-    Deflate) files, then --video -o over the same directory: each output
-    under its input's name and in its format, read back by the port, the
-    bytes ``write_image`` writes for the visualizer's drawing of the
-    plain-version host list; kernel 1 twice and kernel 2 once an image, the
-    device outputs identical to the plain-version postprocess on the same
-    heads; --video writes frame_%06d.jpg."""
+    """Phase 23 (a): ``check_cli_over_files`` over a directory of JPEG,
+    PNG, BMP (24-bit and RLE8) and TIFF (LZW with the predictor, PackBits,
+    tiled Deflate) files."""
+    return check_cli_over_files(workdir, image_files_inputs(workdir), SEED + 23)
+
+
+def check_cli_over_files(workdir, images, seed):
+    """The infer CLI on the card at 544² (the full-width model, seeded
+    random weights) with -v -o over the image files of ``images``, then
+    --video -o over the same directory: each output under its input's name
+    and in its format, read back by the port, the bytes ``write_image``
+    writes for the visualizer's drawing of the plain-version host list;
+    kernel 1 twice and kernel 2 once an image, the device outputs identical
+    to the plain-version postprocess on the same heads; --video writes
+    frame_%06d.jpg."""
     import random
 
     import orienmask_tpu_torch.config as configs
     from orienmask_tpu_torch.data.image_io import image_names, read_image
 
-    images = image_files_inputs(workdir)
     names = image_names(images)
     paths = [images / n for n in names]
     n = len(names)
@@ -4456,7 +4480,7 @@ def check_image_files_cli(workdir):
             ("-v -o", ["-d", str(images), "-v"], names),
             ("--video -o", ["--video", str(images)], [f"frame_{i:06d}.jpg" for i in range(n)])):
         out = workdir / ("drawn" if tag == "-v -o" else "frames")
-        random.seed(SEED + 23)
+        random.seed(seed)
         t = time.perf_counter()
         lines, calls, _, launched, _ = run_cli(["-c", name, "--random-weights", *argv,
                                                 "-o", str(out)])
@@ -4475,7 +4499,7 @@ def check_image_files_cli(workdir):
                 raise AssertionError(f"{tag}: {file} is not in its name's format")
             read_image(out / file)
         plain, wants = check_against_plain(tag, calls, _kw(config["postprocess"]), 544)
-        check_drawings(tag, out, written, wants, plain, paths, config, SEED + 23)
+        check_drawings(tag, out, written, wants, plain, paths, config, seed)
         counts[tag] = launched
     log(f"  inputs: {', '.join(names)}; every output under its input's name (--video: "
         f"frame_%06d.jpg), in its format, read back by the port's readers")
@@ -4612,6 +4636,173 @@ def check_train_resizes(workdir):
     return counts, err, out
 
 
+# ------------------------------------------------- WebP and platforms (24)
+
+# phase 24 (a)'s directory: the committed fixtures a user's -d would hold
+WEBP_CLI_FIXTURES = ("webp_vp8l.webp", "webp_vp8_q50.webp", "webp_vp8_q95.webp",
+                     "webp_vp8x_alpha.webp", "webp_animated.webp", "webp_exif_6.webp",
+                     "webp_odd_33x65.webp")
+WEBP_SCENE = (480, 640)  # the seeded scene whose host ms (b) records
+PLATFORMS = ("cpu", "cuda")
+PLATFORM_SHAPE = (1, 480, 640, 3)
+
+
+def check_webp_fixtures():
+    """Phase 24 (a), on the card's host: every committed WebP fixture reads
+    to its committed digest (cv2's pixels, taken where cv2 is); the C++
+    loops equal their plain versions on the fixtures (VP8's macroblocks on
+    every lossy one but the 480x640, VP8L's entropy decode and predictor on
+    the lossless ones, the encoder's mode choice, LZ77 and bit packing on a
+    seeded scene)."""
+    import hashlib
+
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.data import vp8, vp8l
+    from orienmask_tpu_torch.data.image_io import read_image
+    from orienmask_tpu_torch.utils.mini_dataset import make_scene
+
+    t = time.perf_counter()
+    kernels.host_library("webp_host")
+    build_s = time.perf_counter() - t
+    digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
+    names = sorted(n for n in digests if n.endswith(".webp"))
+    for name in names:
+        image = read_image(IMAGE_FIXTURES / name)
+        if list(image.shape) != digests[name]["shape"] or \
+                hashlib.sha256(image.tobytes()).hexdigest() != digests[name]["sha256"]:
+            raise AssertionError(f"{name} does not read to cv2's pixels (its digest)")
+    loops = 0
+    for name in names:
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        form = digests[name]["form"]
+        if form["animated"] or name == "webp_480x640_q95.webp":
+            continue
+        for fourcc in (b"VP8 ", b"VP8L"):
+            at = data.find(fourcc, 12)
+            if at < 0:
+                continue
+            payload = data[at + 8:at + 8 + int.from_bytes(data[at + 4:at + 8], "little")]
+            if fourcc == b"VP8 ":
+                same = all(np.array_equal(a, b) for a, b in zip(
+                    vp8.decode_macroblocks_native(vp8.parse_header(payload)),
+                    vp8.decode_macroblocks_py(vp8.parse_header(payload))))
+            else:
+                same = np.array_equal(vp8l.decode(payload), vp8l.decode(
+                    payload, vp8l.decode_image_py, vp8l.predictor_py))
+            if not same:
+                raise AssertionError(f"{name}: the C++ loops differ from the plain ones")
+            loops += 1
+    scene, _ = make_scene(np.random.default_rng(SEED + 24), 48, 64, 0, 80, 1)
+    argb = vp8l.decode(vp8l.encode(scene)).reshape(-1)
+    pairs = [(vp8l.backward_refs_native(argb, 64, c), vp8l.backward_refs_py(argb, 64, c))
+             for c in (0, 10)]
+    pairs.append((vp8l.predictor_forward_native(argb, 64, 48),
+                  vp8l.predictor_forward_py(argb, 64, 48)))
+    widths = (argb % 19).astype(np.int64)
+    pairs.append(([np.frombuffer(vp8l.BitWriter.pack_native(argb, widths), np.uint8)],
+                  [np.frombuffer(vp8l.BitWriter.pack_py(argb.astype(np.int64), widths),
+                                 np.uint8)]))
+    for got, want in pairs:
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("the C++ encoder loops differ from the plain ones")
+    log(f"  {len(names)} WebP fixtures read to their committed digests; the C++ loops equal "
+        f"the plain ones on {loops} bitstreams, and the encoder's (mode choice, LZ77, bit "
+        f"packing) on a 48x64 scene (host library ready in {build_s:.2f} s)")
+    return {"fixtures": len(names), "loops_checked": loops}
+
+
+def check_webp_codecs():
+    """Phase 24 (a): the host ms (median of ``CODEC_REPEATS``) of a seeded
+    480x640 scene written as VP8L and read back, and of the committed
+    480x640 VP8 (cv2 at quality 95) read."""
+    from orienmask_tpu_torch.data import webp
+    from orienmask_tpu_torch.utils.mini_dataset import make_scene
+
+    image, _ = make_scene(np.random.default_rng(SEED + 24), *WEBP_SCENE, 0, 80, 1)
+    lossless = webp.encode(image)
+    if not np.array_equal(webp.decode(lossless), image):
+        raise AssertionError("the VP8L file does not read back to its pixels")
+    lossy = (IMAGE_FIXTURES / "webp_480x640_q95.webp").read_bytes()
+    ms = {"vp8l_write": median_ms(lambda: webp.encode(image)),
+          "vp8l_read": median_ms(lambda: webp.decode(lossless)),
+          "vp8_read": median_ms(lambda: webp.decode(lossy))}
+    log("  host ms a 480x640 image (median of " + f"{CODEC_REPEATS}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()) + f"; VP8L bytes {len(lossless)}, the VP8 "
+        f"file's {len(lossy)}; card: {card_line()}")
+    return {"host_ms_480x640": ms, "vp8l_bytes_480x640": len(lossless)}
+
+
+def check_webp_cli(workdir):
+    """Phase 24 (a): the committed WebP fixtures (VP8L, VP8 at two
+    qualities, VP8X with ALPH, animated, EXIF-rotated, an odd size) through
+    the infer CLI (``check_cli_over_files``): -v -o writes each drawing to
+    its .webp name as VP8L, read back by the port to the drawing."""
+    images = workdir / "webp"
+    images.mkdir()
+    for name in WEBP_CLI_FIXTURES:
+        (images / name).write_bytes((IMAGE_FIXTURES / name).read_bytes())
+    return check_cli_over_files(workdir, images, SEED + 24)
+
+
+def check_platforms():
+    """Phase 24 (b): the 544² infer config's bf16 pipeline exported at
+    ``PLATFORM_SHAPE`` for ``PLATFORMS`` into one artifact; a fresh process
+    without the model code loads it on the card, then on the CPU, and runs
+    phase 4's seeded image on each; each served program equals, by bits,
+    the live pipeline on that device over the same folded weights
+    (``InferencePipeline.to``); the CUDA program launches kernels 1 and 2
+    twice and once a call, the CPU program none (their plain versions)."""
+    from orienmask_tpu_torch.serving import export_pipeline
+
+    t0 = time.perf_counter()
+    pipe, _ = build_pipeline()
+    image = np.random.default_rng(SEED).integers(0, 256, PLATFORM_SHAPE, dtype=np.uint8)
+    res = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        work = Path(workdir)
+        t = time.perf_counter()
+        manifest = export_pipeline(pipe, [PLATFORM_SHAPE], work / "art", platforms=PLATFORMS)
+        res["export_s"] = time.perf_counter() - t
+        res["bytes"] = artifact_bytes(work / "art")
+        log(f"  exported {manifest['programs_by_platform']} in {res['export_s']:.1f} s; bytes "
+            f"{res['bytes']}")
+        np.save(work / "image.npy", image)
+        spec = work / "spec.json"
+        spec.write_text(json.dumps({p: {"dir": str(work / "art"), "device": p,
+                                        "images": [str(work / "image.npy")]}
+                                    for p in ("cuda", "cpu")}))
+        host = finish_serving_host(start_serving_host(spec, work / "served.json"))
+        if host["model_modules"]:
+            raise AssertionError(f"the serving host loaded model code: {host['model_modules']}")
+        counts = {}
+        for platform in ("cuda", "cpu"):
+            call = host[platform]["calls"]["1"]
+            live = pipe.to(platform)
+            t = time.perf_counter()
+            want = live.run_device(torch.from_numpy(image).to(platform))
+            live_s = time.perf_counter() - t
+            got = dict(np.load(call["outputs"]))
+            for key in want:
+                w = want[key].cpu().numpy()
+                if got[key].dtype != w.dtype or not np.array_equal(got[key], w):
+                    raise AssertionError(f"{platform}: served '{key}' differs from the live "
+                                         "pipeline on that device")
+            launched = call["launches"]
+            expected = {"cuda": (2, 1), "cpu": (0, 0)}[platform]
+            if (launched["exact_topk"], launched["assemble_masks_packed"]) != expected or \
+                    sum(launched.values()) != sum(expected):
+                raise AssertionError(f"{platform}: the served call launched {launched}")
+            counts[platform] = launched
+            res[platform] = {"load_s": host[platform]["load_s"], "live_s": live_s,
+                             "valid": int(want["valid"].sum())}
+            log(f"  {platform}: loaded in {host[platform]['load_s']:.2f} s in the fresh "
+                f"process; served == live by bits ({int(want['valid'].sum())} valid "
+                f"detections; the live call {live_s:.2f} s); launches {launched}")
+        res["host_process_s"] = host["process_s"]
+    res["phase_s"] = time.perf_counter() - t0
+    return {"platforms_cuda": counts["cuda"]}, res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="also write a torch.profiler table")
@@ -4741,6 +4932,15 @@ def main(argv=None):
     image_files = {"codecs": codecs, "train_resizes": resizes,
                    "phase_s": time.perf_counter() - t}
     log(f"  phase 23 in {image_files['phase_s']:.1f} s; card: {card_line()}")
+    header("[24] WebP and platforms: the infer CLI over WebP (-v -o, --video -o), the codecs "
+           "on the host, an artifact for the CPU and the card")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        webp_cli_counts = check_webp_cli(Path(workdir))
+    webp_files = {**check_webp_fixtures(), **check_webp_codecs()}
+    platform_counts, platforms = check_platforms()
+    webp_files.update(platforms=platforms, phase_s=time.perf_counter() - t)
+    log(f"  phase 24 in {webp_files['phase_s']:.1f} s; card: {card_line()}")
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -4760,9 +4960,12 @@ def main(argv=None):
     paths["paint_orientation"] = {"train": train_counts["paint_orientation"]}
     for name in ("assemble_masks", "assemble_masks_bitpacked"):
         paths[name] = {"validation": per_det_counts[name]}
-    for name in ("exact_topk", "assemble_masks_packed"):  # phase 23 (a)
+    for name in ("exact_topk", "assemble_masks_packed"):  # phases 23 (a) and 24
         paths[name]["image_files_cli"] = files_cli_counts["-v -o"][name]
         paths[name]["image_files_video"] = files_cli_counts["--video -o"][name]
+        paths[name]["webp_cli"] = webp_cli_counts["-v -o"][name]
+        paths[name]["webp_video"] = webp_cli_counts["--video -o"][name]
+        paths[name]["platforms_cuda"] = platform_counts["platforms_cuda"][name]
     for name in paths:  # phase 17's CLIs, each kernel's count around each
         for cli, launched in files_counts.items():
             paths[name][cli] = launched[name]
@@ -4820,7 +5023,8 @@ def main(argv=None):
                     "dp_train_544_b8x2": dp_train, "train_options_544_b8": options,
                     "int8_544": int8, "serving_544": serving, "spatial_544": spatial_544}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
-                    "stream_736": stream_fps, "jpeg": jpeg, "image_files": image_files}))
+                    "stream_736": stream_fps, "jpeg": jpeg, "image_files": image_files,
+                    "webp": webp_files}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,17 +19,22 @@ Reads, as (H, W, 3) uint8 RGB, what ``cv2.imread(IMREAD_COLOR)`` gives:
   or planar, uncompressed, PackBits, LZW or Deflate, the horizontal
   predictor, grey, RGB and palette images at 1-16 bits, alpha dropped as
   libtiff drops it);
+* WebP, through ``data/webp.py`` (lossy VP8 with libwebp's fancy
+  upsampling, lossless VP8L, the extended form: alpha dropped, EXIF
+  orientation applied, an animation's first frame);
 * binary PPM (P6, maxval 255);
 * ``.npy`` arrays of shape (H, W, 3) and dtype uint8.
 
-Anything else (WebP, a video file, the JPEG, BMP and TIFF forms those
+Anything else (a video file, the JPEG, BMP, TIFF and WebP forms those
 modules refuse) is refused with ``UnsupportedImage``, whose message names
 the form and what is read.  Nothing tries another decoder.
 
 ``write_image`` writes (H, W, 3) uint8 RGB arrays as ``cv2.imwrite``
 writes them, the format chosen by the extension: JPEG (``data/
 jpeg_encode.py``, cv2's bytes at quality 95), PNG (``write_png``), BMP
-(cv2's bytes), TIFF (LZW, as cv2 writes it) or PPM (P6).  A directory of
+(cv2's bytes), TIFF (LZW, as cv2 writes it), WebP (lossless VP8L, as cv2
+writes it with no quality given; ``data/vp8l.py``'s own encoding, which
+cv2 reads back to the pixels written) or PPM (P6).  A directory of
 readable files, sorted, is a video source (``frame_paths``).  Directories
 are filtered by ``IMAGE_EXTENSIONS``.
 """
@@ -40,21 +45,21 @@ import zlib
 
 import numpy as np
 
-from . import bmp, jpeg_encode, tiff
+from . import bmp, jpeg_encode, tiff, webp
 from .jpeg import UnsupportedJpeg
 from .jpeg import decode as decode_jpeg
 
 READABLE = ("PNG (every colour type and bit depth, interlaced or not), JPEG (baseline, "
             "extended or progressive Huffman, 8-bit, 1 or 3 components), BMP (palette, RLE4, "
             "RLE8, 16, 24 and 32 bits), TIFF (uncompressed, PackBits, LZW or Deflate; grey, "
-            "RGB or palette), binary PPM (P6) and .npy (H, W, 3) uint8")
+            f"RGB or palette), {webp.FORMS}, binary PPM (P6) and .npy (H, W, 3) uint8")
 # What a directory of images or frames is filtered to: the JAX CLI's image
-# extensions and the port's own.  WebP among them is refused when read.
+# extensions and the port's own.
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp", ".ppm", ".npy")
 # write_image: extension -> encoder of (H, W, 3) uint8 RGB to bytes, as
 # cv2.imwrite chooses it
 WRITERS = {".jpg": jpeg_encode.encode, ".jpeg": jpeg_encode.encode, ".bmp": bmp.encode,
-           ".tif": tiff.encode, ".tiff": tiff.encode}
+           ".tif": tiff.encode, ".tiff": tiff.encode, ".webp": webp.encode}
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -62,8 +67,7 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
 # files refused by name, by their first bytes
-_REFUSED_MAGIC = ((b"WEBP", 8, "a WebP file"), (b"ftyp", 4, "a video file"),
-                  (b"AVI ", 8, "a video file"))
+_REFUSED_MAGIC = ((b"ftyp", 4, "a video file"), (b"AVI ", 8, "a video file"))
 
 
 class UnsupportedImage(ValueError):
@@ -98,6 +102,11 @@ def read_image(path):
         try:
             return tiff.decode(data)
         except tiff.UnsupportedTiff as e:
+            raise UnsupportedImage(path, str(e)) from None
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        try:
+            return webp.decode(data)
+        except webp.UnsupportedWebP as e:
             raise UnsupportedImage(path, str(e)) from None
     for magic, at, what in _REFUSED_MAGIC:
         if data[at:at + len(magic)] == magic:

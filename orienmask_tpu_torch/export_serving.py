@@ -3,13 +3,16 @@ verify that the loaded programs give the live pipeline's outputs bit for bit
 (counterpart of ``tools/export_serving.py``):
 
     python -m orienmask_tpu_torch.export_serving -c <config name or .json> \\
-        [-w <.pth or .ckpt>] [-o dir] [--shape B,H,W ...] [--skip-verify] [--device cpu]
+        [-w <.pth or .ckpt>] [-o dir] [--shape B,H,W ...] [--skip-verify] [--device cpu] \\
+        [--platforms cpu cuda]
 
 Without ``-w`` the model takes seeded random weights (the program is the
 same).  The checkpoint is read as the infer CLI reads it.  The artifact is
-for the pipeline's own device (``--device``, the card by default); an int8
-artifact comes from ``serving.export_pipeline`` on a pipeline after
-``quantize_int8``.
+for the pipeline's own device (``--device``, the card by default) or for
+the device types ``--platforms`` lists (``cpu``, ``cuda``); each program
+this machine can run is verified on its own device against the live
+pipeline there.  An int8 artifact comes from ``serving.export_pipeline`` on
+a pipeline after ``quantize_int8``.
 """
 
 import argparse
@@ -22,7 +25,7 @@ import torch
 
 from .device import resolve_device
 from .infer import build_pipeline, load_config
-from .serving import export_pipeline, load_serving
+from .serving import PLATFORMS, export_pipeline, load_serving
 
 
 def build_parser():
@@ -36,6 +39,8 @@ def build_parser():
     parser.add_argument("--skip-verify", action="store_true")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) or cpu")
+    parser.add_argument("--platforms", nargs="*", choices=PLATFORMS, default=None,
+                        help="device types to export for (default: --device's)")
     return parser
 
 
@@ -55,7 +60,7 @@ def main(argv=None):
         shapes = [(1, net_h, net_w, 3)]
 
     t0 = time.time()
-    manifest = export_pipeline(pipeline, shapes, args.output)
+    manifest = export_pipeline(pipeline, shapes, args.output, platforms=args.platforms or None)
     sizes = {f: os.path.getsize(os.path.join(args.output, f)) // 1024
              for f in sorted(os.listdir(args.output))}
     print("[export] %.1fs -> %s" % (time.time() - t0, args.output))
@@ -63,18 +68,22 @@ def main(argv=None):
 
     if args.skip_verify:
         return 0
-    rng = np.random.default_rng(0)
-    served = load_serving(args.output, device)
-    for shape in shapes:
-        image = torch.from_numpy(rng.integers(0, 255, shape, np.uint8)).to(device)
-        t0 = time.time()
-        got = served.run_device(image)
-        t_first = time.time() - t0
-        want = pipeline.run_device(image)
-        for key in want:
-            if not torch.equal(want[key], got[key]):
-                raise SystemExit(f"[verify] {shape}: '{key}' differs from the live pipeline")
-        print("[verify] %s bit-exact vs live pipeline (first call %.1fs)" % (shape, t_first))
+    for platform in manifest["platforms"]:
+        live = pipeline.to(platform)  # export_pipeline checked that it exists
+        served = load_serving(args.output, live.device)
+        rng = np.random.default_rng(0)
+        for shape in shapes:
+            image = torch.from_numpy(rng.integers(0, 255, shape, np.uint8)).to(live.device)
+            t0 = time.time()
+            got = served.run_device(image)
+            t_first = time.time() - t0
+            want = live.run_device(image)
+            for key in want:
+                if not torch.equal(want[key], got[key]):
+                    raise SystemExit(f"[verify] {platform} {shape}: '{key}' differs from the "
+                                     "live pipeline")
+            print("[verify] %s bit-exact vs live pipeline on %s (first call %.1fs)"
+                  % (shape, platform, t_first))
     print("[export] OK")
     return 0
 

@@ -12,7 +12,8 @@ raises when that is not 0.  ``launches`` holds one count per kernel, which
 its wrapper raises by one where it launches the kernel.
 
 Host code with a C interface, ``csrc/<name>.cc`` (the JPEG entropy
-decoder and coder, TIFF's LZW codec, the native host library ``omtpu``), is built the same way with the
+decoder and coder, TIFF's LZW codec, WebP's VP8 and VP8L loops, the native
+host library ``omtpu``), is built the same way with the
 host C++ compiler (``g++``, which nvcc itself needs) into
 ``csrc/build/lib<name>.so`` by ``host_library``; it runs on the CPU, so the
 tests build and call it too.  It raises when the build fails: nothing falls
@@ -89,6 +90,22 @@ HOST_SIGNATURES = {
         # in, its length, out, its capacity
         "omt_lzw_decode": (_L, [_P, _L, _P, _L]),
         "omt_lzw_encode": (_L, [_P, _L, _P, _L]),
+    },
+    "webp_host": {
+        # data, its length, bit position, xsize, ysize, level0, out
+        "omw_vp8l_image": (_L, [_P, _L, _L, _I, _I, _I, _P]),
+        # pixels, width, height, mode image, its tile bits
+        "omw_vp8l_predictor": (None, [_P, _I, _I, _P, _I]),
+        # pixels, width, height, tile bits, residuals, modes
+        "omw_vp8l_predictor_forward": (None, [_P, _I, _I, _I, _P, _P]),
+        # values, widths, n, out, its capacity
+        "omw_vp8l_pack_bits": (_L, [_P, _P, _L, _P, _L]),
+        # pixels, n, xsize, cache bits, chain, kinds, a, b
+        "omw_vp8l_backward_refs": (_L, [_P, _L, _I, _I, _I, _P, _P, _P]),
+        # data, its length, first partition's state, token partitions,
+        # params, coefficient and 4x4-mode probabilities, dequantization,
+        # filter strengths, Y, U, V
+        "omw_vp8_decode": (_I, [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     },
     "omtpu": {
         # dets (n, 5), n, threshold, keep

@@ -15,6 +15,8 @@ in the JAX layout, (B, H, W, A*(5+C)) and (B, H/4, W/4, 2A) per scale;
 flatten order is scale-major then anchor-major, as in JAX.
 """
 
+import copy
+
 import numpy as np
 import torch
 
@@ -85,6 +87,19 @@ class OrienMaskYOLOPostProcess:
         self.det_grid_nh = dev(np.concatenate(gnh))
         self.orien_channel_perm = dev(perm)
         self._resize = {}  # (h4, w4) -> (mh, mw^T)
+
+    def to(self, device):
+        """A copy of this postprocess on ``device``: the same settings and
+        constants, moved (``serving.export_pipeline`` traces a program for
+        each platform from one pipeline)."""
+        device = resolve_device(device)
+        other = copy.copy(self)
+        other.device = device
+        for name, value in vars(self).items():
+            if isinstance(value, torch.Tensor):
+                setattr(other, name, value.to(device))
+        other._resize = {}
+        return other
 
     # ------------------------------------------------------------- detect
 

@@ -8,17 +8,19 @@ its collectives itself (the loss's divisors, the BatchNorm statistics, the
 gradient sum, the logs; ``trainer/train_state.py``).  Every rank issues the
 same collectives, of the same sizes, in the same order, whatever its data.
 
-Devices and backends: rank r uses ``cuda:(r % torch.cuda.device_count())``.
-NCCL when every rank has a card of its own (the ranks are taken to share a
-host: ``num_processes`` at most the card count); gloo with CUDA tensors when
-ranks share a card (NCCL refuses two ranks on one device; gloo copies
-through the host); gloo on the CPU.
+Devices and backends: rank r uses ``cuda:(r % torch.cuda.device_count())``
+(its local rank where a launcher places ranks host by host, as torchrun
+does).  NCCL when every rank has a card of its own (``choose_backend``: the
+launcher's local world size, or ``num_processes`` on one host, at most the
+card count); gloo with CUDA tensors when ranks share a card (NCCL refuses
+two ranks on one device; gloo copies through the host); gloo on the CPU.
 
 ``data_mesh``, ``batch_sharding`` and ``replicate_sharding`` have no
 counterpart: there is no global array to place.
 """
 
 import datetime
+import os
 
 import torch
 import torch.distributed as dist
@@ -34,9 +36,18 @@ BUCKET_NUMEL = 1 << 24
 
 
 def choose_backend(device, num_processes):
+    """NCCL when every rank of this host has a card of its own, else gloo.
+
+    The ranks on this host are the launcher's local world size where it
+    gives one (``LOCAL_WORLD_SIZE``, which ``torchrun`` sets), else all
+    ``num_processes`` (one host).  Every rank must choose the same backend,
+    so the rule assumes that every host launches the same number of ranks,
+    as ``torchrun --nproc-per-node`` does.  A CPU device takes gloo."""
     if device.type != "cuda":
         return "gloo"
-    return "nccl" if num_processes <= torch.cuda.device_count() else "gloo"
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    ranks_here = int(local) if local else num_processes
+    return "nccl" if ranks_here <= torch.cuda.device_count() else "gloo"
 
 
 def check_process_args(coordinator, num_processes, process_id):

@@ -17,7 +17,10 @@ every rank; with ``spatial_masks`` the postprocess's image-resolution tail
 too (``run_batch_spatial``).  Every rank returns the whole outputs.
 """
 
+import copy
+
 import torch
+from torch.utils._pytree import tree_map
 
 from .device import resolve_device
 from .models.quantize import calibrate_folded, cast_kernels, quantize_folded
@@ -96,6 +99,23 @@ class InferencePipeline:
             quantize_folded(self.model, folded, scales, exclude_stem=not stem), self.device,
             self.dtype)
         return self
+
+    def to(self, device):
+        """A copy of this pipeline on ``device``: the same model, transform
+        and settings, its folded weights and postprocess moved there with
+        their bits and strides (``serving.export_pipeline`` traces each
+        platform's program from it).  A spatial pipeline is refused."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        if self.space is not None:
+            raise ValueError("a spatial pipeline (space=...) is one rank of a group; it "
+                             "cannot move to another device")
+        other = copy.copy(self)
+        other.device = device
+        other.folded = tree_map(lambda t: t.to(device), self.folded)
+        other.postprocess = self.postprocess.to(device)
+        return other
 
     def _heads(self, folded, image):
         x = self.transform.apply(image.float())  # (B, h, w, 3) f32

@@ -13,11 +13,16 @@ layout:
 
     manifest.json               input shapes, trim rules, versions, weight metadata
     weights.npz                 folded weights, flattened in pytree order
-    program_{B}x{H}x{W}x3.pt2   one ``torch.export`` program per input shape
+    program_{B}x{H}x{W}x3_{platform}.pt2
+                                one ``torch.export`` program per input shape
+                                and platform
 
 The weights are the programs' inputs, not constants in them, so the shapes
-share one weight blob, and a new checkpoint of the same architecture is an
-npz swap (``update_weights``) that leaves the programs as they are.
+and platforms (``cpu``, ``cuda``: programs traced on each device, kernels 1
+and 2 reached through their custom operators, whose CPU implementation is
+the plain version) share one weight blob, and a new checkpoint of the same
+architecture is an npz swap (``update_weights``) that leaves the programs
+as they are.  A loader picks the programs of the device it loads on.
 
 The programs are ``torch.export`` graphs of the same ATen operators and
 custom operators that the live pipeline runs, not AOTInductor: Inductor
@@ -39,7 +44,10 @@ from .ops.maskops import unpack_bits_np
 
 MANIFEST = "manifest.json"
 WEIGHTS = "weights.npz"
-_FORMAT_VERSION = 2
+# 3: programs for several platforms (``programs_by_platform``); version 2
+# artifacts (one platform, programs listed without one) still load
+_FORMAT_VERSION = 3
+PLATFORMS = ("cpu", "cuda")
 # torch dtypes numpy cannot hold: stored as unsigned views of their width
 _VIEWS = {torch.bfloat16: (torch.int16, np.uint16)}
 
@@ -76,10 +84,6 @@ def _arch_fingerprint(model, spec, flat):
     return h.hexdigest()
 
 
-def _program_name(shape):
-    return "program_" + "x".join(str(int(s)) for s in shape) + ".pt2"
-
-
 def _write_weights(out_dir, flat):
     blobs, digests = {}, []
     for i, leaf in enumerate(flat):
@@ -102,24 +106,51 @@ class _Program(torch.nn.Module):
         return self.run(pytree.tree_unflatten(list(weights), self.spec), image)
 
 
+def _platforms(pipeline, platforms):
+    """The device types to export for: ``None`` is the pipeline's own;
+    each must be one the port can trace for, present on this machine."""
+    if platforms is None:
+        return [pipeline.device.type]
+    platforms = list(dict.fromkeys(platforms))
+    if not platforms:
+        raise ValueError("platforms must name at least one of " + ", ".join(PLATFORMS))
+    for platform in platforms:
+        if platform not in PLATFORMS:
+            raise ValueError(
+                f"platform {platform!r}: the port exports torch.export programs for "
+                f"{', '.join(PLATFORMS)} only; JAX's StableHLO artifacts (platforms such as "
+                "'tpu') do not load in the port (ROADMAP Queue 3, 'Serving')")
+        if platform == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("platform 'cuda': no CUDA device is available to trace its "
+                               "program on; an export never falls back to another platform")
+    return platforms
+
+
+def _program_name(shape, platform):
+    """``program_{B}x{H}x{W}x3_{platform}.pt2``; a loader reads the names
+    from the manifest, so version-2 names still load."""
+    return "program_" + "x".join(str(int(s)) for s in shape) + f"_{platform}.pt2"
+
+
 def export_pipeline(pipeline, input_shapes, out_dir, platforms=None):
     """Export ``pipeline`` (an ``InferencePipeline``, bf16, f32 or int8)
     for serving.
 
-    input_shapes: (B, H, W, 3) uint8 input shapes, one program each.
-    platforms: the device types the artifact runs on; only the pipeline's
-      own device is supported (cross-platform artifacts: ROADMAP Queue 1
-      item 9's remainder).  A spatial pipeline (``space=``) is refused, as
-      JAX's ``export_pipeline`` refuses a mesh: its program is one of a
-      group of ranks, whose collectives an artifact cannot hold."""
+    input_shapes: (B, H, W, 3) uint8 input shapes, one program each and
+      platform.
+    platforms: the device types the artifact runs on, any of ``"cpu"`` and
+      ``"cuda"`` (JAX ``platforms=``); None is the pipeline's own device.
+      Each platform's programs are traced from the pipeline's folded
+      weights placed on that platform's device (``InferencePipeline.to``);
+      all share the one ``weights.npz``.  A platform the port cannot trace
+      for, or ``"cuda"`` with no card, raises.  A spatial pipeline
+      (``space=``) is refused, as JAX's ``export_pipeline`` refuses a mesh:
+      its program is one of a group of ranks, whose collectives an artifact
+      cannot hold."""
     if getattr(pipeline, "space", None) is not None:
         raise ValueError("export_pipeline: a spatial pipeline (space=...) cannot be exported; "
                          "export the one-device pipeline")
-    own = [pipeline.device.type]
-    if platforms is not None and list(platforms) != own:
-        raise ValueError(f"platforms {list(platforms)}: an artifact runs on the device it was "
-                         f"exported on, {own}; cross-platform artifacts are ROADMAP Queue 1 "
-                         "item 9's remainder")
+    platforms = _platforms(pipeline, platforms)
     if not input_shapes:
         raise ValueError("input_shapes must name at least one (B, H, W, 3)")
     os.makedirs(out_dir, exist_ok=True)
@@ -127,24 +158,30 @@ def export_pipeline(pipeline, input_shapes, out_dir, platforms=None):
     flat, spec = pytree.tree_flatten(pipeline.folded)
     digests = _write_weights(out_dir, flat)
 
-    module = _Program(pipeline, spec)
-    programs = {}
-    for shape in input_shapes:
-        shape = tuple(int(s) for s in shape)
-        image = torch.zeros(shape, dtype=torch.uint8, device=pipeline.device)
-        pipeline.run_device(image)  # builds the shape's constants before tracing
-        with torch.no_grad():
-            program = torch.export.export(module, (tuple(flat), image))
-        program.example_inputs = None  # else the file keeps a copy of the weights
-        name = _program_name(shape)
-        torch.export.save(program, os.path.join(out_dir, name))
-        programs[name] = {"input_shape": list(shape)}
+    programs, by_platform = {}, {}
+    for platform in platforms:
+        live = pipeline.to(platform)
+        module = _Program(live, spec)
+        weights = tuple(pytree.tree_leaves(live.folded))
+        by_platform[platform] = []
+        for shape in input_shapes:
+            shape = tuple(int(s) for s in shape)
+            image = torch.zeros(shape, dtype=torch.uint8, device=live.device)
+            live.run_device(image)  # builds the shape's constants before tracing
+            with torch.no_grad():
+                program = torch.export.export(module, (weights, image))
+            program.example_inputs = None  # else the file keeps a copy of the weights
+            name = _program_name(shape, platform)
+            torch.export.save(program, os.path.join(out_dir, name))
+            programs[name] = {"input_shape": list(shape), "platform": platform}
+            by_platform[platform].append(name)
 
     post = pipeline.postprocess
     manifest = {
         "format_version": _FORMAT_VERSION,
         "torch_version": torch.__version__,
-        "platforms": own,
+        "platforms": platforms,
+        "programs_by_platform": by_platform,
         "n_weights": len(flat),
         "weight_dtypes": [_dtype_name(t.dtype) for t in flat],
         "weight_shapes": [list(t.shape) for t in flat],
@@ -233,7 +270,10 @@ class ServingModel:
         self.weights = tuple(weights)
         self.arch_fingerprint = self.manifest["arch_fingerprint"]
         self._fns = {}
-        for name, meta in self.manifest["programs"].items():
+        names = self.manifest.get("programs_by_platform",
+                                  {self.manifest["platforms"][0]: list(self.manifest["programs"])})
+        for name in names[self.device.type]:
+            meta = self.manifest["programs"][name]
             module = torch.export.load(os.path.join(out_dir, name)).module()
             # ``run_device`` checks the image's shape and dtype and the
             # weights were checked here: the module's own per-call check of

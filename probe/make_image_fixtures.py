@@ -80,12 +80,13 @@ def main():
     files["packbits.tif"] = buf.getvalue()
     files["tiled_deflate.tif"] = _tiff(scene(23, h, w), 2, compression=8, predictor=2,
                                        tile=(64, 64))
-    digests = {}
+    path = OUT / "digests.json"  # make_webp_fixtures.py keeps its entries here too
+    digests = json.loads(path.read_text()) if path.exists() else {}
     for name, data in files.items():
         (OUT / name).write_bytes(data)
         shape, digest = rgb_digest(OUT / name)
         digests[name] = {"shape": shape, "sha256": digest}
-    (OUT / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
+    path.write_text(json.dumps(digests, indent=1) + "\n")
     assert struct.unpack("<I", files["rle8.bmp"][30:34])[0] == 1  # BI_RLE8
     total = sum(p.stat().st_size for p in OUT.iterdir())
     print(f"{len(files)} fixtures, {total} bytes in {OUT.relative_to(ROOT)}/")

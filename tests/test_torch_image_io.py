@@ -131,7 +131,8 @@ def test_ppm_and_npy_round_trip(tmp_path):
 
 def test_refused_formats_name_what_is_read(tmp_path):
     image = np.random.default_rng(6).integers(0, 256, (8, 8, 3), dtype=np.uint8)
-    cv2.imwrite(str(tmp_path / "a.webp"), image)
+    cv2.imwrite(str(tmp_path / "whole.webp"), image)  # a WebP cut short: its RIFF size lies
+    (tmp_path / "a.webp").write_bytes((tmp_path / "whole.webp").read_bytes()[:40])
     Image.fromarray(image).convert("CMYK").save(tmp_path / "cmyk.jpg")
     # a bit depth the colour type does not allow
     (tmp_path / "rgb4.png").write_bytes(_png(
@@ -139,7 +140,7 @@ def test_refused_formats_name_what_is_read(tmp_path):
     np.save(tmp_path / "f32.npy", image.astype(np.float32))
     (tmp_path / "clip.mp4").write_bytes(b"\x00\x00\x00\x18ftypmp42")
     (tmp_path / "notes.txt").write_bytes(b"hello")
-    for name, why in (("a.webp", "a WebP file"), ("cmyk.jpg", "4-component JPEG"),
+    for name, why in (("a.webp", "a truncated WebP file"), ("cmyk.jpg", "4-component JPEG"),
                       ("rgb4.png", "colour type 2 at 4 bits"), ("f32.npy", "float32"),
                       ("clip.mp4", "a video file"), ("notes.txt", "not an image file")):
         with pytest.raises(UnsupportedImage, match=why) as err:

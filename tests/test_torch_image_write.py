@@ -137,7 +137,7 @@ def test_write_image_chooses_the_format_by_extension(tmp_path, ext):
         assert ours.read_bytes() == theirs.read_bytes()
 
 
-@pytest.mark.parametrize("name", ["a.gif", "a.webp", "a"])
+@pytest.mark.parametrize("name", ["a.gif", "a.mp4", "a"])
 def test_write_image_names_an_extension_it_cannot_write(tmp_path, name):
     with pytest.raises(ValueError, match="cannot write") as err:
         write_image(tmp_path / name, _image(4, 4, seed=0))

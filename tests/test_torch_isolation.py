@@ -74,7 +74,9 @@ def test_pipeline_imports_with_jax_blocked():
             "orienmask_tpu_torch.native, orienmask_tpu_torch.ops.recover, "
             "orienmask_tpu_torch.ops.resize, orienmask_tpu_torch.ops.int8_conv, "
             "orienmask_tpu_torch.models.quantize, orienmask_tpu_torch.optim.param_groups, "
-            "orienmask_tpu_torch.models.resnet, orienmask_tpu_torch.parallel.spatial\n"
+            "orienmask_tpu_torch.models.resnet, orienmask_tpu_torch.parallel.spatial, "
+            "orienmask_tpu_torch.data.webp, orienmask_tpu_torch.data.vp8, "
+            "orienmask_tpu_torch.data.vp8l\n"
             "from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer\n"
             "InferenceVisualizer('COCO')\n"
             "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "
@@ -99,6 +101,30 @@ def test_training_modules_import_with_jax_and_host_packages_blocked():
             "orienmask_tpu_torch.train, orienmask_tpu_torch.test\n"
             "from orienmask_tpu_torch.trainer.base import tensorboard_writer\n"
             "assert tensorboard_writer('.') is None\n"
+            "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "
+            "for m, v in sys.modules.items() if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_webp_reads_and_writes_with_host_packages_blocked():
+    """The WebP reader and writer run with JAX, cv2, PIL and Python's webp
+    bindings unimportable, and no libwebp is loaded into the process: the
+    codecs are the port's own (``data/vp8.py``, ``data/vp8l.py``,
+    ``csrc/webp_host.cc``)."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'orienmask_tpu', 'cv2', 'PIL', 'webp'): "
+            "sys.modules[m] = None\n"
+            "import numpy as np\n"
+            "from orienmask_tpu_torch.data.image_io import read_image, encode_image\n"
+            "from orienmask_tpu_torch.data import webp\n"
+            "for name in ('webp_vp8l.webp', 'webp_vp8_q95.webp', 'webp_animated.webp'):\n"
+            "    image = read_image('tests/image_fixtures/' + name)\n"
+            "    assert (webp.decode(encode_image('.webp', image)) == image).all()\n"
+            "import re\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert not re.search(r'libwebp(demux|mux)?\\.so|libopencv', maps), maps\n"
             "assert not any(m.split('.')[0] in ('jax', 'orienmask_tpu') "
             "for m, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

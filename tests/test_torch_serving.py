@@ -260,9 +260,15 @@ def test_artifact_integrity_checks(artifacts, tmp_path):
 
 
 def test_platforms_and_device_are_checked(models, artifacts, tmp_path):
+    """A platform the port cannot export is refused naming it; ``cuda``
+    without a card raises (``tests/test_torch_platforms.py`` holds the
+    exports for several platforms)."""
     _, pipe = models
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        export_pipeline(pipe, SHAPES[:1], tmp_path, platforms=["cuda", "cpu"])
+    with pytest.raises(ValueError, match="'tpu'"):
+        export_pipeline(pipe, SHAPES[:1], tmp_path, platforms=["tpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            export_pipeline(pipe, SHAPES[:1], tmp_path, platforms=["cuda", "cpu"])
     manifest = json.loads((artifacts[1] / MANIFEST).read_text())
     shutil.copytree(artifacts[1], tmp_path, dirs_exist_ok=True)
     (tmp_path / MANIFEST).write_text(json.dumps(dict(manifest, platforms=["cuda"])))
@@ -425,4 +431,4 @@ def test_export_cli_in_process(tmp_path, capsys):
                                 "--device", "cpu"]) == 0
     printed = capsys.readouterr().out
     assert "[verify] (2, 96, 96, 3) bit-exact" in printed and "[export] OK" in printed
-    assert sorted(p.name for p in out.iterdir()) == [MANIFEST, "program_2x96x96x3.pt2", WEIGHTS]
+    assert sorted(p.name for p in out.iterdir()) == [MANIFEST, "program_2x96x96x3_cpu.pt2", WEIGHTS]
