@@ -7,8 +7,9 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
 
 1. build the hand-written kernels of ``orienmask_tpu_torch/csrc`` with nvcc
    for sm_90a and the host libraries (``csrc/*.cc``: the JPEG scans and
-   coder, TIFF's LZW codec, WebP's VP8 and VP8L loops, the native host library
-   ``omtpu``) with g++; print the card, the build time
+   coder, TIFF's LZW codec, WebP's VP8 and VP8L loops, the MPEG-4 Part 2
+   loops, the native host library ``omtpu``) with g++; print the card, the
+   build time
    and ptxas's registers, shared memory and spills for kernels 1–4 and 6;
 2. kernel 1 (exact top-k) against its plain version on the card: values and
    indices bit-identical on every case, each with its launch plan (C, chunk),
@@ -240,7 +241,23 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    exported at (1, 480, 640, 3) for ``["cpu", "cuda"]`` into one artifact,
    loaded by a fresh process without the model code on the card and then
    on the CPU, each served program equal by bits to the live pipeline on
-   its device, kernels 1 and 2 launched twice and once a CUDA call.
+   its device, kernels 1 and 2 launched twice and once a CUDA call;
+25. video files in and out: (a) every committed video fixture read on the
+   host to cv2's committed per-frame digests, rate and frame count (the
+   refused ones refused by their names); the infer CLI at 736² (the
+   full-width model, seeded random weights whose bbox heads' objectness
+   and class rows are set so that about two detections a frame are drawn
+   on every frame) with --video over the
+   committed 720x1280 MP4 and -o out.mp4, then over the AVI and -o
+   out.avi: kernel 1 48 and kernel 2 24 times a run, every call identical
+   to its plain version, each output the bytes ``VideoWriter`` writes for
+   the plain-version drawings (failing where nothing was drawn), read back
+   to 24 frames of 720x1280 at the source's rate; (b) the C++ MPEG-4 loops
+   equal to the plain ones (the macroblock loop VOP by VOP on the small
+   fixtures, the encoder and colour loops on four 176x144 frames) and the
+   host ms a 720x1280 frame of demux, decode, colour conversions, encode
+   and mux; (c) streamed FPS at 736², depth 2, with frames decoded from the
+   MP4 against read from a directory of their PNGs.
 
 Each phase's first line gives the seconds since the script's start.  The
 last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
@@ -249,7 +266,7 @@ last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``serving_544``, ``spatial_544``);
 ``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
 "depth2": ..., "staged_fps": ...}, "jpeg": {...}, "image_files": {...},
-"webp": {...}}``; the card's name and
+"webp": {...}, "video": {...}}``; the card's name and
 power limit; the kernels' JSON record: every kernel carries per-path launch
 counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
 jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
@@ -260,8 +277,8 @@ serving_int8, and with kernel 6 accuracy_f32, accuracy_bf16 and
 accuracy_int8; kernels 1 and 2 spatial and spatial_int8, kernel 5
 spatial_train, kernels 5, 1, 2 and 6 spatial_train_cli; kernels 1 and 2
 image_files_cli and image_files_video, kernel 5 train_resizes; kernels 1 and
-2 webp_cli, webp_video and platforms_cuda), kernels 1 and
-2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
+2 webp_cli, webp_video and platforms_cuda; kernels 1 and 2 video_mp4 and
+video_avi), kernels 1 and 2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
 kernel 6 phase 16's cases; the last line is ``{"ok": true, "device":
 {...}}``.  ``--profile DIR`` also writes
 torch.profiler tables of 20 frames and of 3 train steps in each dtype to
@@ -273,6 +290,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4803,6 +4821,328 @@ def check_platforms():
     return {"platforms_cuda": counts["cuda"]}, res
 
 
+# ------------------------------------------------------------ phase 25
+
+# phase 25 (a): the committed 720x1280 scene (cv2's mp4v) and the file each
+# CLI run writes
+VIDEO_RUNS = (("video_720x1280_25.mp4", "out.mp4"), ("video_720x1280_2997.avi", "out.avi"))
+VIDEO_FRAMES = 24
+VIDEO_WINDOWS = 2  # streamed windows a source in (c), after one warm-up window
+VIDEO_DRAWN_A_FRAME = 2  # detections above conf_thresh a frame of (a), on average
+
+
+def video_fixture_names():
+    """The readable committed video fixtures, from digests.json."""
+    digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
+    return digests, sorted(n for n, d in digests.items() if n.endswith((".mp4", ".avi"))
+                           and "refused" not in d)
+
+
+def check_video_fixtures():
+    """Phase 25 (a) and (b), on the card's host: every readable committed
+    video fixture reads, frame by frame, to cv2's committed digests, at
+    cv2's rate and frame count; every refused one names its form; the C++
+    macroblock loop equals the plain one VOP by VOP (planes and end bit) on
+    the small fixtures, the C++ encoder loop the plain one on a small scene,
+    the C++ colour loops the plain ones."""
+    import hashlib
+
+    from orienmask_tpu_torch import kernels
+    from orienmask_tpu_torch.data import mpeg4, mpeg4_encode, video, yuv
+
+    t = time.perf_counter()
+    kernels.host_library("mpeg4_host")
+    build_s = time.perf_counter() - t
+    digests, names = video_fixture_names()
+    frames = 0
+    for name in names:
+        want = digests[name]
+        reader = video.VideoReader(IMAGE_FIXTURES / name)
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in reader]
+        if got != want["frame_sha256"] or (reader.fps, reader.frame_count) != \
+                (want["fps"], want["frame_count"]):
+            raise AssertionError(f"{name} does not read to cv2's frames, rate and count")
+        frames += len(got)
+    refused = sorted(n for n, d in digests.items() if "refused" in d)
+    for name in refused:
+        try:
+            list(video.VideoReader(IMAGE_FIXTURES / name))
+        except video.UnsupportedVideo as e:
+            if digests[name]["refused"] not in str(e) or "ROADMAP Queue 1 item 1" not in str(e):
+                raise AssertionError(f"{name}: refused as {e}") from None
+        else:
+            raise AssertionError(f"{name} was read; it is a refused form")
+    vops = 0
+    for name in names:
+        if "720x1280" in name:
+            continue
+        reader = video.VideoReader(IMAGE_FIXTURES / name)
+        decoder = mpeg4.Decoder(reader.config)
+        ref = None
+        for packet in reader.packet_bytes():
+            at = decoder._headers(packet)
+            if at is None:
+                continue
+            vop = mpeg4.Vop(packet[at:], decoder.vol)
+            if not vop.coded:
+                continue
+            prm = mpeg4.params(decoder.vol, vop)
+            got, end = mpeg4.decode_vop_native(packet[at:], vop.bitpos, prm, ref)
+            want, want_end = mpeg4.decode_vop_py(packet[at:], vop.bitpos, prm, ref)
+            if end != want_end or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name}: the C++ macroblock loop differs from the plain one")
+            ref = got
+            vops += 1
+    scene = [f for f in video.VideoReader(IMAGE_FIXTURES / "video_176x144_2997.avi")][:4]
+    plain = mpeg4_encode.Encoder(176, 144, 29.97, global_header=True, native=False)
+    cpp = mpeg4_encode.Encoder(176, 144, 29.97, global_header=True, native=True)
+    for frame in scene:
+        planes = yuv.rgb_to_yuv420_py(frame)
+        if not all(np.array_equal(a, b) for a, b in zip(planes, yuv.rgb_to_yuv420_native(frame))):
+            raise AssertionError("the C++ RGB -> YUV loop differs from the plain one")
+        if not np.array_equal(yuv.yuv420_to_rgb_py(*planes), yuv.yuv420_to_rgb_native(*planes)):
+            raise AssertionError("the C++ YUV -> RGB loop differs from the plain one")
+        if plain.encode(*planes) != cpp.encode(*planes) or \
+                not all(np.array_equal(a, b) for a, b in zip(plain.ref, cpp.ref)):
+            raise AssertionError("the C++ encoder loop differs from the plain one")
+    log(f"  {len(names)} video fixtures read to cv2's committed digests ({frames} frames), "
+        f"{len(refused)} refused by their names; the C++ macroblock loop equal to the plain "
+        f"one on {vops} VOPs, the encoder and colour loops on {len(scene)} 176x144 frames "
+        f"(host library ready in {build_s:.2f} s)")
+    return {"fixtures": len(names), "refused": len(refused), "vops_checked": vops}
+
+
+def expected_video(path, source, wants, plain, config, seed, fps):
+    """The bytes ``VideoWriter`` writes for the visualizer's drawings of the
+    plain-version host lists on ``source``'s frames under ``seed``."""
+    import random
+
+    from orienmask_tpu_torch.data import video
+    from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer
+
+    vis = InferenceVisualizer(**_kw(config["visualizer"]))
+    size = config["transform"]["pipeline"][0]["size"]
+    random.seed(seed)
+    drawn = []  # detections drawn on each frame
+    with video.VideoWriter(path, fps) as writer:
+        for want, frame in zip(wants, video.VideoReader(source)):
+            host = plain.to_host_list(want)[0]
+            drawn.append(int((host["bbox"][:, 4] > vis.conf_thresh).sum()))
+            writer.write(vis(host, frame.astype(np.float32), (0, 0, 0, 0, *size)))
+    return path.read_bytes(), drawn
+
+
+def detecting_checkpoint(path, pipe, frames, thresh, per_frame=VIDEO_DRAWN_A_FRAME):
+    """Write to ``path`` the weights of ``pipe``'s model (seeded random)
+    with new objectness and class rows in its bbox heads' final convs, so
+    that about ``per_frame`` detections a frame of ``frames`` score above
+    ``thresh``, spread over the frames: random weights put none there, and
+    a video with nothing drawn on it cannot show a frame paired with
+    another frame's prediction.  Each anchor's objectness row is a seeded
+    random combination of the conv's rows with the frames' mean outputs
+    projected out, so that no frame scores above the others as a whole;
+    one seeded class a row has bias +4, the others -4 and no weights; one
+    objectness bias sets the count."""
+    from orienmask_tpu_torch.models.convert import variables_to_jax
+    from orienmask_tpu_torch.trainer.checkpoint import save_checkpoint
+
+    gen = torch.Generator().manual_seed(SEED + 25)
+    reach = thresh * (1 + math.exp(-4.0))  # thresh / sigmoid(4): the objectness at thresh
+    heads = [[bbox for bbox, _ in pipe.heads(frame[None])] for frame in frames]
+    rows, needs = [], []
+    with torch.no_grad():
+        for name, bboxes in zip(("bbox_head32", "bbox_head16", "bbox_head8"), zip(*heads)):
+            conv = getattr(pipe.model, name)[1]
+            bias = conv.bias.detach().to(bboxes[0].device)
+            # each frame's conv outputs before the bias: (positions, channels)
+            raw = [(b - bias).reshape(-1, bias.numel()).double() for b in bboxes]
+            means = torch.stack([r.mean(dim=0) for r in raw])
+            basis, _ = torch.linalg.qr((means - means.mean(dim=0)).T)
+            w = conv.weight.detach().reshape(bias.numel(), -1).double()
+            for a in range(3):  # anchors
+                g = torch.randn(bias.numel(), generator=gen, dtype=torch.float64)
+                g = g.to(basis.device)
+                g -= basis @ (basis.T @ g)  # every frame's mean objectness the same
+                g /= torch.cat([r @ g for r in raw]).std()
+                rows.append((conv, a, g.to(w.device) @ w))
+                # the objectness bias at which each position's score reaches thresh
+                needs += [math.log(reach / (1 - reach)) - r @ g for r in raw]
+        need = torch.sort(torch.cat(needs).float().cpu()).values
+        k = per_frame * len(frames)
+        obj_bias = float(need[k - 1] + need[k]) / 2
+        for conv, a, obj in rows:
+            weight = conv.weight.view(3, -1, conv.weight.shape[1])
+            bias = conv.bias.view(3, -1)
+            weight[a, 5:] = 0.0
+            bias[a, 5:] = -4.0
+            bias[a, 5 + int(torch.randint(weight.shape[1] - 5, (), generator=gen))] = 4.0
+            weight[a, 4] = obj.to(weight.dtype)
+            bias[a, 4] = obj_bias
+    save_checkpoint(str(path), variables_to_jax(pipe.model))
+
+
+def check_video_cli(workdir):
+    """Phase 25 (a): the infer CLI on the card at 736² (the full-width
+    model, seeded random weights with the bbox heads' objectness and class
+    rows set so that about ``VIDEO_DRAWN_A_FRAME`` detections a frame are
+    drawn, ``detecting_checkpoint``) with --video over the committed
+    720x1280 MP4 and -o out.mp4, then over the AVI and -o out.avi: 24
+    frames each, kernel 1 twice and kernel 2 once a frame,
+    every call identical to the plain-version postprocess on its heads, the
+    streamed host lists too; each output the bytes the writer writes for
+    the plain-version drawings, with detections drawn, read back by the
+    port to 24 frames of 720x1280 at the source's rate."""
+    import random
+
+    import orienmask_tpu_torch.config as configs
+    from orienmask_tpu_torch.data import video
+    from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer
+
+    name = "orienmask_yolo_coco_736_anchor4_fpn_plus_infer"
+    config = getattr(configs, name)
+    weights = workdir / "detecting.ckpt"
+    thresh = InferenceVisualizer(**_kw(config["visualizer"])).conf_thresh
+    scene = list(video.VideoReader(IMAGE_FIXTURES / VIDEO_RUNS[0][0]))
+    detecting_checkpoint(weights, build_pipeline(name)[0], scene, thresh)
+    counts, res = {}, {}
+    for source, out_name in VIDEO_RUNS:
+        src = IMAGE_FIXTURES / source
+        fps = video.VideoReader(src).fps
+        out = workdir / out_name
+        tag = "video_" + out_name.split(".")[1]
+        random.seed(SEED + 25)
+        t = time.perf_counter()
+        lines, calls, retrieved, launched, _ = run_cli(["-c", name, "-w", str(weights),
+                                                        "--video", str(src), "-o", str(out)])
+        run_s = time.perf_counter() - t
+        log(f"  {source} -> {out_name}: {len(calls)} frames in {run_s:.2f} s (model build "
+            f"included), launches: {launched}; report: " + "; ".join(lines))
+        n = VIDEO_FRAMES
+        if len(calls) != n or len(retrieved) != n or launched["exact_topk"] != 2 * n \
+                or launched["assemble_masks_packed"] != n or sum(launched.values()) != 3 * n:
+            raise AssertionError(f"{tag}: expected {n} frames, kernel 1 twice and kernel 2 "
+                                 f"once a frame; got {len(calls)}, {launched}")
+        plain, wants = check_against_plain(tag, calls, _kw(config["postprocess"]), 736)
+        for want, host in zip(wants, retrieved):
+            for got_r, want_r in zip(host, plain.to_host_list(want)):
+                for key in want_r:
+                    if not np.array_equal(got_r[key], want_r[key]):
+                        raise AssertionError(f"{tag}: the streamed host '{key}' differs")
+        expected, drawn = expected_video(workdir / ("expected." + out_name.split(".")[1]),
+                                         src, wants, plain, config, SEED + 25, fps)
+        if not sum(drawn):
+            raise AssertionError(f"{tag}: no detection above conf_thresh {thresh} in "
+                                 f"{n} frames; the video would hold the source frames alone")
+        if out.read_bytes() != expected:
+            raise AssertionError(f"{tag}: {out_name} differs from the writer's file of the "
+                                 "plain-version drawings")
+        reader = video.VideoReader(out)
+        back = list(reader)
+        if len(back) != n or back[0].shape != (720, 1280, 3) or reader.fps != fps \
+                or reader.frame_count != n:
+            raise AssertionError(f"{tag}: {out_name} reads back as {len(back)} frames of "
+                                 f"{back[0].shape} at {reader.fps}")
+        stream_line = [ln for ln in lines if ln.startswith("The average streaming time")]
+        res[tag] = {"run_s": run_s, "bytes": len(expected), "detections_drawn": sum(drawn),
+                    "frames_drawn_on": sum(1 for d in drawn if d),
+                    "cli_fps": float(stream_line[0].split("(")[1].split(" fps")[0])}
+        log(f"  {tag}: every frame identical to the plain-version postprocess on its heads; "
+            f"{out_name} ({len(expected)} bytes, {sum(drawn)} detections drawn on "
+            f"{res[tag]['frames_drawn_on']} of {n} frames: {drawn}) is the writer's file of "
+            f"the plain-version drawings, read back to {n} frames of 720x1280 at {fps} FPS")
+        counts[tag] = launched
+    return counts, res
+
+
+def check_video_codecs():
+    """Phase 25 (b): the host ms (median of ``CODEC_REPEATS``, of 3 for the
+    encode) of the 720x1280 MP4's demux, decode and RGB conversion a frame,
+    and of the writer's colour conversion, encode and mux a frame, in MP4
+    and AVI."""
+    from orienmask_tpu_torch.data import avi, mp4, mpeg4, mpeg4_encode, video, yuv
+
+    src = IMAGE_FIXTURES / VIDEO_RUNS[0][0]
+    reader = video.VideoReader(src)
+    n = len(reader.packets)
+    packets = list(reader.packet_bytes())
+    planes = list(reader.planes())
+    frames = [yuv.yuv420_to_rgb(*p) for p in planes]
+
+    def decode():
+        decoder = mpeg4.Decoder(reader.config)
+        for packet in packets:
+            decoder.decode(packet)
+
+    def encode():
+        enc = mpeg4_encode.Encoder(1280, 720, 25, global_header=True)
+        return [enc.encode(*yuv.rgb_to_yuv420(f)) for f in frames], enc
+
+    encoded, enc = encode()
+
+    def mux(kind):
+        buf = io.BytesIO()
+        writer = mp4.Writer(buf, 1280, 720, enc.rate, enc.headers) if kind == "mp4" else \
+            avi.Writer(buf, 1280, 720, enc.rate)
+        for packet, key in encoded:
+            writer.write(packet, key)
+        writer.close()
+
+    ms = {"demux": median_ms(lambda: list(video.VideoReader(src).packet_bytes())) / n,
+          "decode": median_ms(decode) / n,
+          "to_rgb": median_ms(lambda: [yuv.yuv420_to_rgb(*p) for p in planes]) / n,
+          "to_yuv": median_ms(lambda: [yuv.rgb_to_yuv420(f) for f in frames]) / n,
+          "encode": median_ms(lambda: encode(), 3) / n,
+          "mux_mp4": median_ms(lambda: mux("mp4")) / n,
+          "mux_avi": median_ms(lambda: mux("avi")) / n}
+    ms["encode"] -= ms["to_yuv"]  # encode() converts too
+    size = sum(len(p) for p, _ in encoded)
+    log("  host ms a 720x1280 frame (median of " + f"{CODEC_REPEATS}, {n} frames): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()) + f"; the writer's stream {size} bytes for the "
+        f"24 frames (cv2's MP4 {src.stat().st_size} bytes); card: {card_line()}")
+    return {"host_ms_720x1280": ms, "stream_bytes": size, "cv2_mp4_bytes": src.stat().st_size}
+
+
+def check_video_stream(workdir):
+    """Phase 25 (c): streamed FPS at the 736² config, depth 2, with each
+    frame decoded from the MP4 as the CLI's loop does, against each read
+    from a directory of its PNGs (phase 13's source); ``VIDEO_WINDOWS``
+    windows of 24 frames each after one, the median."""
+    from orienmask_tpu_torch.data import video
+    from orienmask_tpu_torch.data.image_io import read_image, write_png
+    from orienmask_tpu_torch.stream import StreamingPipeline
+
+    src = IMAGE_FIXTURES / VIDEO_RUNS[0][0]
+    frames_dir = workdir / "png_frames"
+    frames_dir.mkdir()
+    for i, frame in enumerate(video.VideoReader(src)):
+        write_png(frames_dir / f"frame_{i:04d}.png", frame)
+    paths = sorted(frames_dir.iterdir())
+    pipe, _ = build_pipeline("orienmask_yolo_coco_736_anchor4_fpn_plus_infer")
+    stream = StreamingPipeline(pipe, depth=2)
+    sources = {"mp4": lambda: iter(video.VideoReader(src)),
+               "png_dir": lambda: (read_image(p) for p in paths)}
+    rates = {}
+    for key, frames in sources.items():
+        windows = []
+        for _ in range(VIDEO_WINDOWS + 1):
+            start = time.perf_counter()
+            count = 0
+            for frame in frames():
+                stream.submit(frame[None])
+                count += 1
+                if stream.ready():
+                    stream.retrieve()
+            for _ in stream.drain():
+                pass
+            windows.append(count / (time.perf_counter() - start))
+        rates[key] = {"fps": float(np.median(windows[1:])), "windows": windows[1:]}
+    del pipe, stream
+    log("  streamed 736x736 depth 2, frames from " + "; ".join(
+        f"{k}: {v['fps']:.2f} FPS (windows {', '.join(f'{w:.2f}' for w in v['windows'])})"
+        for k, v in rates.items()) + f"; card: {card_line()}")
+    return rates
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="also write a torch.profiler table")
@@ -4941,6 +5281,16 @@ def main(argv=None):
     platform_counts, platforms = check_platforms()
     webp_files.update(platforms=platforms, phase_s=time.perf_counter() - t)
     log(f"  phase 24 in {webp_files['phase_s']:.1f} s; card: {card_line()}")
+    header("[25] video files in and out: the infer CLI at 736x736 over the committed MP4 and "
+           "AVI (--video, -o *.mp4|*.avi), the codec on the host, streamed FPS from the file")
+    t = time.perf_counter()
+    video_files = check_video_fixtures()
+    with tempfile.TemporaryDirectory() as workdir:
+        video_counts, video_files["cli"] = check_video_cli(Path(workdir))
+        video_files["codecs"] = check_video_codecs()
+        video_files["stream_736"] = check_video_stream(Path(workdir))
+    video_files["phase_s"] = time.perf_counter() - t
+    log(f"  phase 25 in {video_files['phase_s']:.1f} s; card: {card_line()}")
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -4966,6 +5316,8 @@ def main(argv=None):
         paths[name]["webp_cli"] = webp_cli_counts["-v -o"][name]
         paths[name]["webp_video"] = webp_cli_counts["--video -o"][name]
         paths[name]["platforms_cuda"] = platform_counts["platforms_cuda"][name]
+        for tag, launched in video_counts.items():  # phase 25
+            paths[name][tag] = launched[name]
     for name in paths:  # phase 17's CLIs, each kernel's count around each
         for cli, launched in files_counts.items():
             paths[name][cli] = launched[name]
@@ -5024,7 +5376,7 @@ def main(argv=None):
                     "int8_544": int8, "serving_544": serving, "spatial_544": spatial_544}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
                     "stream_736": stream_fps, "jpeg": jpeg, "image_files": image_files,
-                    "webp": webp_files}))
+                    "webp": webp_files, "video": video_files}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """Image files without cv2 or PIL: the port's replacement for the JAX CLI's
-and datasets' ``cv2.imread`` + ``cvtColor``, ``cv2.imwrite`` and
-``cv2.VideoCapture`` (``infer.py``, ``data/dataset.py``).
+and datasets' ``cv2.imread`` + ``cvtColor`` and ``cv2.imwrite``
+(``infer.py``, ``data/dataset.py``), and the CLI's video source
+(``video_source``).
 
 Reads, as (H, W, 3) uint8 RGB, what ``cv2.imread(IMREAD_COLOR)`` gives:
 
@@ -25,20 +26,23 @@ Reads, as (H, W, 3) uint8 RGB, what ``cv2.imread(IMREAD_COLOR)`` gives:
 * binary PPM (P6, maxval 255);
 * ``.npy`` arrays of shape (H, W, 3) and dtype uint8.
 
-Anything else (a video file, the JPEG, BMP, TIFF and WebP forms those
-modules refuse) is refused with ``UnsupportedImage``, whose message names
-the form and what is read.  Nothing tries another decoder.
+Anything else (a video file, which ``cv2.imread`` does not read either, the
+JPEG, BMP, TIFF and WebP forms those modules refuse) is refused with
+``UnsupportedImage``, whose message names the form and what is read.
+Nothing tries another decoder.
 
 ``write_image`` writes (H, W, 3) uint8 RGB arrays as ``cv2.imwrite``
 writes them, the format chosen by the extension: JPEG (``data/
 jpeg_encode.py``, cv2's bytes at quality 95), PNG (``write_png``), BMP
 (cv2's bytes), TIFF (LZW, as cv2 writes it), WebP (lossless VP8L, as cv2
 writes it with no quality given; ``data/vp8l.py``'s own encoding, which
-cv2 reads back to the pixels written) or PPM (P6).  A directory of
-readable files, sorted, is a video source (``frame_paths``).  Directories
-are filtered by ``IMAGE_EXTENSIONS``.
+cv2 reads back to the pixels written) or PPM (P6).  A video source
+(``video_source``) is a directory of readable files, sorted
+(``frame_paths``), or a video file (``data/video.py``: MPEG-4 Part 2 in
+MP4 or AVI).  Directories are filtered by ``IMAGE_EXTENSIONS``.
 """
 
+import itertools
 import os
 import struct
 import zlib
@@ -48,6 +52,7 @@ import numpy as np
 from . import bmp, jpeg_encode, tiff, webp
 from .jpeg import UnsupportedJpeg
 from .jpeg import decode as decode_jpeg
+from .video import VideoReader
 
 READABLE = ("PNG (every colour type and bit depth, interlaced or not), JPEG (baseline, "
             "extended or progressive Huffman, 8-bit, 1 or 3 components), BMP (palette, RLE4, "
@@ -66,7 +71,8 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 # Adam7 passes: (first column, first row, column step, row step)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
-# files refused by name, by their first bytes
+# files read_image refuses by name, by their first bytes (video files: -i
+# takes images, as cv2.imread does)
 _REFUSED_MAGIC = ((b"ftyp", 4, "a video file"), (b"AVI ", 8, "a video file"))
 
 
@@ -121,14 +127,24 @@ def image_names(directory):
                   and os.path.isfile(os.path.join(directory, n)))
 
 
-def frame_paths(source, limit=None):
-    """A video source: the image files of directory ``source``, sorted, the
-    first ``limit`` of them.  A video file is refused."""
-    if not os.path.isdir(source):
-        raise UnsupportedImage(source, "a video file (the JAX CLI reads it with "
-                               "cv2.VideoCapture, which is not ported); pass a directory "
-                               "of frames")
-    return [os.path.join(source, n) for n in image_names(source)[:limit]]
+def frame_paths(directory, limit=None):
+    """The image files of ``directory``, sorted, the first ``limit`` of
+    them: a frame directory's frames."""
+    return [os.path.join(directory, n) for n in image_names(directory)[:limit]]
+
+
+def video_source(source, limit=None):
+    """(frames, rate): the CLI's --video source as (H, W, 3) uint8 RGB
+    frames, the first ``limit`` of them, and the rate a video of its
+    drawings is written at.  A directory gives its image files at 25.0; a
+    file, its ``VideoReader``'s frames (the reader refuses a file it cannot
+    read, naming the form) at the file's own rate, or 25.0 where it has
+    none (the JAX CLI's ``CAP_PROP_FPS`` rule)."""
+    if os.path.isdir(source):
+        return (read_image(p) for p in frame_paths(source, limit)), 25.0
+    reader = VideoReader(source)
+    fps = reader.fps if reader.fps > 0 and np.isfinite(reader.fps) else 25.0
+    return itertools.islice(iter(reader), limit), fps
 
 
 def _read_npy(path):

@@ -2,23 +2,27 @@
 
     python -m orienmask_tpu_torch.infer -c <config name or .json> \\
         (-w <.pth or .ckpt> | --random-weights) \\
-        (-i <image> | -d <dir> [-l <list>] [-j <images json>] | --video <frames dir>) \\
-        [-v] [-s] [-o <dir>]
+        (-i <image> | -d <dir> [-l <list>] [-j <images json>]
+         | --video <frames dir or video file>) [-v] [-s] [-o <dir or video file>]
 
 Input modes: one image (-i), a directory (-d, optionally a list file -l),
 COCO images json (-j, with -d; -o keeps the bbox and segm prediction json
-files), a frame directory streamed through ``StreamingPipeline`` (--video,
-``--stream-depth`` or the config's ``stream_depth``).  Images are read by
-``data/image_io.py`` (JPEG, PNG, BMP, TIFF, PPM, .npy).  -v draws each image
+files), a frame directory or a video file streamed through
+``StreamingPipeline`` (--video, ``--stream-depth`` or the config's
+``stream_depth``).  Images are read by ``data/image_io.py`` (JPEG, PNG, BMP,
+TIFF, WebP, PPM, .npy), video files by ``data/video.py`` (MPEG-4 Part 2 in
+MP4 or AVI, as cv2.VideoCapture reads them).  -v draws each image
 with ``utils/visualizer.py::InferenceVisualizer`` (the config's visualizer
 block); with -o it writes each drawing to ``<output>/<the input's file
 name>`` through ``image_io.write_image``, in the format the name's extension
 gives (JPEG, PNG, BMP, TIFF or PPM, as the JAX CLI's ``cv2.imwrite`` does;
 ``.npy`` inputs, the port's own form, are drawn to ``<name>.png``), and -s
-shows it with matplotlib.  --video with -o turns on -v and writes
-``frame_%06d.jpg``.  Runs on the card (``--device cuda``, the default) unless
-``--device cpu`` is asked for.  Refused until ported: video files in and out
-(``cv2.VideoCapture``/``VideoWriter`` in the JAX CLI).
+shows it with matplotlib.  --video with -o turns on -v and writes the
+drawings to ``-o``: a video (``mp4v`` in MP4 or AVI, as the JAX CLI's
+``cv2.VideoWriter``) when it ends in ``.mp4`` or ``.avi``, at the source
+file's rate (25.0 for a directory), else ``frame_%06d.jpg`` files in that
+directory.  Runs on the card (``--device cuda``, the default) unless
+``--device cpu`` is asked for.
 
 ``--spatial N`` (N > 1) shards each image's rows over N devices
 (``parallel/spatial.py``).  The JAX CLI runs one process over N local
@@ -34,6 +38,7 @@ and ``chip_smoke.py`` call in-process.
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import socket
@@ -46,7 +51,8 @@ import torch
 from . import config as config_module
 from .data import FastCOCOTransform
 from .data.dataset import COCODataset
-from .data.image_io import UnsupportedImage, frame_paths, image_names, read_image, write_image
+from .data.image_io import UnsupportedImage, image_names, read_image, video_source, write_image
+from .data.video import UnsupportedVideo, VideoWriter
 from .device import resolve_device
 from .eval import COCOMetrics
 from .models import build_model, init_random
@@ -60,12 +66,8 @@ from .utils import timer
 from .utils.profiler import trace
 from .utils.visualizer import InferenceVisualizer
 
-REFUSED = {
-    "video_output": "-o *.mp4/*.avi is not ported yet: the JAX CLI writes video files with "
-                    "cv2.VideoWriter; pass a directory for frame_%06d.jpg files, the JPEG "
-                    "frames the JAX CLI writes there (ROADMAP Queue 1 item 1, 'What the infer "
-                    "CLI still refuses')",
-}
+# -o names a video file (not a directory) when it ends so, as in the JAX CLI
+VIDEO_OUTPUTS = (".mp4", ".avi")
 # how long the --spatial ranks may take to meet, and their collectives to wait
 SPATIAL_TIMEOUT_S = 600
 
@@ -88,8 +90,9 @@ def build_parser():
     parser.add_argument("--profile", default=None, type=str,
                         help="write a torch.profiler trace of the main loop to this dir")
     parser.add_argument("--video", default=None, type=str,
-                        help="frames directory: streaming mode with an in-flight queue "
-                             "(config stream_depth, e.g. the 736x736 config)")
+                        help="frames directory or video file (MP4 or AVI): streaming "
+                             "mode with an in-flight queue (config stream_depth, e.g. the "
+                             "736x736 config)")
     parser.add_argument("--spatial", default=None, type=int, metavar="N",
                         help="shard each image's rows over N devices, one rank each")
     parser.add_argument("--stream-depth", default=None, type=int,
@@ -125,53 +128,68 @@ def build_pipeline(config, args, device, space=None):
                              device=device, space=space)
 
 
-def load_image(path):
-    try:
-        return read_image(path)
-    except UnsupportedImage as e:
-        raise SystemExit(str(e)) from None
-
-
 def run_video(args, config, pipeline, visualizer, primary=True):
     """Streaming mode: depth frames stay submitted but not fetched.  Only
-    the ``primary`` rank writes."""
+    the ``primary`` rank writes: a video file of the drawings (created at
+    the first one, at the source's rate) or frame_%06d.jpg files."""
     depth = args.stream_depth or config.get("stream_depth", 2)
     stream = StreamingPipeline(pipeline, depth=depth, device=pipeline.device)
     try:
-        paths = frame_paths(args.video, args.num_images)
-    except UnsupportedImage as e:
+        frames, src_fps = video_source(args.video, args.num_images)
+    except OSError as e:
         raise SystemExit(str(e)) from None
-    if args.output and primary:
+    to_video = bool(args.output) and args.output.endswith(VIDEO_OUTPUTS)
+    if args.output and primary and not to_video:
         os.makedirs(args.output, exist_ok=True)
+    writer = None
     src_frames = []  # parallel to the in-flight queue
     n_frames = n_out = 0
 
     def emit(predictions):
-        nonlocal n_out
+        nonlocal n_out, writer
         src = src_frames.pop(0)
         if visualizer is not None and primary:
             show = visualizer(predictions[0], src.astype(np.float32), pipeline.pad_info)
-            if args.output:
+            if to_video:
+                if writer is None:
+                    writer = VideoWriter(args.output, src_fps)
+                writer.write(show)
+            elif args.output:
                 write_image(os.path.join(args.output, f"frame_{n_out:06d}.jpg"), show)
         n_out += 1
 
+    refused = []
+
+    def read():
+        """The source's frames up to a refusal, kept in ``refused`` until
+        the frames read before it are drawn and written."""
+        try:
+            yield from frames
+        except (UnsupportedImage, UnsupportedVideo) as e:
+            refused.append(e)
+
     t_start = time.perf_counter()
-    with trace(args.profile):
-        for path in paths:
-            frame = load_image(path)
-            if n_frames == 0 and args.benchmark:
-                for _ in range(10):  # warm-up outside the timed loop
-                    pipeline.run_device(frame[None])
-                if pipeline.device.type == "cuda":
-                    torch.cuda.synchronize(pipeline.device)
-                t_start = time.perf_counter()
-            stream.submit(frame[None])
-            src_frames.append(frame)
-            n_frames += 1
-            if stream.ready():
-                emit(stream.retrieve())
-        for predictions in stream.drain():
-            emit(predictions)
+    try:
+        with trace(args.profile):
+            for frame in read():
+                if n_frames == 0 and args.benchmark:
+                    for _ in range(10):  # warm-up outside the timed loop
+                        pipeline.run_device(frame[None])
+                    if pipeline.device.type == "cuda":
+                        torch.cuda.synchronize(pipeline.device)
+                    t_start = time.perf_counter()
+                stream.submit(frame[None])
+                src_frames.append(frame)
+                n_frames += 1
+                if stream.ready():
+                    emit(stream.retrieve())
+            for predictions in stream.drain():
+                emit(predictions)
+    finally:  # the drawings written so far stay a whole file, as cv2's release leaves them
+        if writer is not None:
+            writer.close()
+    if refused:
+        raise refused[0]
     elapsed = time.perf_counter() - t_start
     if n_frames == 0:
         raise SystemExit(f"no frames decoded from {args.video}")
@@ -235,7 +253,7 @@ def run_images(args, pipeline, visualizer, primary=True):
         os.makedirs(args.output, exist_ok=True)
     timer.reset()
     if args.benchmark:
-        warm = load_image(paths[0])[None]
+        warm = read_image(paths[0])[None]
         for _ in range(10):
             pipeline(warm)
 
@@ -243,7 +261,7 @@ def run_images(args, pipeline, visualizer, primary=True):
     with trace(args.profile), timer.timer("Main Loop"):
         for idx, path in enumerate(paths):
             with timer.timer("Load data"):
-                src_image = load_image(path)
+                src_image = read_image(path)
             with timer.timer("Forward & Postprocess") as t:
                 out = t.sync(pipeline.run_device(src_image[None]))
             if metrics is not None and args.output:
@@ -280,13 +298,18 @@ def run_images(args, pipeline, visualizer, primary=True):
     return 0
 
 
-def main(argv=None):
+def parse_args(argv):
+    """The CLI's arguments, with --output implying --visualize in --video
+    mode (as in the JAX CLI); the spawned --spatial ranks parse the same."""
     args = build_parser().parse_args(argv)
     if args.video and args.output and not args.visualize:
         print("--output implies --visualize in --video mode")
         args.visualize = True
-    if args.video and args.output and args.output.endswith((".mp4", ".avi")):
-        raise SystemExit(REFUSED["video_output"])
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.visualize and args.show:
         pyplot()  # exits here, before the model is built, where it is missing
     if args.json_file and not args.output:
@@ -309,9 +332,12 @@ def run(args, device, space=None):
         visualizer = InferenceVisualizer(
             **{k: v for k, v in config["visualizer"].items() if k != "type"})
     pipeline = build_pipeline(config, args, device, space)
-    if args.video:
-        return run_video(args, config, pipeline, visualizer, primary)
-    return run_images(args, pipeline, visualizer, primary)
+    try:
+        if args.video:
+            return run_video(args, config, pipeline, visualizer, primary)
+        return run_images(args, pipeline, visualizer, primary)
+    except (UnsupportedImage, UnsupportedVideo) as e:  # a file the port does not read
+        raise SystemExit(str(e)) from None
 
 
 def _free_port():
@@ -325,7 +351,8 @@ def spatial_rank(rank, argv, n_space, port, threads):
     under its space group (rank 0's prints alone reach the output) and
     leaves the group."""
     torch.set_num_threads(threads)
-    args = build_parser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):  # main printed it once
+        args = parse_args(argv)
     device = init_distributed(f"localhost:{port}", n_space, rank, args.device,
                               timeout_s=SPATIAL_TIMEOUT_S)
     try:

@@ -12,7 +12,8 @@ raises when that is not 0.  ``launches`` holds one count per kernel, which
 its wrapper raises by one where it launches the kernel.
 
 Host code with a C interface, ``csrc/<name>.cc`` (the JPEG entropy
-decoder and coder, TIFF's LZW codec, WebP's VP8 and VP8L loops, the native
+decoder and coder, TIFF's LZW codec, WebP's VP8 and VP8L loops, MPEG-4 Part 2's
+macroblock loops and colour conversions, the native
 host library ``omtpu``), is built the same way with the
 host C++ compiler (``g++``, which nvcc itself needs) into
 ``csrc/build/lib<name>.so`` by ``host_library``; it runs on the CPU, so the
@@ -106,6 +107,21 @@ HOST_SIGNATURES = {
         # params, coefficient and 4x4-mode probabilities, dequantization,
         # filter strengths, Y, U, V
         "omw_vp8_decode": (_I, [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
+    },
+    "mpeg4_host": {
+        # data, its length, bit position, parameters, tables, reference Y,
+        # U, V (or null), out Y, U, V
+        "omv_decode_vop": (_L, [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P]),
+        "omv_error_string": (ctypes.c_char_p, [_I]),
+        # frame Y, U, V, reference Y, U, V (or null), parameters, tables,
+        # header bytes already in out, pending bits, their count, out, its
+        # capacity, reconstruction Y, U, V
+        "omv_encode_vop": (_L, [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _L, _P, _P,
+                                _P]),
+        # Y, its row stride, U, V, their row stride, width, height, RGB out
+        "omv_yuv_to_rgb": (None, [_P, _L, _P, _P, _L, _I, _I, _P]),
+        # RGB, width, height, Y, U, V out
+        "omv_rgb_to_yuv": (None, [_P, _I, _I, _P, _P, _P]),
     },
     "omtpu": {
         # dets (n, 5), n, threshold, keep

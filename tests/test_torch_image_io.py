@@ -19,8 +19,10 @@ from orienmask_tpu_torch.data.image_io import (
     frame_paths,
     image_names,
     read_image,
+    video_source,
     write_png,
 )
+from orienmask_tpu_torch.data.video import UnsupportedVideo
 
 
 def _cv2_rgb(path):
@@ -147,8 +149,10 @@ def test_refused_formats_name_what_is_read(tmp_path):
             read_image(tmp_path / name)
         assert "this build reads PNG (every colour type" in str(err.value), name
         assert "ROADMAP Queue 1 item 1" in str(err.value), name
-    with pytest.raises(UnsupportedImage, match="video file"):
-        frame_paths(tmp_path / "clip.mp4")
+    # a video source: the ftyp-only stub is refused for its missing moov
+    with pytest.raises(UnsupportedVideo, match="movie box") as err:
+        video_source(tmp_path / "clip.mp4")
+    assert "ROADMAP Queue 1 item 1" in str(err.value)
 
 
 @pytest.mark.parametrize("name", ["a.bmp", "a.tif"])

@@ -144,28 +144,71 @@ def test_image_mode_prints_the_timer_report(inputs, capsys):
     assert "Forward & Postprocess: " in out and "ms (" in out
 
 
-@pytest.mark.parametrize("extra,message", [
-    (["--video", "clip.mp4"], "cv2.VideoCapture"),
-    (["--video", "frames", "-o", "out.mp4"], "cv2.VideoWriter"),
-])
-def test_refused_flags_exit_with_their_message(inputs, extra, message):
+VIDEO_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "image_fixtures")
+
+
+@pytest.mark.parametrize("extra,message,left", [
+    (["--video", os.path.join(VIDEO_FIXTURES, "mpeg4_bvop.avi")], "B-VOPs", 0),
+    (["--video", os.path.join(VIDEO_FIXTURES, "video_mjpg.avi"), "-o", "out.mp4"], "'MJPG'", 0),
+    (["--video", os.path.join(VIDEO_FIXTURES, "mpeg4_bvop.avi"), "-o", "out.mp4"], "B-VOPs", 1),
+], ids=["extra0-cv2.VideoCapture", "extra1-cv2.VideoWriter", "extra2-refused-mid-stream"])
+def test_refused_flags_exit_with_their_message(inputs, extra, message, left, tmp_path):
+    """--video over a video file the reader refuses (B-VOPs, which appear
+    after the first frame; an MJPEG AVI, before -o writes anything) exits
+    naming the form; what -o wrote before a refusal is a whole file of the
+    ``left`` frames read before it (none: no file), which cv2 and the
+    port's reader both read.  The first two ids are those of the cases
+    these were when video files in and out were refused."""
+    config = json.loads((inputs / "config.json").read_text())
+    config["visualizer"] = {"type": "InferenceVisualizer", "dataset": "COCO"}
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    extra = [str(tmp_path / a) if a == "out.mp4" else a for a in extra]
     torch.set_num_threads(1)
     with pytest.raises(SystemExit) as err:
-        infer.main(["--device", "cpu", "-c", str(inputs / "config.json"),
+        infer.main(["--device", "cpu", "-c", str(tmp_path / "config.json"),
                     "--random-weights", "-i", "x.png"] + extra)
     assert message in str(err.value.code)
-
-
-def test_video_output_implies_visualize_then_refuses(inputs, capsys):
-    """As the JAX CLI does, ``--video -o`` turns on the visualizer; a video
-    file for the output is then refused (cv2.VideoWriter is not ported)."""
-    with pytest.raises(SystemExit) as err:
-        infer.main(["--device", "cpu", "-c", str(inputs / "config.json"),
-                    "--random-weights", "--video", "frames", "-o", "out.avi"])
-    assert "--output implies --visualize" in capsys.readouterr().out
-    assert "cv2.VideoWriter" in str(err.value.code)
-    assert "frame_%06d.jpg" in str(err.value.code)
     assert "ROADMAP Queue 1 item 1" in str(err.value.code)
+    out = tmp_path / "out.mp4"
+    if not left:
+        assert not out.exists()
+        return
+    from orienmask_tpu_torch.data.video import VideoReader
+
+    reader = VideoReader(out)
+    assert (reader.fps, reader.frame_count) == (25.0, left)
+    assert [f.shape for f in reader] == [(48, 64, 3)] * left
+    cap = cv2.VideoCapture(str(out))
+    assert (cap.get(cv2.CAP_PROP_FPS), cap.get(cv2.CAP_PROP_FRAME_COUNT)) == (25.0, left)
+    shapes = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        shapes.append(frame.shape)
+    cap.release()
+    assert shapes == [(48, 64, 3)] * left
+
+
+def test_video_output_implies_visualize_then_refuses(inputs, capsys, tmp_path):
+    """As the JAX CLI does, ``--video -o`` turns on the visualizer; a video
+    file for the output (refused until the writer was ported) is then
+    written at the source's rate: a cv2-written MP4 at 25 to an AVI."""
+    config = json.loads((inputs / "config.json").read_text())
+    config["visualizer"] = {"type": "InferenceVisualizer", "dataset": "COCO"}
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    torch.set_num_threads(1)
+    assert infer.main(["--device", "cpu", "-c", str(tmp_path / "config.json"),
+                       "--random-weights", "--video",
+                       os.path.join(VIDEO_FIXTURES, "video_clip_96x128.mp4"), "-n", "3",
+                       "-o", str(tmp_path / "out.avi")]) == 0
+    out = capsys.readouterr().out
+    assert "--output implies --visualize" in out and "Streamed 3 frames" in out
+    from orienmask_tpu_torch.data.video import VideoReader
+
+    reader = VideoReader(tmp_path / "out.avi")
+    assert (reader.fps, reader.frame_count, reader.container) == (25.0, 3, "avi")
+    assert [f.shape for f in reader] == [(96, 128, 3)] * 3
 
 
 def test_jpeg_input_exits_with_the_formats_read(inputs, tmp_path):
