@@ -242,7 +242,8 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    loaded by a fresh process without the model code on the card and then
    on the CPU, each served program equal by bits to the live pipeline on
    its device, kernels 1 and 2 launched twice and once a CUDA call;
-25. video files in and out: (a) every committed video fixture read on the
+25. video files in and out: (a) every committed video fixture of phase 25
+   (Simple Profile MPEG-4) read on the
    host to cv2's committed per-frame digests, rate and frame count (the
    refused ones refused by their names); the infer CLI at 736² (the
    full-width model, seeded random weights whose bbox heads' objectness
@@ -258,6 +259,19 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    host ms a 720x1280 frame of demux, decode, colour conversions, encode
    and mux; (c) streamed FPS at 736², depth 2, with frames decoded from the
    MP4 against read from a directory of their PNGs.
+26. XviD/DivX and MJPEG AVI files: (a) every committed fixture of the
+   Advanced Simple Profile's tools (B-VOPs, quarter-pel, MPEG quantisation,
+   data partitioning), XviD's and DivX's streams (packed too) and Motion
+   JPEG read on the host to cv2's committed digests, rate and count, the
+   still-refused forms (interlaced, GMC, reversible VLC, the short header,
+   another fourcc) refused by their names, the C++ macroblock loop equal to
+   the plain one on every VOP (the first six of the 720x1280 file) and the
+   MJPEG and full-range colour loops on every MJPEG frame; (b) the infer CLI at 736² with phase 25's detecting
+   weights over the 24-frame 720x1280 ASP AVI with XviD's user data and the
+   16-frame 480x640 4:2:2 MJPEG AVI, each -o out.mp4: kernel 1 twice and
+   kernel 2 once a frame, every call identical to its plain version, each
+   output the writer's bytes for the plain-version drawings; (c) the host
+   ms a frame of demux, decode and conversion to RGB of each.
 
 Each phase's first line gives the seconds since the script's start.  The
 last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
@@ -266,7 +280,7 @@ last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``serving_544``, ``spatial_544``);
 ``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
 "depth2": ..., "staged_fps": ...}, "jpeg": {...}, "image_files": {...},
-"webp": {...}, "video": {...}}``; the card's name and
+"webp": {...}, "video": {...}, "asp_mjpeg": {...}}``; the card's name and
 power limit; the kernels' JSON record: every kernel carries per-path launch
 counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
 jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
@@ -4831,24 +4845,25 @@ VIDEO_WINDOWS = 2  # streamed windows a source in (c), after one warm-up window
 VIDEO_DRAWN_A_FRAME = 2  # detections above conf_thresh a frame of (a), on average
 
 
-def video_fixture_names():
-    """The readable committed video fixtures, from digests.json."""
+def video_fixture_names(phase=25):
+    """The readable committed video fixtures of phase 25 or 26, from
+    digests.json."""
     digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
     return digests, sorted(n for n, d in digests.items() if n.endswith((".mp4", ".avi"))
-                           and "refused" not in d)
+                           and "refused" not in d and (n in ASP_MJPEG_FIXTURES) == (phase == 26))
 
 
 def check_video_fixtures():
     """Phase 25 (a) and (b), on the card's host: every readable committed
     video fixture reads, frame by frame, to cv2's committed digests, at
     cv2's rate and frame count; every refused one names its form; the C++
-    macroblock loop equals the plain one VOP by VOP (planes and end bit) on
-    the small fixtures, the C++ encoder loop the plain one on a small scene,
-    the C++ colour loops the plain ones."""
+    macroblock loop equals the plain one VOP by VOP (``compare_loops``), the
+    C++ encoder loop the plain one on a small scene, the C++ colour loops
+    the plain ones."""
     import hashlib
 
     from orienmask_tpu_torch import kernels
-    from orienmask_tpu_torch.data import mpeg4, mpeg4_encode, video, yuv
+    from orienmask_tpu_torch.data import mpeg4_encode, video, yuv
 
     t = time.perf_counter()
     kernels.host_library("mpeg4_host")
@@ -4863,36 +4878,11 @@ def check_video_fixtures():
                 (want["fps"], want["frame_count"]):
             raise AssertionError(f"{name} does not read to cv2's frames, rate and count")
         frames += len(got)
-    refused = sorted(n for n, d in digests.items() if "refused" in d)
-    for name in refused:
-        try:
-            list(video.VideoReader(IMAGE_FIXTURES / name))
-        except video.UnsupportedVideo as e:
-            if digests[name]["refused"] not in str(e) or "ROADMAP Queue 1 item 1" not in str(e):
-                raise AssertionError(f"{name}: refused as {e}") from None
-        else:
-            raise AssertionError(f"{name} was read; it is a refused form")
-    vops = 0
-    for name in names:
-        if "720x1280" in name:
-            continue
-        reader = video.VideoReader(IMAGE_FIXTURES / name)
-        decoder = mpeg4.Decoder(reader.config)
-        ref = None
-        for packet in reader.packet_bytes():
-            at = decoder._headers(packet)
-            if at is None:
-                continue
-            vop = mpeg4.Vop(packet[at:], decoder.vol)
-            if not vop.coded:
-                continue
-            prm = mpeg4.params(decoder.vol, vop)
-            got, end = mpeg4.decode_vop_native(packet[at:], vop.bitpos, prm, ref)
-            want, want_end = mpeg4.decode_vop_py(packet[at:], vop.bitpos, prm, ref)
-            if end != want_end or not all(np.array_equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"{name}: the C++ macroblock loop differs from the plain one")
-            ref = got
-            vops += 1
+    refused = sorted(n for n, d in digests.items() if "refused" in d
+                     and n not in ASP_MJPEG_FIXTURES)
+    check_refused(digests, refused)
+    # the small files: phase 26 holds a 720x1280 file's first VOPs
+    vops, _ = compare_loops([n for n in names if "720x1280" not in n])
     scene = [f for f in video.VideoReader(IMAGE_FIXTURES / "video_176x144_2997.avi")][:4]
     plain = mpeg4_encode.Encoder(176, 144, 29.97, global_header=True, native=False)
     cpp = mpeg4_encode.Encoder(176, 144, 29.97, global_header=True, native=True)
@@ -4910,6 +4900,20 @@ def check_video_fixtures():
         f"one on {vops} VOPs, the encoder and colour loops on {len(scene)} 176x144 frames "
         f"(host library ready in {build_s:.2f} s)")
     return {"fixtures": len(names), "refused": len(refused), "vops_checked": vops}
+
+
+def check_refused(digests, names):
+    """Each of ``names`` is refused by the name of its form."""
+    from orienmask_tpu_torch.data import video
+
+    for name in names:
+        try:
+            list(video.VideoReader(IMAGE_FIXTURES / name))
+        except video.UnsupportedVideo as e:
+            if digests[name]["refused"] not in str(e) or "ROADMAP Queue 1 item 1" not in str(e):
+                raise AssertionError(f"{name}: refused as {e}") from None
+        else:
+            raise AssertionError(f"{name} was read; it is a refused form")
 
 
 def expected_video(path, source, wants, plain, config, seed, fps):
@@ -5143,6 +5147,228 @@ def check_video_stream(workdir):
     return rates
 
 
+# ------------------------------------------------------------ phase 26
+
+# phase 26's fixtures: the Advanced Simple Profile's tools, XviD's and
+# DivX's streams, Motion JPEG, and the forms still refused
+ASP_MJPEG_FIXTURES = (
+    "asp_xvid_720x1280.avi", "mjpeg_420_nodht.avi", "mjpeg_422.avi", "mjpeg_422_480x640.avi",
+    "mjpeg_422_nodht.avi", "mjpeg_422_webcam.avi", "mpeg4_asp.mp4", "mpeg4_bvop.avi",
+    "mpeg4_bvop3.avi", "mpeg4_bvop_no_vol_control.avi", "mpeg4_divx503.avi",
+    "mpeg4_divx_packed.avi", "mpeg4_gmc.avi", "mpeg4_interlaced.avi",
+    "mpeg4_interlaced_mid_stream.avi", "mpeg4_mpeg_quant.avi", "mpeg4_mpeg_quant_custom.avi",
+    "mpeg4_partitioned.avi", "mpeg4_qpel.avi", "mpeg4_qpel_bvop.avi", "mpeg4_rvlc.avi",
+    "mpeg4_short_header.avi", "mpeg4_xvid.avi", "mpeg4_xvid_no_user_data.avi",
+    "video_h264_tag.avi", "video_mjpg.avi")
+# phase 26 (b): the 24-frame 720x1280 ASP AVI with XviD's user data (the
+# scene of phase 25's MP4) and the 480x640 4:2:2 MJPEG AVI, each -o out.mp4
+ASP_MJPEG_RUNS = (("asp_xvid_720x1280.avi", 24, (720, 1280, 3)),
+                  ("mjpeg_422_480x640.avi", 16, (480, 640, 3)))
+# VOPs of the 720x1280 ASP file held to the plain loop in (a), its first (I,
+# P, B): the plain loop takes about 0.5 s a VOP there
+PLAIN_VOPS_720 = 3
+
+
+def both_loops_decoder(limit=None):
+    """A ``mpeg4.Decoder`` class that decodes each VOP by the C++ loop and
+    the plain one (the first ``limit`` VOPs of a stream, then the C++ loop
+    alone), fails where they differ (planes, end bit, kinds, stored
+    vectors) and counts the VOPs compared."""
+    from orienmask_tpu_torch.data import mpeg4
+
+    class BothLoops(mpeg4.Decoder):
+        vops = 0
+
+        def decode_vop(self, data, bitpos, prm, ref, **kw):
+            got = mpeg4.decode_vop_native(data, bitpos, prm, ref, **kw)
+            self.seen = getattr(self, "seen", 0) + 1
+            if limit is not None and self.seen > limit:
+                return got
+            want = mpeg4.decode_vop_py(data, bitpos, prm, ref, **kw)
+            same = got[1] == want[1] and all(np.array_equal(a, b) for a, b in zip(got[0], want[0]))
+            same = same and all(np.array_equal(a, b) for a, b in zip(got[2], want[2]))
+            if not same:
+                raise AssertionError(f"the C++ macroblock loop differs from the plain one at VOP "
+                                     f"{BothLoops.vops} (type {int(prm[2])})")
+            BothLoops.vops += 1
+            return got
+
+    return BothLoops
+
+
+def compare_loops(names):
+    """Decode each MPEG-4 fixture of ``names`` by the C++ loop and the plain
+    one (``both_loops_decoder``; a 720x1280 file's first ``PLAIN_VOPS_720``
+    VOPs); the VOPs compared, in all and of 720x1280."""
+    from orienmask_tpu_torch.data import video
+
+    loops, big_loops = both_loops_decoder(), both_loops_decoder(PLAIN_VOPS_720)
+    for name in names:
+        reader = video.VideoReader(IMAGE_FIXTURES / name)
+        decoder = (big_loops if "720x1280" in name else loops)(reader.config,
+                                                                codec_tag=reader.codec_tag)
+        for packet in reader.packet_bytes():
+            decoder.decode(packet)
+    return loops.vops + big_loops.vops, big_loops.vops
+
+
+def check_asp_mjpeg_fixtures():
+    """Phase 26 (a), on the card's host: every readable fixture of the
+    Advanced Simple Profile, XviD's and DivX's streams and Motion JPEG reads
+    to cv2's committed digests, rate and frame count; each still-refused
+    form is refused by its name; the C++ macroblock loop equals the plain
+    one on every VOP of them (B-VOPs, quarter-pel, MPEG quantisation, XviD's
+    IDCT, data partitioning), the MJPEG pixel loop and the full-range
+    colour loop the plain ones on every MJPEG frame."""
+    import hashlib
+
+    from orienmask_tpu_torch.data import mjpeg, video, yuv
+
+    digests, names = video_fixture_names(26)
+    frames = 0
+    for name in names:
+        want = digests[name]
+        reader = video.VideoReader(IMAGE_FIXTURES / name)
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in reader]
+        if got != want["frame_sha256"] or (reader.fps, reader.frame_count) != \
+                (want["fps"], want["frame_count"]):
+            raise AssertionError(f"{name} does not read to cv2's frames, rate and count")
+        frames += len(got)
+    refused = sorted(n for n in ASP_MJPEG_FIXTURES if "refused" in digests[n])
+    check_refused(digests, refused)
+    jpegs, streams = 0, []
+    for name in names:
+        reader = video.VideoReader(IMAGE_FIXTURES / name)
+        if reader.codec != "mjpeg":
+            streams.append(name)
+            continue
+        for packet in reader.packet_bytes():
+            frame = mjpeg.parse(packet, reader.height)
+            planes = mjpeg.planes_native(frame)
+            if not all(np.array_equal(a, b) for a, b in zip(planes, mjpeg.planes_py(frame))) \
+                    or not np.array_equal(yuv.yuvj_to_rgb_py(*planes),
+                                          yuv.yuvj_to_rgb_native(*planes)):
+                raise AssertionError(f"{name}: the C++ MJPEG loops differ from the plain ones")
+            jpegs += 1
+    vops, big_vops = compare_loops(streams)
+    log(f"  {len(names)} fixtures read to cv2's committed digests ({frames} frames), "
+        f"{len(refused)} refused by their names ({', '.join(refused)}); the C++ macroblock loop "
+        f"equal to the plain one on {vops} VOPs ({big_vops} of 720x1280), the MJPEG and "
+        f"full-range colour loops on {jpegs} frames")
+    return {"fixtures": len(names), "refused": len(refused), "vops_checked": vops,
+            "mjpeg_frames_checked": jpegs}
+
+
+def check_asp_mjpeg_cli(workdir):
+    """Phase 26 (b): the infer CLI on the card at 736² over the ASP AVI with
+    XviD's user data (with phase 25's detecting weights, written into
+    ``workdir`` by phase 25 or here: the ASP file holds phase 25's scene)
+    and over the 4:2:2 MJPEG AVI (with weights ``detecting_checkpoint``
+    fits to its own frames the same seeded way), each -o out.mp4: kernel 1
+    twice and kernel 2 once a frame, every call identical to the
+    plain-version postprocess on its heads; detections drawn in each run;
+    each output the writer's bytes for the plain-version drawings, read back
+    at the source's size, count and rate."""
+    import random
+
+    import orienmask_tpu_torch.config as configs
+    from orienmask_tpu_torch.data import video
+    from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer
+
+    name = "orienmask_yolo_coco_736_anchor4_fpn_plus_infer"
+    config = getattr(configs, name)
+    thresh = InferenceVisualizer(**_kw(config["visualizer"])).conf_thresh
+    t = time.perf_counter()
+    weights = {"asp_cli": workdir / "detecting.ckpt", "mjpeg_cli": workdir / "detecting_mjpeg.ckpt"}
+    for tag, source in (("asp_cli", VIDEO_RUNS[0][0]), ("mjpeg_cli", ASP_MJPEG_RUNS[1][0])):
+        if not weights[tag].exists():
+            frames = list(video.VideoReader(IMAGE_FIXTURES / source))
+            detecting_checkpoint(weights[tag], build_pipeline(name)[0], frames, thresh)
+    log(f"  detecting weights in {time.perf_counter() - t:.2f} s")
+    counts, res = {}, {}
+    for source, n, shape in ASP_MJPEG_RUNS:
+        src = IMAGE_FIXTURES / source
+        fps = video.VideoReader(src).fps
+        tag = "asp_cli" if source.startswith("asp") else "mjpeg_cli"
+        out = workdir / f"{tag}.mp4"
+        random.seed(SEED + 26)
+        t = time.perf_counter()
+        lines, calls, retrieved, launched, _ = run_cli(["-c", name, "-w", str(weights[tag]),
+                                                        "--video", str(src), "-o", str(out)])
+        run_s = time.perf_counter() - t
+        log(f"  {source} -> {out.name}: {len(calls)} frames in {run_s:.2f} s (model build "
+            f"included), launches: {launched}; report: " + "; ".join(lines))
+        if len(calls) != n or len(retrieved) != n or launched["exact_topk"] != 2 * n \
+                or launched["assemble_masks_packed"] != n or sum(launched.values()) != 3 * n:
+            raise AssertionError(f"{tag}: expected {n} frames, kernel 1 twice and kernel 2 "
+                                 f"once a frame; got {len(calls)}, {launched}")
+        plain, wants = check_against_plain(tag, calls, _kw(config["postprocess"]), 736)
+        for want, host in zip(wants, retrieved):
+            for got_r, want_r in zip(host, plain.to_host_list(want)):
+                for key in want_r:
+                    if not np.array_equal(got_r[key], want_r[key]):
+                        raise AssertionError(f"{tag}: the streamed host '{key}' differs")
+        expected, drawn = expected_video(workdir / f"expected_{tag}.mp4", src, wants, plain,
+                                         config, SEED + 26, fps)
+        if not sum(drawn):
+            raise AssertionError(f"{tag}: no detection above conf_thresh {thresh} in {n} "
+                                 "frames; the video would hold the source frames alone")
+        if out.read_bytes() != expected:
+            raise AssertionError(f"{tag}: the output differs from the writer's file of the "
+                                 "plain-version drawings")
+        reader = video.VideoReader(out)
+        back = list(reader)
+        size = (shape[0] & ~1, shape[1] & ~1, 3)
+        if len(back) != n or back[0].shape != size or reader.fps != fps or \
+                reader.frame_count != n:
+            raise AssertionError(f"{tag}: the output reads back as {len(back)} frames of "
+                                 f"{back[0].shape} at {reader.fps}")
+        stream_line = [ln for ln in lines if ln.startswith("The average streaming time")]
+        res[tag] = {"run_s": run_s, "bytes": len(expected), "detections_drawn": sum(drawn),
+                    "frames_drawn_on": sum(1 for d in drawn if d),
+                    "cli_fps": float(stream_line[0].split("(")[1].split(" fps")[0])}
+        log(f"  {tag}: every frame identical to the plain-version postprocess on its heads; "
+            f"the output ({len(expected)} bytes, {sum(drawn)} detections drawn on "
+            f"{res[tag]['frames_drawn_on']} of {n} frames) is the writer's file of the "
+            f"plain-version drawings, read back to {n} frames of {size[1]}x{size[0]} at {fps}")
+        counts[tag] = launched
+    return counts, res
+
+
+def check_asp_mjpeg_codecs():
+    """Phase 26 (c): the host ms a frame (median of ``CODEC_REPEATS``) of
+    demux, decode and conversion to RGB of the ASP AVI and the MJPEG AVI."""
+    from orienmask_tpu_torch.data import mjpeg, mpeg4, video, yuv
+
+    out = {}
+    for source, n, _ in ASP_MJPEG_RUNS:
+        src = IMAGE_FIXTURES / source
+        reader = video.VideoReader(src)
+        packets = list(reader.packet_bytes())
+        planes = list(reader.planes())
+        if reader.codec == "mjpeg":
+            def decode():
+                for packet in packets:
+                    mjpeg.decode(packet, reader.height)
+
+            convert = yuv.yuvj_to_rgb
+        else:
+            def decode():
+                decoder = mpeg4.Decoder(reader.config, codec_tag=reader.codec_tag)
+                for packet in packets:
+                    decoder.decode(packet)
+                decoder.flush()
+
+            convert = yuv.yuv420_to_rgb
+        key = source.split(".")[0]
+        out[key] = {"demux": median_ms(lambda: list(video.VideoReader(src).packet_bytes())) / n,
+                    "decode": median_ms(decode) / n,
+                    "to_rgb": median_ms(lambda: [convert(*p) for p in planes]) / n}
+        log(f"  host ms a {key} frame (median of {CODEC_REPEATS}, {n} frames): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out[key].items()) + f"; card: {card_line()}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="also write a torch.profiler table")
@@ -5289,8 +5515,16 @@ def main(argv=None):
         video_counts, video_files["cli"] = check_video_cli(Path(workdir))
         video_files["codecs"] = check_video_codecs()
         video_files["stream_736"] = check_video_stream(Path(workdir))
-    video_files["phase_s"] = time.perf_counter() - t
-    log(f"  phase 25 in {video_files['phase_s']:.1f} s; card: {card_line()}")
+        video_files["phase_s"] = time.perf_counter() - t
+        log(f"  phase 25 in {video_files['phase_s']:.1f} s; card: {card_line()}")
+        header("[26] XviD/DivX (ASP) and MJPEG AVI files: the fixtures to cv2's digests, the "
+               "infer CLI at 736x736 over each (--video, -o out.mp4), the codecs on the host")
+        t = time.perf_counter()
+        asp_files = check_asp_mjpeg_fixtures()
+        asp_counts, asp_files["cli"] = check_asp_mjpeg_cli(Path(workdir))  # phase 25's weights
+    asp_files["codecs"] = check_asp_mjpeg_codecs()
+    asp_files["phase_s"] = time.perf_counter() - t
+    log(f"  phase 26 in {asp_files['phase_s']:.1f} s; card: {card_line()}")
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -5316,7 +5550,7 @@ def main(argv=None):
         paths[name]["webp_cli"] = webp_cli_counts["-v -o"][name]
         paths[name]["webp_video"] = webp_cli_counts["--video -o"][name]
         paths[name]["platforms_cuda"] = platform_counts["platforms_cuda"][name]
-        for tag, launched in video_counts.items():  # phase 25
+        for tag, launched in {**video_counts, **asp_counts}.items():  # phases 25, 26
             paths[name][tag] = launched[name]
     for name in paths:  # phase 17's CLIs, each kernel's count around each
         for cli, launched in files_counts.items():
@@ -5376,7 +5610,7 @@ def main(argv=None):
                     "int8_544": int8, "serving_544": serving, "spatial_544": spatial_544}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
                     "stream_736": stream_fps, "jpeg": jpeg, "image_files": image_files,
-                    "webp": webp_files, "video": video_files}))
+                    "webp": webp_files, "video": video_files, "asp_mjpeg": asp_files}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
-// MPEG-4 Part 2 Simple Profile loops of data/mpeg4.py (the reader) and
-// data/mpeg4_encode.py (the writer), and the colour conversions of
-// data/yuv.py: each is the plain Python version written again in C++, and
-// held to it by the tests.  Plain C interface, loaded with ctypes.
+// MPEG-4 Part 2 loops of data/mpeg4.py (the reader: Simple and Advanced
+// Simple Profile) and data/mpeg4_encode.py (the writer), and the colour
+// conversions of data/yuv.py: each is the plain Python version written
+// again in C++, and held to it by the tests.  Plain C interface, loaded
+// with ctypes.
 //
 // The reader's tables come from Python (mpeg4.native_tables): one int32
 // array whose first entries are the offsets of its parts, so the codes are
@@ -23,11 +24,23 @@ enum {
 };
 // a lookup at offset o: [bits, sym[1 << bits], len[1 << bits]]
 
-enum { ERR_VLC = -1, ERR_END = -2, ERR_COEFS = -3, ERR_PACKET = -4, ERR_REF = -5 };
+enum {
+  ERR_VLC = -1, ERR_END = -2, ERR_COEFS = -3, ERR_PACKET = -4, ERR_REF = -5, ERR_MBTYPE = -6,
+  ERR_MARKER = -7, ERR_DC_AMONG_AC = -8
+};
 enum { MB_INTRA, MB_INTER, MB_SKIPPED, MB_INTER4V };
+enum { I_VOP, P_VOP, B_VOP };
+// the parameter vector (mpeg4.params)
+enum {
+  P_MB_W, P_MB_H, P_TYPE, P_QUANT, P_FCODE, P_ROUNDING, P_DC_THR, P_RESYNC, P_TIME_BITS, P_EDGE_W,
+  P_EDGE_H, P_WIDTH, P_HEIGHT, P_BCODE, P_QUANT_TYPE, P_QPEL, P_PARTITIONED, P_IDCT, P_BUGS,
+  P_PP_TIME, P_PB_TIME
+};
+enum { BUG_DC_CLIP = 1, BUG_QPEL_CHROMA = 2, BUG_QPEL_CHROMA2 = 4 };
 const int INTRA_DC_STUFF = 8, INTER_STUFF = 20, ESCAPE = 102;
 const int LAST_FROM[2] = {58, 67};
 const int DQUANT[4] = {-1, -2, 1, 2};
+const uint32_t DC_MARKER = 0x6B001, MOTION_MARKER = 0x1F001;
 
 struct Bits {
   const uint8_t* data;  // padded with 8 zero bytes
@@ -70,7 +83,9 @@ inline int median(int a, int b, int c) {
 inline int clampi(int v, int lo, int hi) { return v < lo ? lo : v > hi ? hi : v; }
 inline uint8_t clip8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 inline int16_t wrap16(int64_t v) { return (int16_t)(uint16_t)(v & 0xFFFF); }
+inline int32_t wrap32(int64_t v) { return (int32_t)(uint32_t)(uint64_t)v; }
 inline int rounded_div(int a, int b) { return a > 0 ? (a + (b >> 1)) / b : (a - (b >> 1)) / b; }
+inline int half(int v) { return v / 2; }  // C's truncating division, as FFmpeg's mv / 2
 
 const int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873, W6 = 8867, W7 = 4520;
 
@@ -126,6 +141,65 @@ void simple_idct(const int16_t* in, int32_t* out) {
   }
 }
 
+// XviD's IDCT (mpeg4.xvid_idct): per-row cosines and rounders, then the
+// column pass of 16-bit multiplies and butterflies, each pass into int16
+void xvid_idct(const int16_t* in, int32_t* out) {
+  static const int64_t tab[8][7] = {
+      {22725, 21407, 19266, 16384, 12873, 8867, 4520},
+      {31521, 29692, 26722, 22725, 17855, 12299, 6270},
+      {29692, 27969, 25172, 21407, 16819, 11585, 5906},
+      {26722, 25172, 22654, 19266, 15137, 10426, 5315},
+      {22725, 21407, 19266, 16384, 12873, 8867, 4520},
+      {26722, 25172, 22654, 19266, 15137, 10426, 5315},
+      {29692, 27969, 25172, 21407, 16819, 11585, 5906},
+      {31521, 29692, 26722, 22725, 17855, 12299, 6270}};
+  static const int64_t rnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+  int64_t x[64];
+  for (int r = 0; r < 8; r++) {
+    const int16_t* b = in + 8 * r;
+    const int64_t* c = tab[r];
+    int64_t k = c[3] * b[0] + rnd[r];
+    int64_t a0 = k + c[1] * b[2] + c[3] * b[4] + c[5] * b[6];
+    int64_t a1 = k + c[5] * b[2] - c[3] * b[4] - c[1] * b[6];
+    int64_t a2 = k - c[5] * b[2] - c[3] * b[4] + c[1] * b[6];
+    int64_t a3 = k - c[1] * b[2] + c[3] * b[4] - c[5] * b[6];
+    int64_t b0 = c[0] * b[1] + c[2] * b[3] + c[4] * b[5] + c[6] * b[7];
+    int64_t b1 = c[2] * b[1] - c[6] * b[3] - c[0] * b[5] - c[4] * b[7];
+    int64_t b2 = c[4] * b[1] - c[0] * b[3] + c[6] * b[5] + c[2] * b[7];
+    int64_t b3 = c[6] * b[1] - c[4] * b[3] + c[2] * b[5] - c[0] * b[7];
+    int64_t o[8] = {a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2, a1 - b1, a0 - b0};
+    for (int j = 0; j < 8; j++) x[8 * r + j] = wrap16(wrap32(o[j]) >> 11);
+  }
+  const int64_t TAN1 = 0x32EC, TAN2 = 0x6A0A, TAN3 = 0xAB0E, SQRT2 = 0x5A82;
+  auto mult = [](int64_t c, int64_t v) { return (int64_t)(wrap32(c * v) >> 16); };
+  for (int j = 0; j < 8; j++) {
+    const int64_t* i = x + j;
+    int64_t m0 = mult(TAN1, i[56]) + i[8];
+    int64_t m1 = mult(TAN1, i[8]) - i[56];
+    int64_t m2 = mult(TAN3, i[40]) + i[24];
+    int64_t m3 = mult(TAN3, i[24]) - i[40];
+    int64_t m7 = m0 + m2, m4 = m1 - m3;
+    m0 = m0 - m2;
+    m1 = m1 + m3;
+    int64_t m6 = 2 * mult(SQRT2, m0 + m1), m5 = 2 * mult(SQRT2, m0 - m1);
+    m3 = mult(TAN2, i[48]) + i[16];
+    m2 = mult(TAN2, i[16]) - i[48];
+    int64_t e0 = i[0] + i[32], e1 = i[0] - i[32];
+    int64_t t = e0 + m3;
+    m3 = e0 - m3;
+    e0 = t;
+    int64_t o[8];
+    o[0] = e0 + m7; o[7] = e0 - m7;
+    o[3] = m3 + m4; o[4] = m3 - m4;
+    t = e1 + m2;
+    m2 = e1 - m2;
+    e1 = t;
+    o[1] = e1 + m6; o[6] = e1 - m6;
+    o[2] = m2 + m5; o[5] = m2 - m5;
+    for (int r = 0; r < 8; r++) out[8 * r + j] = wrap16(wrap32(o[r]) >> 6);
+  }
+}
+
 // half-pel prediction of a size x size block at full-pel (x0, y0) of a
 // plane of stride `stride`, its coordinates clamped to [0, ew) x [0, eh);
 // `narrow`: FFmpeg's 8-wide no-rounding x2 and y2 averages on x86, pavgb
@@ -158,6 +232,48 @@ void half_pel(const uint8_t* ref, int stride, int ew, int eh, int x0, int y0, in
     }
 }
 
+// MPEG-4's 8-tap filter over size + 1 samples at stride `step`, mirrored at
+// the block's edges, into `size` outputs at stride `dstep` (mpeg4._lowpass)
+void lowpass(const int* src, int step, int size, int rounding, int* dst, int dstep) {
+  auto s = [&](int k) {
+    int kk = k < 0 ? -k - 1 : k > size ? 2 * size + 1 - k : k;
+    return src[kk * step];
+  };
+  for (int i = 0; i < size; i++) {
+    int v = 20 * (s(i) + s(i + 1)) - 6 * (s(i - 1) + s(i + 2)) + 3 * (s(i - 2) + s(i + 3)) -
+            (s(i - 3) + s(i + 4));
+    dst[i * dstep] = clip8((v + 16 - rounding) >> 5);
+  }
+}
+
+// quarter-pel prediction of a size x size block (mpeg4.qpel): the
+// horizontal stage over size + 1 rows, then the vertical one
+void qpel(const uint8_t* ref, int stride, int ew, int eh, int x0, int y0, int fx, int fy, int size,
+          int rounding, int32_t* out) {
+  int n = size + 1;
+  int p[17 * 17], hl[17 * 16], h[17 * 16], vl[16 * 16];
+  for (int j = 0; j < n; j++) {
+    const uint8_t* row = ref + (int64_t)clampi(y0 + j, 0, eh - 1) * stride;
+    for (int i = 0; i < n; i++) p[j * n + i] = row[clampi(x0 + i, 0, ew - 1)];
+  }
+  int rnd = 1 - rounding;
+  for (int j = 0; j < n; j++) {
+    lowpass(p + j * n, 1, size, rounding, hl + j * size, 1);
+    for (int i = 0; i < size; i++) {
+      int f = p[j * n + i], f1 = p[j * n + i + 1], l = hl[j * size + i];
+      h[j * size + i] =
+          fx == 0 ? f : fx == 1 ? (f + l + rnd) >> 1 : fx == 2 ? l : (f1 + l + rnd) >> 1;
+    }
+  }
+  for (int i = 0; i < size; i++) lowpass(h + i, size, size, rounding, vl + i, size);
+  for (int j = 0; j < size; j++)
+    for (int i = 0; i < size; i++) {
+      int t = h[j * size + i], b = h[(j + 1) * size + i], l = vl[j * size + i];
+      out[j * size + i] =
+          fy == 0 ? t : fy == 1 ? (t + l + rnd) >> 1 : fy == 2 ? l : (b + l + rnd) >> 1;
+    }
+}
+
 inline int chroma_4mv(int v) {
   static const int tab[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
   return tab[v & 15] + ((v >> 3) & ~1);
@@ -166,7 +282,7 @@ inline int chroma_4mv(int v) {
 struct Decoder {
   const int32_t* part[T_COUNT];
   int mb_w, mb_h, ctype, fcode, rounding, dc_thr, resync, time_bits, edge_w, edge_h, width,
-      height;
+      height, bcode, quant_type, qpel_on, partitioned, idct, bugs, pp_time, pb_time;
   // padded predictor arrays, as data/mpeg4.py lays them out
   std::vector<int32_t> dc[3], ac[3], mv, qtab;
   int dcw[3], dch[3];
@@ -175,13 +291,16 @@ struct Decoder {
 
   int32_t& DC(int p, int y, int x) { return dc[p][y * dcw[p] + x]; }
   int32_t* AC(int p, int y, int x) { return &ac[p][(y * dcw[p] + x) * 16]; }
-  int32_t* MV(int y, int x) { return &mv[(y * (2 * mb_w + 2) + x) * 2]; }
+  int* MV(int y, int x) { return &mv[(y * (2 * mb_w + 2) + x) * 2]; }
 
   void init(const int32_t* prm, const int32_t* tables) {
     for (int i = 0; i < T_COUNT; i++) part[i] = tables + tables[i];
-    mb_w = prm[0]; mb_h = prm[1]; ctype = prm[2]; fcode = prm[4]; rounding = prm[5];
-    dc_thr = prm[6]; resync = prm[7]; time_bits = prm[8]; edge_w = prm[9]; edge_h = prm[10];
-    width = prm[11]; height = prm[12];
+    mb_w = prm[P_MB_W]; mb_h = prm[P_MB_H]; ctype = prm[P_TYPE]; fcode = prm[P_FCODE];
+    rounding = prm[P_ROUNDING]; dc_thr = prm[P_DC_THR]; resync = prm[P_RESYNC];
+    time_bits = prm[P_TIME_BITS]; edge_w = prm[P_EDGE_W]; edge_h = prm[P_EDGE_H];
+    width = prm[P_WIDTH]; height = prm[P_HEIGHT]; bcode = prm[P_BCODE];
+    quant_type = prm[P_QUANT_TYPE]; qpel_on = prm[P_QPEL]; partitioned = prm[P_PARTITIONED];
+    idct = prm[P_IDCT]; bugs = prm[P_BUGS]; pp_time = prm[P_PP_TIME]; pb_time = prm[P_PB_TIME];
     dcw[0] = 2 * mb_w + 1; dch[0] = 2 * mb_h + 1;
     dcw[1] = dcw[2] = mb_w + 1; dch[1] = dch[2] = mb_h + 1;
     for (int p = 0; p < 3; p++) {
@@ -197,6 +316,7 @@ struct Decoder {
     else { *bx = mb_x; *by = mb_y; }
   }
 
+  // ff_h263_pred_motion, with its write of the left macroblock's vector
   void pred_motion(int row, int col, int block, int mb_x, int* px, int* py) {
     int y = row + 1 + (block >> 1), x = col + 1 + (block & 1);
     int* a = MV(y, x - 1);
@@ -220,7 +340,7 @@ struct Decoder {
       }
       int* b = MV(y - 1, x);
       int* c = MV(y - 1, x + 1);
-      if (mb_x == resync_x) ax = ay = 0;
+      if (mb_x == resync_x) { a[0] = a[1] = 0; ax = ay = 0; }
       *px = median(ax, b[0], c[0]); *py = median(ay, b[1], c[1]);
       return;
     }
@@ -230,16 +350,16 @@ struct Decoder {
     *px = median(ax, b[0], c[0]); *py = median(ay, b[1], c[1]);
   }
 
-  int decode_motion(Bits& r, int pred) {
+  int decode_motion(Bits& r, int pred, int code_bits) {
     int code = r.vlc(part[T_MVD]);
     if (code == 0) return pred;
     int sign = r.bits(1);
-    int shift = fcode - 1;
+    int shift = code_bits - 1;
     int val = code;
     if (shift) val = (((val - 1) << shift) | (int)r.bits(shift)) + 1;
     if (sign) val = -val;
     val += pred;
-    int bits = 5 + fcode;
+    int bits = 5 + code_bits;
     val &= (1 << bits) - 1;
     return (val >> (bits - 1)) ? val - (1 << bits) : val;
   }
@@ -311,7 +431,7 @@ struct Decoder {
     pred = (pred + (scale >> 1)) / scale;
     level += pred;
     int stored = level * scale;
-    if (stored & ~2047) stored = stored < 0 ? 0 : 2047;
+    if (stored & ~2047) stored = stored < 0 ? 0 : (bugs & BUG_DC_CLIP) ? stored : 2047;
     DC(p, by + 1, bx + 1) = stored;
     return level;
   }
@@ -370,14 +490,19 @@ struct Decoder {
     }
   }
 
-  bool is_resync(Bits& r) {
+  int prefix() const {
+    if (ctype == I_VOP) return 16;
+    if (ctype == B_VOP) return std::max(std::max(fcode, bcode), 2) + 15;
+    return 15 + fcode;
+  }
+
+  bool is_resync(Bits& r, int prefix_len) {
     int64_t pos = r.pos;
     int stuffing = 8 - (int)(pos & 7);
     if (pos + stuffing + 17 > r.size) return false;
     if (r.peek(stuffing) != (1u << (stuffing - 1)) - 1) return false;
-    int prefix = ctype == 0 ? 16 : 15 + fcode;
     r.pos = pos + stuffing;
-    bool ok = r.peek(prefix + 1) == 1;
+    bool ok = r.peek(prefix_len + 1) == 1;
     r.pos = pos;
     return ok;
   }
@@ -398,42 +523,145 @@ struct Decoder {
       r.bits(1);
       r.bits(time_bits);
       r.bits(1);
-      int coding_type = r.bits(2);
+      r.bits(2);
       r.bits(3);
-      if (coding_type != 0) r.bits(3);
+      if (ctype != I_VOP) r.bits(3);
+      if (ctype == B_VOP) r.bits(3);
     }
     return r.err;
   }
+
+  // the intra DC by its VLC, predicted; returns the level
+  int intra_dc(Bits& r, int n, int mb_x, int mb_y, int qscale, int* dir) {
+    int size = r.vlc(part[n < 4 ? T_DC_LUMA : T_DC_CHROMA]);
+    int diff = 0;
+    if (size) {
+      int code = r.bits(size);
+      diff = (code >> (size - 1)) ? code : code - (1 << size) + 1;
+      if (size > 8) r.bits(1);
+    }
+    int bx, by;
+    block_pos(n, mb_x, mb_y, &bx, &by);
+    return pred_dc(n, bx, by, diff, mb_x, mb_y, part[T_DC_SCALE][(n < 4 ? 0 : 32) + qscale], dir);
+  }
+
+  // an intra macroblock's six blocks; `dcs`/`dirs`: a data partition's
+  // stored DCs and directions, or null
+  int intra_blocks(Bits& r, int16_t blocks[6][64], int mb_x, int mb_y, int qscale, int cbp,
+                   int ac_pred, bool use_dc_vlc, const int* dcs, const int* dirs) {
+    const int32_t* scans = part[T_SCANS];
+    const int32_t* dc_scale = part[T_DC_SCALE];
+    for (int n = 0; n < 6; n++) {
+      int16_t* block = blocks[n];
+      int scale = dc_scale[(n < 4 ? 0 : 32) + qscale];
+      int bx, by, dir, start;
+      block_pos(n, mb_x, mb_y, &bx, &by);
+      if (dcs) {
+        block[0] = wrap16((dcs[n] + (scale >> 1)) / scale);
+        dir = dirs[n];
+        start = 0;
+      } else if (use_dc_vlc) {
+        block[0] = wrap16(intra_dc(r, n, mb_x, mb_y, qscale, &dir));
+        if (r.err) return r.err;
+        start = 0;
+      } else {
+        pred_dc(n, bx, by, 0, mb_x, mb_y, scale, &dir);
+        start = -1;
+      }
+      const int32_t* scan = scans + 64 * (!ac_pred ? 0 : dir == 0 ? 2 : 1);
+      if (cbp & (32 >> n)) {
+        int e = tcoef(r, block, scan, start, 1, 1, 0);
+        if (e) return e;
+      }
+      if (!dcs && !use_dc_vlc)
+        block[0] = wrap16(pred_dc(n, bx, by, block[0], mb_x, mb_y, scale, &dir));
+      pred_ac(block, n, bx, by, dir, ac_pred, mb_x, mb_y, qscale);
+    }
+    return 0;
+  }
+
+  int inter_blocks(Bits& r, int16_t blocks[6][64], bool coded[6], int cbp, int qscale) {
+    int qmul = quant_type ? 1 : 2 * qscale, qadd = quant_type ? 0 : (qscale - 1) | 1;
+    for (int n = 0; n < 6; n++)
+      if (cbp & (32 >> n)) {
+        coded[n] = true;
+        int e = tcoef(r, blocks[n], part[T_SCANS], -1, 0, qmul, qadd);
+        if (e) return e;
+      }
+    return 0;
+  }
 };
 
-// the reader's prediction of one macroblock: the 4 luma blocks by their
-// vectors (8x8 blocks of 4MV clipped to the VOL's size as hpel_motion
-// clips them), the chroma by the 1MV rule or the 4MV sum's rounding
-void predict_mb(const Decoder& d, int kind, const int vec[4][2], int mb_x, int mb_y,
-                const uint8_t* const refs[3], int32_t pred[6][64]) {
-  int ys = 16 * d.mb_w, cs = 8 * d.mb_w;
-  bool four_mv = kind == MB_INTER4V;
-  for (int k = 0; k < 4; k++) {
-    int mx = vec[k][0], my = vec[k][1];
-    int x = mb_x * 16 + (k & 1) * 8 + (mx >> 1), y = mb_y * 16 + (k >> 1) * 8 + (my >> 1);
-    int hx = mx & 1, hy = my & 1;
-    if (four_mv) {
-      x = clampi(x, -16, d.width);
-      y = clampi(y, -16, d.height);
-      if (x == d.width) hx = 0;
-      if (y == d.height) hy = 0;
+// ff_mpeg4_set_direct_mv: a direct macroblock's forward and backward vectors
+void direct_vectors(bool col_four, const int32_t* col_mv, int dx, int dy, int pp, int pb,
+                    int vec[2][4][2]) {
+  for (int i = 0; i < (col_four ? 4 : 1); i++) {
+    int d[2] = {dx, dy};
+    for (int c = 0; c < 2; c++) {
+      int p = col_mv[i * 2 + c];
+      vec[0][i][c] = p * pb / pp + d[c];
+      vec[1][i][c] = d[c] ? vec[0][i][c] - p : p * (pb - pp) / pp;
     }
-    half_pel(refs[0], ys, d.edge_w, d.edge_h, x, y, hx, hy, 8, d.rounding, pred[k], four_mv);
+  }
+  if (!col_four)
+    for (int i = 1; i < 4; i++)
+      for (int c = 0; c < 2; c++) { vec[0][i][c] = vec[0][0][c]; vec[1][i][c] = vec[1][0][c]; }
+}
+
+// one direction's prediction of a macroblock (mpeg4._predict): luma as
+// four 8x8 blocks (pred[0..3]), chroma pred[4], pred[5]
+void predict_dir(const Decoder& d, bool four, const int vec[4][2], int mb_x, int mb_y,
+                 const uint8_t* const refs[3], int rounding, int32_t pred[6][64]) {
+  int ys = 16 * d.mb_w, cs = 8 * d.mb_w;
+  int shift = d.qpel_on ? 2 : 1, mask = d.qpel_on ? 3 : 1;
+  if (d.qpel_on && !four) {
+    int32_t big[256];
+    int mx = vec[0][0], my = vec[0][1];
+    qpel(refs[0], ys, d.edge_w, d.edge_h, mb_x * 16 + (mx >> 2), mb_y * 16 + (my >> 2), mx & 3,
+         my & 3, 16, rounding, big);
+    for (int k = 0; k < 4; k++)
+      for (int j = 0; j < 8; j++)
+        for (int i = 0; i < 8; i++)
+          pred[k][j * 8 + i] = big[((k >> 1) * 8 + j) * 16 + (k & 1) * 8 + i];
+  } else {
+    for (int k = 0; k < 4; k++) {
+      int mx = vec[k][0], my = vec[k][1];
+      int x = mb_x * 16 + (k & 1) * 8 + (mx >> shift), y = mb_y * 16 + (k >> 1) * 8 + (my >> shift);
+      int fx = mx & mask, fy = my & mask;
+      if (four) {
+        x = clampi(x, -16, d.width);
+        y = clampi(y, -16, d.height);
+        if (x == d.width) fx = 0;
+        if (y == d.height) fy = 0;
+      }
+      if (d.qpel_on) qpel(refs[0], ys, d.edge_w, d.edge_h, x, y, fx, fy, 8, rounding, pred[k]);
+      else half_pel(refs[0], ys, d.edge_w, d.edge_h, x, y, fx, fy, 8, rounding, pred[k], four);
+    }
   }
   int ux, uy, hx, hy;
-  if (four_mv) {
-    int sx = vec[0][0] + vec[1][0] + vec[2][0] + vec[3][0];
-    int sy = vec[0][1] + vec[1][1] + vec[2][1] + vec[3][1];
+  if (four) {
+    int sx = 0, sy = 0;
+    for (int k = 0; k < 4; k++) {
+      sx += d.qpel_on ? half(vec[k][0]) : vec[k][0];
+      sy += d.qpel_on ? half(vec[k][1]) : vec[k][1];
+    }
     int cx = chroma_4mv(sx), cy = chroma_4mv(sy);
     ux = clampi(mb_x * 8 + (cx >> 1), -8, d.width >> 1);
     uy = clampi(mb_y * 8 + (cy >> 1), -8, d.height >> 1);
     hx = (ux == (d.width >> 1)) ? 0 : cx & 1;
     hy = (uy == (d.height >> 1)) ? 0 : cy & 1;
+  } else if (d.qpel_on) {
+    static const int rtab[8] = {0, 0, 1, 1, 0, 0, 0, 1};
+    int mx = vec[0][0], my = vec[0][1], cx, cy;
+    if (d.bugs & BUG_QPEL_CHROMA2) { cx = (mx >> 1) + rtab[mx & 7]; cy = (my >> 1) + rtab[my & 7]; }
+    else if (d.bugs & BUG_QPEL_CHROMA) { cx = (mx >> 1) | (mx & 1); cy = (my >> 1) | (my & 1); }
+    else { cx = half(mx); cy = half(my); }
+    cx = (cx >> 1) | (cx & 1);
+    cy = (cy >> 1) | (cy & 1);
+    ux = mb_x * 8 + (cx >> 1);
+    uy = mb_y * 8 + (cy >> 1);
+    hx = cx & 1;
+    hy = cy & 1;
   } else {
     int cx = vec[0][0], cy = vec[0][1];
     ux = (mb_x * 16 + (cx >> 1)) >> 1;
@@ -442,34 +670,76 @@ void predict_mb(const Decoder& d, int kind, const int vec[4][2], int mb_x, int m
     hy = (cy & 1) | ((cy & 2) >> 1);
   }
   for (int p = 1; p < 3; p++)
-    half_pel(refs[p], cs, d.edge_w >> 1, d.edge_h >> 1, ux, uy, hx, hy, 8, d.rounding,
-             pred[3 + p], true);
+    half_pel(refs[p], cs, d.edge_w >> 1, d.edge_h >> 1, ux, uy, hx, hy, 8, rounding, pred[3 + p],
+             true);
 }
 
-// one macroblock's pixels: intra blocks inverse-quantised
-// (dct_unquantize_h263_intra) and put, inter ones added to the prediction
-void reconstruct_mb(const Decoder& d, int kind, int qscale, int16_t blocks[6][64],
-                    const bool coded[6], const int vec[4][2], int mb_x, int mb_y,
-                    const uint8_t* const refs[3], uint8_t* const outs[3]) {
+// one macroblock's pixels: intra blocks inverse-quantised (H.263, or MPEG
+// quantisation with `matrices`) and put, inter ones (MPEG quantisation's
+// inverse-quantised here, with its mismatch control) added to the
+// prediction of direction 1 (forward), 2 (backward) or both (averaged)
+void reconstruct_mb(const Decoder& d, int kind, int dirs, int qscale, int16_t blocks[6][64],
+                    const bool coded[6], const int vec[2][4][2], int mb_x, int mb_y,
+                    const uint8_t* const past[3], const uint8_t* const fut[3],
+                    const int32_t* matrices, uint8_t* const outs[3]) {
   const int32_t* dc_scale = d.part[T_DC_SCALE];
   int ys = 16 * d.mb_w, cs = 8 * d.mb_w;
   int32_t pred[6][64];
   if (kind != MB_INTRA) {
-    predict_mb(d, kind, vec, mb_x, mb_y, refs, pred);
+    bool four = kind == MB_INTER4V;
+    if (dirs & 1) predict_dir(d, four, vec[0], mb_x, mb_y, past, d.rounding, pred);
+    if (dirs & 2) {
+      if (dirs & 1) {
+        int32_t back[6][64];
+        predict_dir(d, four, vec[1], mb_x, mb_y, fut, d.rounding, back);
+        for (int n = 0; n < 6; n++)
+          for (int i = 0; i < 64; i++) pred[n][i] = (pred[n][i] + back[n][i] + 1) >> 1;
+      } else {
+        predict_dir(d, four, vec[1], mb_x, mb_y, fut, d.rounding, pred);
+      }
+    }
+    if (d.quant_type) {
+      for (int n = 0; n < 6; n++) {
+        if (!coded[n]) continue;
+        int16_t* b = blocks[n];
+        int odd = 0;
+        for (int i = 0; i < 64; i++) {
+          if (!b[i]) continue;
+          int q = (2 * qscale * matrices[64 + i]) & 0xFFFF;
+          int mag = (((2 * std::abs((int)b[i]) + 1) * q) & 0xFFFF) >> 5;
+          b[i] = wrap16(b[i] < 0 ? -mag : mag);
+          odd ^= b[i] & 1;
+        }
+        b[63] = (int16_t)(b[63] ^ (1 - odd));
+      }
+    }
   } else {
-    int qmul = 2 * qscale, qadd = (qscale - 1) | 1;
     for (int n = 0; n < 6; n++) {
       int16_t* b = blocks[n];
-      for (int i = 1; i < 64; i++)
-        if (b[i]) b[i] = wrap16(b[i] < 0 ? b[i] * qmul - qadd : b[i] * qmul + qadd);
+      if (d.quant_type) {
+        for (int i = 1; i < 64; i++) {
+          if (!b[i]) continue;
+          int q = (2 * qscale * matrices[i]) & 0xFFFF;
+          int mag = (int16_t)(uint16_t)((std::abs((int)b[i]) * q) & 0xFFFF) >> 4;
+          b[i] = wrap16(b[i] < 0 ? -mag : mag);
+        }
+      } else {
+        int qmul = 2 * qscale, qadd = (qscale - 1) | 1;
+        for (int i = 1; i < 64; i++)
+          if (b[i]) b[i] = wrap16(b[i] < 0 ? b[i] * qmul - qadd : b[i] * qmul + qadd);
+      }
       b[0] = wrap16(b[0] * dc_scale[(n < 4 ? 0 : 32) + qscale]);
       std::memset(pred[n], 0, sizeof(pred[n]));
     }
   }
   for (int n = 0; n < 6; n++) {
     int32_t res[64];
-    if (coded[n]) simple_idct(blocks[n], res);
-    else std::memset(res, 0, sizeof(res));
+    if (coded[n]) {
+      if (d.idct) xvid_idct(blocks[n], res);
+      else simple_idct(blocks[n], res);
+    } else {
+      std::memset(res, 0, sizeof(res));
+    }
     uint8_t* dst;
     int stride;
     if (n < 4) {
@@ -483,6 +753,197 @@ void reconstruct_mb(const Decoder& d, int kind, int qscale, int16_t blocks[6][64
       for (int i = 0; i < 8; i++) dst[j * stride + i] = clip8(pred[n][j * 8 + i] + res[j * 8 + i]);
   }
 }
+
+// the decoded macroblocks of one VOP, reconstructed as they are parsed
+struct Vop {
+  Decoder& d;
+  const uint8_t* const* past;
+  const uint8_t* const* fut;
+  const int32_t* matrices;
+  uint8_t* const* outs;
+  int32_t* out_kinds;
+
+  int put(int mb, int kind, int dirs, int qscale, int16_t blocks[6][64], const bool coded[6],
+          const int vec[2][4][2]) {
+    int mb_x = mb % d.mb_w, mb_y = mb / d.mb_w;
+    if ((dirs & 1) && !past[0]) return ERR_REF;
+    if ((dirs & 2) && !fut[0]) return ERR_REF;
+    reconstruct_mb(d, kind, dirs, qscale, blocks, coded, vec, mb_x, mb_y, past, fut, matrices,
+                   outs);
+    out_kinds[mb] = kind;
+    return 0;
+  }
+};
+
+// an I- or P-VOP with data partitioning (mpeg4._parse_partitioned)
+int64_t decode_partitioned(Decoder& d, Bits& r, Vop& v, int qscale) {
+  int mb_w = d.mb_w, n_mb = d.mb_w * d.mb_h;
+  std::vector<int> cbpc(n_mb), cbps(n_mb), ac_preds(n_mb), kinds(n_mb), quants(n_mb);
+  std::vector<int> dcs(n_mb * 6), dirs(n_mb * 6);
+  std::vector<int> vecs(n_mb * 8);
+  int start = 0;
+  for (;;) {
+    int mb = start;
+    d.first_line = true;
+    while (mb < n_mb) {
+      int mb_y = mb / mb_w, mb_x = mb % mb_w;
+      if (mb_x == d.resync_x && mb_y == d.resync_y + 1) d.first_line = false;
+      int row = 2 * mb_y, col = 2 * mb_x;
+      if (d.ctype == I_VOP) {
+        bool marker = false;
+        int c = 0;
+        for (;;) {
+          if (r.peek(19) == DC_MARKER) { marker = true; break; }
+          c = r.vlc(d.part[T_INTRA_MCBPC]);
+          if (r.err) return r.err;
+          if (c != INTRA_DC_STUFF) break;
+        }
+        if (marker) break;
+        kinds[mb] = MB_INTRA;
+        if (c & 4) qscale = clampi(qscale + DQUANT[r.bits(2)], 1, 31);
+        d.qtab[mb] = quants[mb] = qscale;
+        for (int n = 0; n < 6; n++) {
+          int bx, by;
+          d.intra_dc(r, n, mb_x, mb_y, qscale, &dirs[mb * 6 + n]);
+          Decoder::block_pos(n, mb_x, mb_y, &bx, &by);
+          dcs[mb * 6 + n] = d.DC(n < 4 ? 0 : n - 3, by + 1, bx + 1);
+        }
+        if (r.err) return r.err;
+        cbpc[mb] = c;
+      } else {
+        bool marker = false, skipped = false;
+        int c = 0;
+        for (;;) {
+          if (r.peek(17) == MOTION_MARKER) { marker = true; break; }
+          if (r.bits(1)) { skipped = true; break; }
+          c = r.vlc(d.part[T_INTER_MCBPC]);
+          if (r.err) return r.err;
+          if (c != INTER_STUFF) break;
+        }
+        if (marker) break;
+        for (int k = 0; k < 8; k++) vecs[mb * 8 + k] = 0;
+        if (skipped) {
+          kinds[mb] = MB_SKIPPED;
+          for (int j = 0; j < 2; j++)
+            for (int i = 0; i < 2; i++) { int* m = d.MV(row + 1 + j, col + 1 + i); m[0] = m[1] = 0; }
+          d.clean_intra(mb_x, mb_y);
+        } else if (c & 4) {
+          kinds[mb] = MB_INTRA;
+          for (int j = 0; j < 2; j++)
+            for (int i = 0; i < 2; i++) { int* m = d.MV(row + 1 + j, col + 1 + i); m[0] = m[1] = 0; }
+        } else {
+          bool four = c & 16;
+          kinds[mb] = four ? MB_INTER4V : MB_INTER;
+          d.clean_intra(mb_x, mb_y);
+          for (int i = 0; i < (four ? 4 : 1); i++) {
+            int px, py;
+            d.pred_motion(row, col, i, mb_x, &px, &py);
+            int mx = d.decode_motion(r, px, d.fcode);
+            int my = d.decode_motion(r, py, d.fcode);
+            if (r.err) return r.err;
+            if (four) {
+              int* m = d.MV(row + 1 + (i >> 1), col + 1 + (i & 1));
+              m[0] = mx; m[1] = my;
+            } else {
+              for (int j = 0; j < 2; j++)
+                for (int k = 0; k < 2; k++) { int* m = d.MV(row + 1 + j, col + 1 + k); m[0] = mx; m[1] = my; }
+            }
+          }
+          for (int i = 0; i < 4; i++) {
+            int* m = d.MV(row + 1 + (i >> 1), col + 1 + (i & 1));
+            vecs[mb * 8 + 2 * i] = m[0];
+            vecs[mb * 8 + 2 * i + 1] = m[1];
+          }
+        }
+        cbpc[mb] = c;
+      }
+      mb++;
+    }
+    int count = mb - start;
+    if (count == 0) return ERR_PACKET;
+    if (d.ctype == I_VOP) {
+      while (r.peek(9) == 1) r.bits(9);
+      if (r.bits(19) != DC_MARKER) return ERR_MARKER;
+    } else {
+      while (r.peek(10) == 1) r.bits(10);
+      if (r.bits(17) != MOTION_MARKER) return ERR_MARKER;
+    }
+    d.first_line = true;
+    for (int k = 0; k < count; k++) {
+      int m = start + k, mb_y = m / mb_w, mb_x = m % mb_w;
+      if (mb_x == d.resync_x && mb_y == d.resync_y + 1) d.first_line = false;
+      int c = cbpc[m];
+      if (d.ctype == I_VOP) {
+        ac_preds[m] = r.bits(1);
+        cbps[m] = (c & 3) | (r.vlc(d.part[T_CBPY]) << 2);
+      } else if (kinds[m] == MB_INTRA) {
+        ac_preds[m] = r.bits(1);
+        int cbpy = r.vlc(d.part[T_CBPY]);
+        if (c & 8) qscale = clampi(qscale + DQUANT[r.bits(2)], 1, 31);
+        d.qtab[m] = quants[m] = qscale;
+        for (int n = 0; n < 6; n++) {
+          int bx, by;
+          d.intra_dc(r, n, mb_x, mb_y, qscale, &dirs[m * 6 + n]);
+          Decoder::block_pos(n, mb_x, mb_y, &bx, &by);
+          dcs[m * 6 + n] = d.DC(n < 4 ? 0 : n - 3, by + 1, bx + 1);
+        }
+        cbps[m] = (c & 3) | (cbpy << 2);
+      } else if (kinds[m] == MB_SKIPPED) {
+        d.qtab[m] = quants[m] = qscale;
+        ac_preds[m] = 0;
+        cbps[m] = 0;
+      } else {
+        int cbpy = r.vlc(d.part[T_CBPY]);
+        if (c & 8) qscale = clampi(qscale + DQUANT[r.bits(2)], 1, 31);
+        d.qtab[m] = quants[m] = qscale;
+        ac_preds[m] = 0;
+        cbps[m] = (c & 3) | ((cbpy ^ 15) << 2);
+      }
+      if (r.err) return r.err;
+    }
+    for (int k = 0; k < count; k++) {
+      int m = start + k, mb_y = m / mb_w, mb_x = m % mb_w;
+      int q = quants[m];
+      int16_t blocks[6][64];
+      std::memset(blocks, 0, sizeof(blocks));
+      bool coded[6] = {false, false, false, false, false, false};
+      int vec[2][4][2];
+      std::memset(vec, 0, sizeof(vec));
+      int dirs_mb = 0;
+      if (kinds[m] == MB_INTRA) {
+        if (!(q < d.dc_thr)) return ERR_DC_AMONG_AC;
+        int e = d.intra_blocks(r, blocks, mb_x, mb_y, q, cbps[m], ac_preds[m], true, &dcs[m * 6],
+                               &dirs[m * 6]);
+        if (e) return e;
+        for (int n = 0; n < 6; n++) coded[n] = true;
+      } else {
+        dirs_mb = 1;
+        for (int i = 0; i < 4; i++) { vec[0][i][0] = vecs[m * 8 + 2 * i]; vec[0][i][1] = vecs[m * 8 + 2 * i + 1]; }
+        if (kinds[m] != MB_SKIPPED) {
+          int e = d.inter_blocks(r, blocks, coded, cbps[m], q);
+          if (e) return e;
+        }
+      }
+      int e = v.put(m, kinds[m], dirs_mb, q, blocks, coded, vec);
+      if (e) return e;
+    }
+    start += count;
+    if (start >= n_mb) return r.pos;
+    if (!d.is_resync(r, d.prefix())) return ERR_PACKET;
+    int mb_num, q;
+    int e = d.packet_header(r, n_mb, &mb_num, &q);
+    if (e) return e;
+    if (mb_num != start) return ERR_PACKET;
+    if (q) qscale = q;
+    d.resync_y = mb_num / mb_w;
+    d.resync_x = mb_num % mb_w;
+    d.clean_buffers(d.resync_x, d.resync_y);
+  }
+}
+
+}  // namespace
+
+namespace {
 
 // ------------------------------------------------------------ the writer
 
@@ -628,9 +1089,6 @@ void motion_search(const uint8_t* cur, const uint8_t* ref, const Decoder& d, int
   *out_y = by;
 }
 
-}  // namespace
-
-namespace {
 
 // the encoder's code tables (after the reader's parts): (code, length) pairs
 // of each VLC, then (last, run, level < 64) -> TCOEF index maps
@@ -727,143 +1185,191 @@ extern "C" {
 
 // A VOP's macroblocks, from bit `bitpos` of `data` (`len` bytes, then 8
 // zero bytes), into out planes of whole macroblocks (Y stride 16 mb_w, U and
-// V 8 mb_w), predicting from ref (null for an I-VOP).  Returns the bit after
-// the last macroblock, or a negative error.
+// V 8 mb_w), predicting from `past` (a P-VOP's reference, a B-VOP's forward
+// one) and `fut` (a B-VOP's backward one; null where unused); a B-VOP reads
+// the future reference's macroblock kinds and stored vectors (col_kinds,
+// col_mv).  Writes each macroblock's kind and the stored forward vectors
+// (n, 4, 2) a later B-VOP reads.  Returns the bit after the last
+// macroblock, or a negative error.
 int64_t omv_decode_vop(const uint8_t* data, int64_t len, int64_t bitpos, const int32_t* prm,
-                       const int32_t* tables, const uint8_t* ref_y, const uint8_t* ref_u,
-                       const uint8_t* ref_v, uint8_t* out_y, uint8_t* out_u, uint8_t* out_v) {
+                       const int32_t* tables, const int32_t* matrices, const uint8_t* past_y,
+                       const uint8_t* past_u, const uint8_t* past_v, const uint8_t* fut_y,
+                       const uint8_t* fut_u, const uint8_t* fut_v, const int32_t* col_kinds,
+                       const int32_t* col_mv, uint8_t* out_y, uint8_t* out_u, uint8_t* out_v,
+                       int32_t* out_kinds, int32_t* out_mv) {
   Decoder d;
   d.init(prm, tables);
   Bits r{data, len * 8, bitpos};
   int mb_w = d.mb_w, mb_h = d.mb_h, n_mb = mb_w * mb_h;
-  int qscale = prm[3];
-  const int32_t* scans = d.part[T_SCANS];
-  const int32_t* dc_scale = d.part[T_DC_SCALE];
-  const uint8_t* const refs[3] = {ref_y, ref_u, ref_v};
+  int qscale = prm[P_QUANT];
+  const uint8_t* const past[3] = {past_y, past_u, past_v};
+  const uint8_t* const fut[3] = {fut_y, fut_u, fut_v};
   uint8_t* const outs[3] = {out_y, out_u, out_v};
-  for (int mb = 0; mb < n_mb;) {
-    int mb_y = mb / mb_w, mb_x = mb % mb_w;
-    if (mb_x == d.resync_x && mb_y == d.resync_y + 1) d.first_line = false;
-    bool intra = true, dquant = false, four = false, skipped = false;
-    int cbpc = 0;
-    if (d.ctype == 1) {
-      for (;;) {
-        if (r.bits(1)) { skipped = true; break; }
-        cbpc = r.vlc(d.part[T_INTER_MCBPC]);
-        if (r.err) return r.err;
-        if (cbpc != INTER_STUFF) break;
-      }
-      if (!skipped) { intra = cbpc & 4; dquant = cbpc & 8; four = cbpc & 16; }
-    } else {
-      for (;;) {
-        cbpc = r.vlc(d.part[T_INTRA_MCBPC]);
-        if (r.err) return r.err;
-        if (cbpc != INTRA_DC_STUFF) break;
-      }
-      dquant = cbpc & 4;
-    }
-    if (r.err) return r.err;
-    int row = 2 * mb_y, col = 2 * mb_x;
-    int16_t blocks[6][64];
-    std::memset(blocks, 0, sizeof(blocks));
-    bool coded[6] = {false, false, false, false, false, false};
-    int kind;
-    int vec[4][2] = {{0, 0}, {0, 0}, {0, 0}, {0, 0}};
-    if (skipped) {
-      kind = MB_SKIPPED;
-      for (int j = 0; j < 2; j++)
-        for (int i = 0; i < 2; i++) { int* m = d.MV(row + 1 + j, col + 1 + i); m[0] = m[1] = 0; }
-      d.clean_intra(mb_x, mb_y);
-    } else if (!intra) {
-      kind = four ? MB_INTER4V : MB_INTER;
-      int cbpy = r.vlc(d.part[T_CBPY]) ^ 15;
-      int cbp = (cbpc & 3) | (cbpy << 2);
-      if (dquant) qscale = clampi(qscale + DQUANT[r.bits(2)], 1, 31);
-      for (int i = 0; i < (four ? 4 : 1); i++) {
-        int px, py;
-        d.pred_motion(row, col, i, mb_x, &px, &py);
-        int mx = d.decode_motion(r, px);
-        int my = d.decode_motion(r, py);
-        if (r.err) return r.err;
-        if (four) {
-          int* m = d.MV(row + 1 + (i >> 1), col + 1 + (i & 1));
-          m[0] = mx; m[1] = my;
+  Vop v{d, past, fut, matrices, outs, out_kinds};
+  if (d.ctype == B_VOP && (!col_kinds || !col_mv)) return ERR_REF;
+  int64_t end;
+  if (d.partitioned && d.ctype != B_VOP) {
+    end = decode_partitioned(d, r, v, qscale);
+    if (end < 0) return end;
+  } else {
+    int last_mv[2][2] = {{0, 0}, {0, 0}};
+    for (int mb = 0; mb < n_mb;) {
+      int mb_y = mb / mb_w, mb_x = mb % mb_w;
+      if (mb_x == d.resync_x && mb_y == d.resync_y + 1) d.first_line = false;
+      int row = 2 * mb_y, col = 2 * mb_x;
+      int16_t blocks[6][64];
+      std::memset(blocks, 0, sizeof(blocks));
+      bool coded[6] = {false, false, false, false, false, false};
+      int vec[2][4][2];
+      std::memset(vec, 0, sizeof(vec));
+      int kind = MB_INTRA, dirs = 0;
+      if (d.ctype == B_VOP) {
+        if (mb_x == 0) std::memset(last_mv, 0, sizeof(last_mv));
+        int ck = col_kinds[mb];
+        if (ck == MB_SKIPPED) {
+          kind = MB_SKIPPED;
+          dirs = 1;
         } else {
-          for (int j = 0; j < 2; j++)
-            for (int k = 0; k < 2; k++) { int* m = d.MV(row + 1 + j, col + 1 + k); m[0] = mx; m[1] = my; }
-        }
-      }
-      for (int i = 0; i < 4; i++) {
-        int* m = d.MV(row + 1 + (i >> 1), col + 1 + (i & 1));
-        vec[i][0] = m[0]; vec[i][1] = m[1];
-      }
-      int qmul = 2 * qscale, qadd = (qscale - 1) | 1;
-      for (int n = 0; n < 6; n++)
-        if (cbp & (32 >> n)) {
-          coded[n] = true;
-          int e = d.tcoef(r, blocks[n], scans, -1, 0, qmul, qadd);
-          if (e) return e;
-        }
-      d.clean_intra(mb_x, mb_y);
-    } else {
-      kind = MB_INTRA;
-      int ac_pred = r.bits(1);
-      int cbp = (cbpc & 3) | (r.vlc(d.part[T_CBPY]) << 2);
-      bool use_dc_vlc = qscale < d.dc_thr;
-      if (dquant) qscale = clampi(qscale + DQUANT[r.bits(2)], 1, 31);
-      if (r.err) return r.err;
-      for (int j = 0; j < 2; j++)
-        for (int i = 0; i < 2; i++) { int* m = d.MV(row + 1 + j, col + 1 + i); m[0] = m[1] = 0; }
-      d.qtab[mb_y * mb_w + mb_x] = qscale;
-      for (int n = 0; n < 6; n++) {
-        int16_t* block = blocks[n];
-        int scale = dc_scale[(n < 4 ? 0 : 32) + qscale];
-        int bx, by, dir, start;
-        Decoder::block_pos(n, mb_x, mb_y, &bx, &by);
-        if (use_dc_vlc) {
-          int size = r.vlc(d.part[n < 4 ? T_DC_LUMA : T_DC_CHROMA]);
-          int diff = 0;
-          if (size) {
-            int code = r.bits(size);
-            diff = (code >> (size - 1)) ? code : code - (1 << size) + 1;
-            if (size > 8) r.bits(1);
+          int mb_type = 0, cbp = 0, dx = 0, dy = 0;
+          if (!r.bits(1)) {
+            int modb2 = r.bits(1);
+            mb_type = -1;
+            for (int k = 0; k < 4; k++)
+              if (r.bits(1)) { mb_type = k; break; }
+            if (r.err) return r.err;
+            if (mb_type < 0) return ERR_MBTYPE;
+            cbp = modb2 ? 0 : (int)r.bits(6);
+            if (mb_type != 0 && cbp && r.bits(1)) qscale = clampi(qscale + (int)r.bits(1) * 4 - 2, 1, 31);
+            if (mb_type != 0) {
+              static const int dmap[4] = {0, 3, 2, 1};
+              dirs = dmap[mb_type];
+              kind = MB_INTER;
+              for (int dd = 0; dd < 2; dd++) {
+                if (!(dirs & (1 << dd))) continue;
+                int code = dd ? d.bcode : d.fcode;
+                int mx = d.decode_motion(r, last_mv[dd][0], code);
+                int my = d.decode_motion(r, last_mv[dd][1], code);
+                last_mv[dd][0] = mx;
+                last_mv[dd][1] = my;
+                for (int i = 0; i < 4; i++) { vec[dd][i][0] = mx; vec[dd][i][1] = my; }
+              }
+            } else {
+              dx = d.decode_motion(r, 0, 1);
+              dy = d.decode_motion(r, 0, 1);
+            }
+          }
+          if (mb_type == 0) {
+            bool col_four = ck == MB_INTER4V;
+            direct_vectors(col_four, col_mv + mb * 8, dx, dy, d.pp_time, d.pb_time, vec);
+            dirs = 3;
+            bool four = col_four || d.qpel_on;  // (mpeg4._parse_b_mb)
+            kind = four ? MB_INTER4V : MB_INTER;
           }
           if (r.err) return r.err;
-          block[0] = wrap16(d.pred_dc(n, bx, by, diff, mb_x, mb_y, scale, &dir));
-          start = 0;
-        } else {
-          d.pred_dc(n, bx, by, 0, mb_x, mb_y, scale, &dir);
-          start = -1;
-        }
-        const int32_t* scan = scans + 64 * (!ac_pred ? 0 : dir == 0 ? 2 : 1);
-        if (cbp & (32 >> n)) {
-          int e = d.tcoef(r, block, scan, start, 1, 1, 0);
+          int e = d.inter_blocks(r, blocks, coded, cbp, qscale);
           if (e) return e;
         }
-        if (!use_dc_vlc) block[0] = wrap16(d.pred_dc(n, bx, by, block[0], mb_x, mb_y, scale, &dir));
-        d.pred_ac(block, n, bx, by, dir, ac_pred, mb_x, mb_y, qscale);
-        coded[n] = true;
+      } else {
+        bool intra = true, dquant = false, four = false, skipped = false;
+        int cbpc = 0;
+        if (d.ctype == P_VOP) {
+          for (;;) {
+            if (r.bits(1)) { skipped = true; break; }
+            cbpc = r.vlc(d.part[T_INTER_MCBPC]);
+            if (r.err) return r.err;
+            if (cbpc != INTER_STUFF) break;
+          }
+          if (!skipped) { intra = cbpc & 4; dquant = cbpc & 8; four = cbpc & 16; }
+        } else {
+          for (;;) {
+            cbpc = r.vlc(d.part[T_INTRA_MCBPC]);
+            if (r.err) return r.err;
+            if (cbpc != INTRA_DC_STUFF) break;
+          }
+          dquant = cbpc & 4;
+        }
+        if (r.err) return r.err;
+        if (skipped) {
+          kind = MB_SKIPPED;
+          dirs = 1;
+          for (int j = 0; j < 2; j++)
+            for (int i = 0; i < 2; i++) { int* m = d.MV(row + 1 + j, col + 1 + i); m[0] = m[1] = 0; }
+          d.clean_intra(mb_x, mb_y);
+        } else if (!intra) {
+          kind = four ? MB_INTER4V : MB_INTER;
+          dirs = 1;
+          int cbpy = r.vlc(d.part[T_CBPY]) ^ 15;
+          int cbp = (cbpc & 3) | (cbpy << 2);
+          if (dquant) qscale = clampi(qscale + DQUANT[r.bits(2)], 1, 31);
+          for (int i = 0; i < (four ? 4 : 1); i++) {
+            int px, py;
+            d.pred_motion(row, col, i, mb_x, &px, &py);
+            int mx = d.decode_motion(r, px, d.fcode);
+            int my = d.decode_motion(r, py, d.fcode);
+            if (r.err) return r.err;
+            if (four) {
+              int* m = d.MV(row + 1 + (i >> 1), col + 1 + (i & 1));
+              m[0] = mx; m[1] = my;
+            } else {
+              for (int j = 0; j < 2; j++)
+                for (int k = 0; k < 2; k++) { int* m = d.MV(row + 1 + j, col + 1 + k); m[0] = mx; m[1] = my; }
+            }
+          }
+          for (int i = 0; i < 4; i++) {
+            int* m = d.MV(row + 1 + (i >> 1), col + 1 + (i & 1));
+            vec[0][i][0] = m[0]; vec[0][i][1] = m[1];
+          }
+          int e = d.inter_blocks(r, blocks, coded, cbp, qscale);
+          if (e) return e;
+          d.clean_intra(mb_x, mb_y);
+        } else {
+          int ac_pred = r.bits(1);
+          int cbp = (cbpc & 3) | (r.vlc(d.part[T_CBPY]) << 2);
+          bool use_dc_vlc = qscale < d.dc_thr;
+          if (dquant) qscale = clampi(qscale + DQUANT[r.bits(2)], 1, 31);
+          if (r.err) return r.err;
+          for (int j = 0; j < 2; j++)
+            for (int i = 0; i < 2; i++) { int* m = d.MV(row + 1 + j, col + 1 + i); m[0] = m[1] = 0; }
+          d.qtab[mb_y * mb_w + mb_x] = qscale;
+          int e = d.intra_blocks(r, blocks, mb_x, mb_y, qscale, cbp, ac_pred, use_dc_vlc, nullptr,
+                                 nullptr);
+          if (e) return e;
+          for (int n = 0; n < 6; n++) coded[n] = true;
+        }
+      }
+      d.qtab[mb_y * mb_w + mb_x] = qscale;
+      int e = v.put(mb, kind, dirs, qscale, blocks, coded, vec);
+      if (e) return e;
+      mb++;
+      if (d.resync && mb < n_mb && d.is_resync(r, d.prefix())) {
+        int64_t saved = r.pos;
+        int mb_num, q;
+        e = d.packet_header(r, n_mb, &mb_num, &q);
+        if (e) return e;
+        if (mb_num != mb) {
+          if (d.ctype == B_VOP && mb_num > mb && col_kinds[mb] == MB_SKIPPED) {
+            r.pos = saved;  // skipped B macroblocks come before the packet's first
+            continue;
+          }
+          return ERR_PACKET;
+        }
+        if (q) qscale = q;
+        d.resync_y = mb_num / mb_w;
+        d.resync_x = mb_num % mb_w;
+        d.first_line = true;
+        std::memset(last_mv, 0, sizeof(last_mv));
+        d.clean_buffers(d.resync_x, d.resync_y);
       }
     }
-    d.qtab[mb_y * mb_w + mb_x] = qscale;
-
-    if (kind != MB_INTRA && !ref_y) return ERR_REF;
-    reconstruct_mb(d, kind, qscale, blocks, coded, vec, mb_x, mb_y, refs, outs);
-
-    mb++;
-    if (d.resync && mb < n_mb && d.is_resync(r)) {
-      int mb_num, q;
-      int e = d.packet_header(r, n_mb, &mb_num, &q);
-      if (e) return e;
-      if (mb_num != mb) return ERR_PACKET;
-      if (q) qscale = q;
-      d.resync_y = mb_num / mb_w;
-      d.resync_x = mb_num % mb_w;
-      d.first_line = true;
-      d.clean_buffers(d.resync_x, d.resync_y);
-    }
+    end = r.pos;
   }
-  return r.pos;
+  for (int mb = 0; mb < n_mb; mb++)
+    for (int i = 0; i < 4; i++) {
+      int* m = d.MV(2 * (mb / mb_w) + 1 + (i >> 1), 2 * (mb % mb_w) + 1 + (i & 1));
+      out_mv[mb * 8 + 2 * i] = m[0];
+      out_mv[mb * 8 + 2 * i + 1] = m[1];
+    }
+  return end;
 }
 
 // One VOP's macroblocks (data/mpeg4_encode.py's encode_vop_py): cur planes
@@ -896,7 +1402,8 @@ int64_t omv_encode_vop(const uint8_t* cur_y, const uint8_t* cur_u, const uint8_t
     int64_t samples[6][64], coefs[6][64], levels[6][64];
     int16_t blocks[6][64];
     bool coded[6] = {false, false, false, false, false, false};
-    int vec[4][2] = {{0, 0}, {0, 0}, {0, 0}, {0, 0}};
+    int vec[2][4][2];  // forward only
+    std::memset(vec, 0, sizeof(vec));
     mb_samples(cur, mb_w, mb_x, mb_y, samples);
     if (d.ctype == 0) {
       int cbp = 0;
@@ -929,7 +1436,7 @@ int64_t omv_encode_vop(const uint8_t* cur_y, const uint8_t* cur_u, const uint8_t
         for (int i = 0; i < 64; i++) blocks[k][i] = wrap16(levels[k][i]);
         coded[k] = true;
       }
-      reconstruct_mb(d, MB_INTRA, q, blocks, coded, vec, mb_x, mb_y, refs, recs);
+      reconstruct_mb(d, MB_INTRA, 0, q, blocks, coded, vec, mb_x, mb_y, refs, refs, nullptr, recs);
       continue;
     }
     int px, py;
@@ -939,10 +1446,9 @@ int64_t omv_encode_vop(const uint8_t* cur_y, const uint8_t* cur_u, const uint8_t
     if (mb_y > 0) { int* m = d.MV(row, col + 1); cand[3][0] = m[0]; cand[3][1] = m[1]; }
     int mx, my;
     motion_search(cur_y, ref_y, d, mb_x, mb_y, cand, &mx, &my);
-    vec[0][0] = vec[1][0] = vec[2][0] = vec[3][0] = mx;
-    vec[0][1] = vec[1][1] = vec[2][1] = vec[3][1] = my;
+    for (int k = 0; k < 4; k++) { vec[0][k][0] = mx; vec[0][k][1] = my; }
     int32_t pred[6][64];
-    predict_mb(d, MB_INTER, vec, mb_x, mb_y, refs, pred);
+    predict_dir(d, false, vec[0], mb_x, mb_y, refs, d.rounding, pred);
     int cbp = 0;
     for (int k = 0; k < 6; k++) {
       int64_t residual[64];
@@ -963,10 +1469,10 @@ int64_t omv_encode_vop(const uint8_t* cur_y, const uint8_t* cur_u, const uint8_t
       w.put(1, 1);
       for (int j = 0; j < 2; j++)
         for (int i = 0; i < 2; i++) { int* m = d.MV(row + 1 + j, col + 1 + i); m[0] = m[1] = 0; }
-      vec[0][0] = vec[1][0] = vec[2][0] = vec[3][0] = 0;
-      vec[0][1] = vec[1][1] = vec[2][1] = vec[3][1] = 0;
+      std::memset(vec, 0, sizeof(vec));
       std::memset(blocks, 0, sizeof(blocks));
-      reconstruct_mb(d, MB_SKIPPED, q, blocks, coded, vec, mb_x, mb_y, refs, recs);
+      reconstruct_mb(d, MB_SKIPPED, 1, q, blocks, coded, vec, mb_x, mb_y, refs, refs, nullptr,
+                     recs);
       continue;
     }
     w.put(1, 0);
@@ -986,7 +1492,7 @@ int64_t omv_encode_vop(const uint8_t* cur_y, const uint8_t* cur_u, const uint8_t
         }
         coded[k] = true;
       }
-    reconstruct_mb(d, MB_INTER, q, blocks, coded, vec, mb_x, mb_y, refs, recs);
+    reconstruct_mb(d, MB_INTER, 1, q, blocks, coded, vec, mb_x, mb_y, refs, refs, nullptr, recs);
   }
   w.stuffing();
   if (w.overflow) return -1;
@@ -1009,6 +1515,46 @@ void omv_yuv_to_rgb(const uint8_t* y, int64_t ystride, const uint8_t* u, const u
       o[3 * i + 2] = clip8(yv + ((u8 * 16525) >> 16));
     }
   }
+}
+
+// full-range YUV -> RGB (data/yuv.py's yuvj_to_rgb_py): U and V of row
+// stride `cstride`, each chroma row serving `rows` luma rows (2: 4:2:0,
+// 1: 4:2:2)
+void omv_yuvj_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v, int64_t cstride,
+                     int rows, int w, int h, uint8_t* out) {
+  for (int j = 0; j < h; j++) {
+    const uint8_t* yr = y + (int64_t)j * w;
+    const uint8_t* ur = u + (j / rows) * cstride;
+    const uint8_t* vr = v + (j / rows) * cstride;
+    uint8_t* o = out + (int64_t)j * w * 3;
+    for (int i = 0; i < w; i++) {
+      int yv = (yr[i] * 8 * 8192) >> 16;
+      int u8 = ur[i >> 1] * 8 - 1024, v8 = vr[i >> 1] * 8 - 1024;
+      o[3 * i] = clip8(yv + ((v8 * 11485) >> 16));
+      o[3 * i + 1] = clip8(yv + ((u8 * -2819) >> 16) + ((v8 * -5850) >> 16));
+      o[3 * i + 2] = clip8(yv + ((u8 * 14516) >> 16));
+    }
+  }
+}
+
+// an MJPEG component's pixels (data/mjpeg.py's planes_py): (rows, cols, 64)
+// quantised int16 blocks in raster order times the quantiser `q` into
+// int16 (the DC from 1024, saturated), simple_idct, clipped, into a plane
+// of stride 8 cols
+void omv_mjpeg_planes(const int16_t* coefs, int rows, int cols, const int32_t* q, uint8_t* out) {
+  for (int by = 0; by < rows; by++)
+    for (int bx = 0; bx < cols; bx++) {
+      const int16_t* c = coefs + ((int64_t)by * cols + bx) * 64;
+      int16_t block[64];
+      for (int i = 1; i < 64; i++) block[i] = wrap16((int64_t)c[i] * q[i]);
+      int64_t dc = 1024 + (int64_t)c[0] * q[0];
+      block[0] = (int16_t)(dc < -32768 ? -32768 : dc > 32767 ? 32767 : dc);
+      int32_t res[64];
+      simple_idct(block, res);
+      for (int j = 0; j < 8; j++)
+        for (int i = 0; i < 8; i++)
+          out[((int64_t)by * 8 + j) * cols * 8 + bx * 8 + i] = clip8(res[j * 8 + i]);
+    }
 }
 
 // RGB -> YUV 4:2:0 (data/yuv.py's rgb_to_yuv420_py), w and h even
@@ -1037,7 +1583,10 @@ const char* omv_error_string(int code) {
     case ERR_END: return "the bitstream ends inside a macroblock";
     case ERR_COEFS: return "a block with more than 64 coefficients";
     case ERR_PACKET: return "a malformed video packet header";
-    case ERR_REF: return "a P-VOP without a reference";
+    case ERR_REF: return "a VOP without its reference";
+    case ERR_MBTYPE: return "an invalid B macroblock type";
+    case ERR_MARKER: return "no marker after a data partition";
+    case ERR_DC_AMONG_AC: return "data partitioning with the intra DC among the AC coefficients";
   }
   return "an unknown error";
 }

@@ -46,6 +46,7 @@ class Stream:
         self.length = 0
         self.chunks = []
         self.extradata = b""
+        self.size = (0, 0)  # strf's width and height
 
     @property
     def fps(self):
@@ -103,6 +104,7 @@ def read(data):
                         f = fractions.Fraction(rate, scale)
                         stream.rate = (f.numerator, f.denominator)
                     if strf is not None and len(strf) >= 40:
+                        stream.size = struct.unpack_from("<ii", strf, 4)
                         stream.fourcc = strf[16:20]
                         stream.extradata = strf[40:]
                     else:

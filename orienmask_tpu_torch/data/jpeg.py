@@ -220,13 +220,15 @@ def _read_sos(frame, seg):
     return {"comps": scan_comps, "ss": ss, "se": se, "ah": ah, "al": al}
 
 
-def parse(data, scan_decoder):
+def parse(data, scan_decoder, frame=None):
     """Read every marker of ``data`` (the bytes of a JPEG file); each scan's
-    entropy-coded bytes go to ``scan_decoder(frame, scan, segment)``."""
+    entropy-coded bytes go to ``scan_decoder(frame, scan, segment)``.
+    ``frame``: a ``Frame`` to fill (one with tables set beforehand, as MJPEG
+    frames without DHT need), or a new one."""
     data = bytes(data)
     if data[:2] != b"\xff\xd8":
         raise UnsupportedJpeg("not a JPEG")
-    frame, pos, n = Frame(), 2, len(data)
+    frame, pos, n = frame or Frame(), 2, len(data)
     while True:
         while pos < n and data[pos] == 0xFF and pos + 1 < n and data[pos + 1] == 0xFF:
             pos += 1  # fill bytes

@@ -327,16 +327,14 @@ def encode_vop_py(planes, ref, prm, header):
     n_mb = mb_w * mb_h
     w = BitWriter()
     w.out, w.acc, w.n = bytearray(header[0]), header[1], header[2]
-    kinds = np.zeros(n_mb, np.int32)
-    quants = np.full(n_mb, q, np.int32)
-    blocks = np.zeros((n_mb, 6, 64), np.int32)
-    coded = np.zeros((n_mb, 6), bool)
-    vectors = np.zeros((n_mb, 4, 2), np.int32)
+    mbs = mpeg4.new_mbs(n_mb)
+    mbs["quants"][:] = q
+    kinds, blocks, coded = mbs["kinds"], mbs["blocks"], mbs["coded"]
     zig = np.array(T.ZIGZAG)
     state = {"dc": [np.full((2 * mb_h + 1, 2 * mb_w + 1), 1024, np.int32),
                     np.full((mb_h + 1, mb_w + 1), 1024, np.int32),
                     np.full((mb_h + 1, mb_w + 1), 1024, np.int32)],
-             "resync_x": 0, "resync_y": 0, "first_line": True}
+             "resync_x": 0, "resync_y": 0, "first_line": True, "dc_clip": False}
     mv = np.zeros((2 * mb_h + 1, 2 * mb_w + 2, 2), np.int32)
     dc_luma, dc_chroma = int(T.DC_SCALE[0][q]), int(T.DC_SCALE[1][q])
     qmul, qadd = 2 * q, (q - 1) | 1
@@ -392,6 +390,7 @@ def encode_vop_py(planes, ref, prm, header):
         if cbp == 0 and mx == 0 and my == 0:
             w.put(1, 1)  # not_coded
             kinds[mb] = mpeg4.MB_SKIPPED
+            mbs["dirs"][mb] = 1
             mv[row + 1:row + 3, col + 1:col + 3] = 0
             continue
         w.put(1, 0)
@@ -407,10 +406,10 @@ def encode_vop_py(planes, ref, prm, header):
                 blocks[mb, n] = np.where(levels[n] == 0, 0, np.sign(levels[n]) * deq)
                 coded[mb, n] = True
         kinds[mb] = mpeg4.MB_INTER
-        vectors[mb] = (mx, my)
+        mbs["dirs"][mb] = 1
+        mbs["mv"][mb, 0] = (mx, my)
     w.stuffing()
-    recon = mpeg4.reconstruct_py(kinds, quants, blocks, coded, vectors, prm, ref)
-    return bytes(w.out), recon
+    return bytes(w.out), mpeg4.reconstruct_py(mbs, prm, ref)
 
 
 def _predict(ref, mb_x, mb_y, mx, my, prm):
@@ -519,9 +518,10 @@ class Encoder:
         w.put(5, QUANT)
         if not key:
             w.put(3, 1)  # f_code
-        prm = np.array([self.mb_w, self.mb_h, ctype, QUANT, 1, self.rounding, 32, 0,
-                        self.time_bits, 16 * self.mb_w, 16 * self.mb_h, self.width, self.height],
-                       np.int32)
+        prm = np.zeros(mpeg4.PRM_LEN, np.int32)  # H.263 quantisation, half-pel, simple IDCT
+        prm[:mpeg4.P_BCODE + 1] = [self.mb_w, self.mb_h, ctype, QUANT, 1, self.rounding, 32, 0,
+                                   self.time_bits, 16 * self.mb_w, 16 * self.mb_h, self.width,
+                                   self.height, 1]
         planes = macroblock_planes(y, u, v, self.mb_w, self.mb_h)
         run = encode_vop_native if self.native else encode_vop_py
         packet, self.ref = run(planes, None if key else self.ref, prm, w.bytes())

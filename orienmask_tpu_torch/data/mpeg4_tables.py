@@ -124,6 +124,18 @@ DC_SCALE = np.array([LUMA_DC_SCALE, CHROMA_DC_SCALE], np.int32)
 INTRA_DC_THRESHOLD = [32, 13, 15, 17, 19, 21, 23, 0]
 DQUANT = [-1, -2, 1, 2]
 
+# MPEG quantisation's default matrices (6.3.3), in raster order
+DEFAULT_INTRA_MATRIX = np.array([
+    8, 17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28,
+    20, 21, 22, 23, 24, 26, 28, 30, 21, 22, 23, 24, 26, 28, 30, 32,
+    22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28, 30, 32, 35, 38,
+    25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45], np.int32)
+DEFAULT_INTER_MATRIX = np.array([
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24,
+    18, 19, 20, 21, 22, 23, 24, 25, 19, 20, 21, 22, 23, 24, 26, 27,
+    20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24, 26, 27, 28, 30,
+    22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33], np.int32)
+
 
 assert len(INTER_LEVEL) == len(INTER_RUN) == len(INTRA_LEVEL) == len(INTRA_RUN) == 102
 

@@ -2,10 +2,11 @@
 CLI's ``cv2.VideoCapture`` and ``cv2.VideoWriter(..., "mp4v", ...)``.
 
 ``VideoReader(path)`` picks the container by the file's first bytes (RIFF
-AVI or ISO BMFF), not by its name, and decodes its MPEG-4 Part 2 Simple
-Profile video (``data/mpeg4.py``) to (H, W, 3) uint8 RGB frames, bit for
-bit as ``cv2.VideoCapture`` reads them after ``cvtColor(BGR2RGB)``
-(``data/yuv.py``).  ``fps`` and ``frame_count`` are what cv2's
+AVI or ISO BMFF), not by its name, and decodes its MPEG-4 Part 2 Simple or
+Advanced Simple Profile video (``data/mpeg4.py``; XviD's and DivX's
+streams too) or, in AVI, its Motion JPEG (``data/mjpeg.py``) to (H, W, 3)
+uint8 RGB frames, bit for bit as ``cv2.VideoCapture`` reads them after
+``cvtColor(BGR2RGB)`` (``data/yuv.py``).  ``fps`` and ``frame_count`` are what cv2's
 ``CAP_PROP_FPS`` and ``CAP_PROP_FRAME_COUNT`` report.  A file cut short
 yields the whole frames before the cut.
 
@@ -24,15 +25,19 @@ import struct
 
 import numpy as np
 
-from . import avi, mp4, mpeg4, mpeg4_encode, yuv
+from . import avi, mjpeg, mp4, mpeg4, mpeg4_encode, yuv
 
-READABLE = ("MPEG-4 Part 2 Simple Profile video (I- and P-VOPs, 4MV, resync markers, "
-            "f_code 1-7, any quantiser) in MP4 ('mp4v') or AVI ('mp4v', 'FMP4', 'XVID', "
-            "'DIVX', 'DX50', 'MP4S', 'M4S2')")
+READABLE = ("MPEG-4 Part 2 Simple and Advanced Simple Profile video (I-, P- and B-VOPs, 4MV, "
+            "quarter-pel, MPEG quantisation, resync markers, data partitioning, f_code 1-7; "
+            "XviD's and DivX's streams, DivX packed bitstreams) in MP4 ('mp4v') or AVI "
+            "('mp4v', 'FMP4', 'XVID', 'XVIX', 'DIVX', 'DX50', 'DIV1', 'MP4S', 'M4S2', 'RMP4', "
+            "'SIPP', 'ZMP4', '3IV2'), and 4:2:0 or 4:2:2 "
+            "Motion JPEG in AVI ('MJPG', 'AVI1')")
 WRITABLE = (".mp4", ".avi")
 # AVI fourccs of MPEG-4 Part 2 video
-AVI_FOURCCS = {b"mp4v", b"MP4V", b"FMP4", b"fmp4", b"XVID", b"xvid", b"DIVX", b"divx",
-               b"DX50", b"dx50", b"MP4S", b"mp4s", b"M4S2", b"m4s2"}
+AVI_FOURCCS = {t for tag in (b"MP4V", b"FMP4", b"XVID", b"XVIX", b"DIVX", b"DX50", b"DIV1",
+                             b"MP4S", b"M4S2", b"RMP4", b"SIPP", b"ZMP4", b"3IV2")
+               for t in (tag, tag.lower())}
 _MP4_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip", b"moof", b"styp")
 
 
@@ -54,10 +59,14 @@ class VideoReader:
         data = self._data
         self.shown = None
         try:
+            self.codec = "mpeg4"
             if data[:4] == b"RIFF" and data[8:12] == b"AVI ":
                 self.container = "avi"
                 stream = avi.read(data)
-                if stream.fourcc not in AVI_FOURCCS:
+                if stream.fourcc in mjpeg.FOURCCS:
+                    self.codec = "mjpeg"
+                    self.height = abs(stream.size[1])
+                elif stream.fourcc not in AVI_FOURCCS:
                     raise UnsupportedVideo(self.path, "an AVI video stream in "
                                            f"{stream.fourcc.decode('latin-1')!r}")
                 self.packets = stream.chunks
@@ -96,7 +105,11 @@ class VideoReader:
             yield bytes(data[offset:offset + size])
 
     def planes(self):
-        """The decoded (Y, U, V) planes of each frame shown."""
+        """The decoded (Y, U, V) planes of each frame shown (``yuvj`` ones
+        for Motion JPEG)."""
+        if self.codec == "mjpeg":
+            yield from self._mjpeg_planes()
+            return
         try:
             decoder = mpeg4.Decoder(self.config, codec_tag=self.codec_tag)
         except mpeg4.UnsupportedMpeg4 as e:
@@ -118,9 +131,22 @@ class VideoReader:
             yield from frames
         yield from decoder.flush()
 
+    def _mjpeg_planes(self):
+        packets = list(self.packets)
+        for index, packet in enumerate(self.packet_bytes()):
+            try:
+                yield mjpeg.decode(packet, self.height)
+            except mjpeg.UnsupportedMjpeg as e:
+                raise UnsupportedVideo(self.path, e.form) from None
+            except (ValueError, EOFError) as e:
+                if index == len(packets) - 1:
+                    break  # a last packet cut inside: the frames before it stand
+                raise UnsupportedVideo(self.path, f"a corrupt packet {index} ({e})") from None
+
     def __iter__(self):
+        convert = yuv.yuvj_to_rgb if self.codec == "mjpeg" else yuv.yuv420_to_rgb
         for y, u, v in self.planes():
-            yield yuv.yuv420_to_rgb(y, u, v)
+            yield convert(y, u, v)
 
     def close(self):
         if isinstance(self._data, mmap.mmap):

@@ -1,6 +1,7 @@
 """YUV 4:2:0 <-> RGB as cv2's FFmpeg backend converts video frames
 (libswscale, ``SWS_BICUBIC`` at the same size, BT.601 limited range), then
-the RGB<->BGR swap the JAX CLI makes with ``cvtColor``.
+the RGB<->BGR swap the JAX CLI makes with ``cvtColor``; and the full-range
+``yuvj420p`` and ``yuvj422p`` of MJPEG to RGB.
 
 ``yuv420_to_rgb``: what ``cv2.VideoCapture`` hands back for a decoded frame,
 bit for bit: each chroma sample serves its 2x2 luma pixels, and the
@@ -14,6 +15,11 @@ every RGB triple); the chroma is the mean of each 2x2 block's BT.601
 chroma, rounded, where libswscale's two-stage rounding differs by at most 1
 on about one sample in eight (a stated difference, ROADMAP Queue 3).
 
+``yuvj_to_rgb``: the same x86 ``yuv2rgb`` with the full-range table
+libswscale builds for a ``yuvj`` source (no luma offset or gain; the
+chroma coefficients scaled by 224/255: ``FULL_*``), each chroma sample
+serving 2x2 luma pixels (4:2:0) or 2x1 (4:2:2, by the chroma's height).
+
 The ``_py`` functions are the plain versions; the ones the reader and
 writer run are the C++ loops of ``csrc/mpeg4_host.cc`` (``_native``).
 """
@@ -23,6 +29,8 @@ import numpy as np
 # BT.601 (ff_yuv2rgb_coeffs[SWS_CS_DEFAULT]) in 1/8192ths, as x86 yuv2rgb
 # holds them: Y, V->R, U->B, V->G, U->G, and the luma offset times 8
 Y_COEFF, VR_COEFF, UB_COEFF, VG_COEFF, UG_COEFF, Y_OFFSET = 9539, 13075, 16525, -6660, -3209, 128
+# the same for full range (ff_yuv2rgb_c_init_tables with fullRange 1)
+FULL_Y_COEFF, FULL_VR, FULL_UB, FULL_VG, FULL_UG = 8192, 11485, 14516, -5850, -2819
 # rgb2yuv in 1/32768ths (libswscale's input table for BT.601 limited range)
 RY, GY, BY = 8414, 16519, 3208
 RU, GU, BU = -4857, -9535, 14392
@@ -39,6 +47,21 @@ def yuv420_to_rgb_py(y, u, v):
     r = yv + ((v8 * VR_COEFF) >> 16)
     g = yv + ((u8 * UG_COEFF) >> 16) + ((v8 * VG_COEFF) >> 16)
     b = yv + ((u8 * UB_COEFF) >> 16)
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def yuvj_to_rgb_py(y, u, v):
+    """Full-range (H, W) Y and (ceil(H/2) or H, ceil(W/2)) U, V -> (H, W, 3)
+    uint8 RGB."""
+    h, w = y.shape
+    rows = 2 if u.shape[0] < h else 1
+    up = np.repeat(np.repeat(u, rows, 0), 2, 1)[:h, :w].astype(np.int64)
+    vp = np.repeat(np.repeat(v, rows, 0), 2, 1)[:h, :w].astype(np.int64)
+    yv = (y.astype(np.int64) * 8 * FULL_Y_COEFF) >> 16
+    u8, v8 = up * 8 - 1024, vp * 8 - 1024
+    r = yv + ((v8 * FULL_VR) >> 16)
+    g = yv + ((u8 * FULL_UG) >> 16) + ((v8 * FULL_VG) >> 16)
+    b = yv + ((u8 * FULL_UB) >> 16)
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
@@ -72,6 +95,19 @@ def yuv420_to_rgb_native(y, u, v):
     return out
 
 
+def yuvj_to_rgb_native(y, u, v):
+    """``yuvj_to_rgb_py`` in C++ (``omv_yuvj_to_rgb``)."""
+    from .. import kernels
+
+    h, w = y.shape
+    out = np.empty((h, w, 3), np.uint8)
+    y, u, v = (np.ascontiguousarray(p) for p in (y, u, v))
+    kernels.host_library("mpeg4_host").omv_yuvj_to_rgb(
+        y.ctypes.data, u.ctypes.data, v.ctypes.data, u.shape[1], 2 if u.shape[0] < h else 1, w,
+        h, out.ctypes.data)
+    return out
+
+
 def rgb_to_yuv420_native(rgb):
     """``rgb_to_yuv420_py`` in C++ (``omv_rgb_to_yuv``)."""
     from .. import kernels
@@ -87,4 +123,5 @@ def rgb_to_yuv420_native(rgb):
 
 
 yuv420_to_rgb = yuv420_to_rgb_native
+yuvj_to_rgb = yuvj_to_rgb_native
 rgb_to_yuv420 = rgb_to_yuv420_native

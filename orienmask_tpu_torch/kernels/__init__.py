@@ -109,9 +109,11 @@ HOST_SIGNATURES = {
         "omw_vp8_decode": (_I, [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     },
     "mpeg4_host": {
-        # data, its length, bit position, parameters, tables, reference Y,
-        # U, V (or null), out Y, U, V
-        "omv_decode_vop": (_L, [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P]),
+        # data, its length, bit position, parameters, tables, matrices, past
+        # Y, U, V and future Y, U, V (or null), the future's kinds and stored
+        # vectors (or null), out Y, U, V, out kinds, out stored vectors
+        "omv_decode_vop": (_L, [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P]),
         "omv_error_string": (ctypes.c_char_p, [_I]),
         # frame Y, U, V, reference Y, U, V (or null), parameters, tables,
         # header bytes already in out, pending bits, their count, out, its
@@ -120,6 +122,11 @@ HOST_SIGNATURES = {
                                 _P]),
         # Y, its row stride, U, V, their row stride, width, height, RGB out
         "omv_yuv_to_rgb": (None, [_P, _L, _P, _P, _L, _I, _I, _P]),
+        # Y, U, V, the chroma's row stride, luma rows a chroma row, width,
+        # height, RGB out
+        "omv_yuvj_to_rgb": (None, [_P, _P, _P, _L, _I, _I, _I, _P]),
+        # int16 blocks, block rows, block columns, quantiser table, plane out
+        "omv_mjpeg_planes": (None, [_P, _I, _I, _P, _P]),
         # RGB, width, height, Y, U, V out
         "omv_rgb_to_yuv": (None, [_P, _I, _I, _P, _P, _P]),
     },

@@ -4,15 +4,17 @@ opencv-python wheel (``opencv_python.libs``), the very ones behind
 ``cv2.VideoCapture`` and ``cv2.VideoWriter`` here.
 
 ``decode`` gives each frame's Y, U and V planes before the colour
-conversion (``avcodec_send_packet`` / ``avcodec_receive_frame``; AVFrame's
-``data`` and ``linesize`` are its first fields, its width and height follow
-``extended_data``).  ``encode`` makes MPEG-4 Part 2 streams with settings
-cv2 cannot choose, set with ``av_opt_set`` on the codec context (``flags``
-``+mv4``, ``+qpel``, ``+ildct``; ``ps`` for resync markers; ``qmin`` and
-``qmax`` for a fixed quantiser; ``bf``; ``mpeg_quant``;
-``data_partitioning``).  ``bgr_to_yuv420`` and ``yuv420_to_bgr`` are
-libswscale's conversions as cv2's writer and reader ask for them
-(``SWS_BICUBIC``, the same size)."""
+conversion, from the ``mpeg4`` or the ``mjpeg`` decoder, with a codec tag
+as a demuxer sets it (``avcodec_send_packet`` / ``avcodec_receive_frame``;
+AVFrame's ``data`` and ``linesize`` are its first fields, its width and
+height follow ``extended_data``).  ``encode`` makes MPEG-4 Part 2 streams
+with settings cv2 cannot choose, set with ``av_opt_set`` on the codec
+context (``flags`` ``+mv4``, ``+qpel``, ``+ildct``; ``ps`` for resync
+markers; ``qmin`` and ``qmax`` for a fixed quantiser; ``bf``;
+``mpeg_quant``; ``data_partitioning``), and MJPEG at ``yuvj420p`` or
+``yuvj422p``.  ``bgr_to_yuv420`` and ``yuv420_to_bgr`` are libswscale's
+conversions as cv2's writer and reader ask for them (``SWS_BICUBIC``, the
+same size; ``yuvj`` formats too)."""
 
 import ctypes
 import glob
@@ -29,6 +31,11 @@ AV_PIX_FMT_YUV420P, AV_PIX_FMT_BGR24, SWS_BICUBIC = 0, 3, 4
 # width and height at 104, format at 116
 PACKET_DATA, PACKET_SIZE = 24, 32
 FRAME_LINESIZE, FRAME_SIZE, FRAME_FORMAT = 64, 104, 116
+CONTEXT_CODEC_TAG = 28  # AVCodecContext.codec_tag
+AV_PIX_FMT_YUV422P, AV_PIX_FMT_YUVJ420P, AV_PIX_FMT_YUVJ422P = 4, 12, 13
+PLANAR_422 = (AV_PIX_FMT_YUV422P, AV_PIX_FMT_YUVJ422P)
+_PIX_NAMES = {AV_PIX_FMT_YUV420P: "yuv420p", AV_PIX_FMT_YUVJ420P: "yuvj420p",
+              AV_PIX_FMT_YUVJ422P: "yuvj422p"}
 
 
 def _lib(stem):
@@ -74,12 +81,18 @@ def _ints(address, n):
     return list((ctypes.c_int * n).from_address(address))
 
 
-def decode(packets, extradata=b""):
-    """libavcodec's ``mpeg4`` decoder on ``packets`` (``extradata``, a
-    container's VOL, leads the first): each frame's (Y, U, V) planes."""
+def decode(packets, extradata=b"", codec_tag=b"", codec=b"mpeg4"):
+    """libavcodec's ``mpeg4`` (or ``codec``) decoder on ``packets``
+    (``extradata``, a container's VOL, leads the first; ``codec_tag`` the
+    container's fourcc, as FFmpeg's demuxers set it): each frame's (Y, U, V)
+    planes, the chroma planes at the frame's chroma size."""
     avcodec, avutil = _avcodec(), _avutil()
-    codec = avcodec.avcodec_find_decoder_by_name(b"mpeg4")
-    ctx = avcodec.avcodec_alloc_context3(codec)
+    decoder = avcodec.avcodec_find_decoder_by_name(codec)
+    ctx = avcodec.avcodec_alloc_context3(decoder)
+    if codec_tag:
+        ctypes.c_uint32.from_address(ctx + CONTEXT_CODEC_TAG).value = int.from_bytes(
+            codec_tag, "little")
+    codec = decoder
     if avcodec.avcodec_open2(ctx, codec, None) != 0:
         raise RuntimeError("avcodec_open2 failed")
     pkt, frame = avcodec.av_packet_alloc(), avutil.av_frame_alloc()
@@ -90,9 +103,10 @@ def decode(packets, extradata=b""):
             data = (_P * 3).from_address(frame)
             linesize = _ints(frame + FRAME_LINESIZE, 3)
             w, h = _ints(frame + FRAME_SIZE, 2)
+            fmt = _ints(frame + FRAME_FORMAT, 1)[0]
+            cw, ch = (w + 1) // 2, (h + 1) // 2 if fmt not in PLANAR_422 else h
             planes = []
-            for i, (pw, ph) in enumerate(((w, h), ((w + 1) // 2, (h + 1) // 2),
-                                          ((w + 1) // 2, (h + 1) // 2))):
+            for i, (pw, ph) in enumerate(((w, h), (cw, ch), (cw, ch))):
                 buf = (ctypes.c_uint8 * (linesize[i] * ph)).from_address(data[i])
                 planes.append(np.frombuffer(buf, np.uint8).reshape(ph, linesize[i])[:, :pw].copy())
             out.append(tuple(planes))
@@ -112,16 +126,20 @@ def decode(packets, extradata=b""):
     return out
 
 
-def encode(frames, width, height, rate=(25, 1), **options):
-    """libavcodec's ``mpeg4`` encoder on (Y, U, V) ``frames`` at ``rate``
-    (frames a second, as a fraction): one packet a frame, the VOL in the
-    first (no global header).  ``options`` are ``av_opt_set`` names and
-    values; an I-VOP every 12 frames and no B-VOPs unless they say so."""
+def encode(frames, width, height, rate=(25, 1), codec=b"mpeg4", pix_fmt=AV_PIX_FMT_YUV420P,
+           **options):
+    """libavcodec's ``mpeg4`` (or ``codec``) encoder on (Y, U, V)
+    ``frames`` of ``pix_fmt`` at ``rate`` (frames a second, as a fraction):
+    one packet a frame, the VOL in the first (no global header).
+    ``options`` are ``av_opt_set`` names and values; for ``mpeg4`` an
+    I-VOP every 12 frames and no B-VOPs unless they say so."""
     avcodec, avutil = _avcodec(), _avutil()
-    codec = avcodec.avcodec_find_encoder_by_name(b"mpeg4")
+    codec = avcodec.avcodec_find_encoder_by_name(codec)
     ctx = avcodec.avcodec_alloc_context3(codec)
-    settings = {"video_size": f"{width}x{height}", "pixel_format": "yuv420p",
-                "time_base": f"{rate[1]}/{rate[0]}", "g": "12", "bf": "0"}
+    settings = {"video_size": f"{width}x{height}", "pixel_format": _PIX_NAMES[pix_fmt],
+                "time_base": f"{rate[1]}/{rate[0]}"}
+    if pix_fmt == AV_PIX_FMT_YUV420P:
+        settings.update(g="12", bf="0")
     settings.update({k: str(v) for k, v in options.items()})
     for key, value in settings.items():
         if avutil.av_opt_set(ctx, key.encode(), value.encode(), 1) != 0:
@@ -140,7 +158,7 @@ def encode(frames, width, height, rate=(25, 1), **options):
     for planes in frames:
         frame = avutil.av_frame_alloc()
         (ctypes.c_int * 2).from_address(frame + FRAME_SIZE)[:] = [width, height]
-        ctypes.c_int.from_address(frame + FRAME_FORMAT).value = AV_PIX_FMT_YUV420P
+        ctypes.c_int.from_address(frame + FRAME_FORMAT).value = pix_fmt
         if avutil.av_frame_get_buffer(frame, 0) != 0:
             raise MemoryError("av_frame_get_buffer")
         data = (_P * 3).from_address(frame)
@@ -162,9 +180,9 @@ def encode(frames, width, height, rate=(25, 1), **options):
     return packets
 
 
-def bgr_to_yuv420(bgr):
-    """libswscale's BGR24 -> YUV420P at the same size with ``SWS_BICUBIC``,
-    as cv2's writer converts its frames: (Y, U, V)."""
+def bgr_to_yuv420(bgr, pix_fmt=AV_PIX_FMT_YUV420P):
+    """libswscale's BGR24 -> YUV420P (or ``pix_fmt``) at the same size with
+    ``SWS_BICUBIC``, as cv2's writer converts its frames: (Y, U, V)."""
     sws = _lib("libswscale")
     sws.sws_getContext.restype = _P
     sws.sws_getContext.argtypes = [ctypes.c_int] * 7 + [_P, _P, _P]
@@ -172,10 +190,11 @@ def bgr_to_yuv420(bgr):
     sws.sws_freeContext.argtypes = [_P]
     bgr = np.ascontiguousarray(bgr, np.uint8)
     h, w = bgr.shape[:2]
-    ctx = sws.sws_getContext(w, h, AV_PIX_FMT_BGR24, w, h, AV_PIX_FMT_YUV420P, SWS_BICUBIC,
+    ctx = sws.sws_getContext(w, h, AV_PIX_FMT_BGR24, w, h, pix_fmt, SWS_BICUBIC,
                              None, None, None)
-    planes = [np.zeros((h, w + 64), np.uint8), np.zeros((h // 2, w // 2 + 64), np.uint8),
-              np.zeros((h // 2, w // 2 + 64), np.uint8)]
+    ch = h if pix_fmt in PLANAR_422 else h // 2
+    planes = [np.zeros((h, w + 64), np.uint8), np.zeros((ch, w // 2 + 64), np.uint8),
+              np.zeros((ch, w // 2 + 64), np.uint8)]
     src = (_P * 4)(bgr.ctypes.data, None, None, None)
     src_stride = (ctypes.c_int * 4)(3 * w, 0, 0, 0)
     dst = (_P * 4)(*[p.ctypes.data for p in planes], None)
@@ -214,9 +233,10 @@ def cv2_frames(path):
     return out, fps, count
 
 
-def yuv420_to_bgr(y, u, v):
-    """libswscale's YUV420P -> BGR24 at the same size with ``SWS_BICUBIC``,
-    as cv2's reader converts its frames."""
+def yuv420_to_bgr(y, u, v, pix_fmt=AV_PIX_FMT_YUV420P):
+    """libswscale's YUV420P (or ``pix_fmt``: ``yuvj420p``, ``yuvj422p``)
+    -> BGR24 at the same size with ``SWS_BICUBIC``, as cv2's reader
+    converts its frames."""
     sws = _lib("libswscale")
     sws.sws_getContext.restype = _P
     sws.sws_getContext.argtypes = [ctypes.c_int] * 7 + [_P, _P, _P]
@@ -224,7 +244,7 @@ def yuv420_to_bgr(y, u, v):
     sws.sws_freeContext.argtypes = [_P]
     h, w = y.shape
     planes = [np.ascontiguousarray(p, np.uint8) for p in (y, u, v)]
-    ctx = sws.sws_getContext(w, h, AV_PIX_FMT_YUV420P, w, h, AV_PIX_FMT_BGR24, SWS_BICUBIC,
+    ctx = sws.sws_getContext(w, h, pix_fmt, w, h, AV_PIX_FMT_BGR24, SWS_BICUBIC,
                              None, None, None)
     stride = (3 * w + 63) // 64 * 64
     out = np.zeros((h, stride), np.uint8)

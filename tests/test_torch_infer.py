@@ -148,17 +148,21 @@ VIDEO_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "image
 
 
 @pytest.mark.parametrize("extra,message,left", [
-    (["--video", os.path.join(VIDEO_FIXTURES, "mpeg4_bvop.avi")], "B-VOPs", 0),
-    (["--video", os.path.join(VIDEO_FIXTURES, "video_mjpg.avi"), "-o", "out.mp4"], "'MJPG'", 0),
-    (["--video", os.path.join(VIDEO_FIXTURES, "mpeg4_bvop.avi"), "-o", "out.mp4"], "B-VOPs", 1),
+    (["--video", os.path.join(VIDEO_FIXTURES, "mpeg4_interlaced.avi")], "interlaced video", 0),
+    (["--video", os.path.join(VIDEO_FIXTURES, "video_h264_tag.avi"), "-o", "out.mp4"], "'H264'",
+     0),
+    (["--video", os.path.join(VIDEO_FIXTURES, "mpeg4_interlaced_mid_stream.avi"), "-o",
+      "out.mp4"], "interlaced video", 3),
 ], ids=["extra0-cv2.VideoCapture", "extra1-cv2.VideoWriter", "extra2-refused-mid-stream"])
 def test_refused_flags_exit_with_their_message(inputs, extra, message, left, tmp_path):
-    """--video over a video file the reader refuses (B-VOPs, which appear
-    after the first frame; an MJPEG AVI, before -o writes anything) exits
-    naming the form; what -o wrote before a refusal is a whole file of the
-    ``left`` frames read before it (none: no file), which cv2 and the
-    port's reader both read.  The first two ids are those of the cases
-    these were when video files in and out were refused."""
+    """--video over a video file the reader refuses (interlaced video; an
+    AVI of another fourcc, before -o writes anything; three frames, then an
+    interlaced VOL) exits naming the form; what -o wrote before a refusal
+    is a whole file of the ``left`` frames read before it (none: no file),
+    which cv2 and the port's reader both read.  (B-VOPs and MJPEG, which
+    these cases refused before the reader took them, are read now.)  The
+    first two ids are those of the cases these were when video files in
+    and out were refused."""
     config = json.loads((inputs / "config.json").read_text())
     config["visualizer"] = {"type": "InferenceVisualizer", "dataset": "COCO"}
     (tmp_path / "config.json").write_text(json.dumps(config))

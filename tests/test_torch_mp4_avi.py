@@ -189,21 +189,28 @@ def test_an_mp4_edit_that_starts_later_hides_the_frames_before_it(tmp_path):
     assert np.array_equal(mine[0], full[2])
 
 
-@pytest.mark.parametrize("name", ["video_mjpg.avi", "video_avc1.mp4", "video_fragmented.mp4"])
+@pytest.mark.parametrize("name", ["video_h264_tag.avi", "video_avc1.mp4",
+                                  "video_fragmented.mp4", "mpeg4_short_header.avi"])
 def test_refused_containers_name_their_form(name):
+    """Another AVI fourcc, another MP4 sample entry, a fragmented MP4 and
+    the short video header (H.263) in an ``mp4v`` AVI (MJPEG in AVI, once
+    refused here, is read: ``test_torch_mjpeg.py``)."""
     with pytest.raises(video.UnsupportedVideo) as err:
         list(video.VideoReader(FIXTURES / name))
     assert DIGESTS[name]["refused"] in str(err.value)
     assert "ROADMAP Queue 1 item 1" in str(err.value)
-    assert "this build reads MPEG-4 Part 2 Simple Profile" in str(err.value)
+    assert "this build reads MPEG-4 Part 2 Simple and Advanced Simple Profile" in str(err.value)
 
 
 def test_the_refused_fixtures_are_what_their_names_say():
-    """cv2 writes MJPG in AVI; the avc1 and fragmented files are made by
-    hand (probe/make_video_fixtures.py)."""
+    """cv2 writes MJPG in AVI (read now); the H264-tagged AVI, the avc1 and
+    fragmented files and the short header are made by hand
+    (probe/make_video_fixtures.py)."""
     assert avi.read((FIXTURES / "video_mjpg.avi").read_bytes()).fourcc == b"MJPG"
+    assert avi.read((FIXTURES / "video_h264_tag.avi").read_bytes()).fourcc == b"H264"
     assert b"avc1" in (FIXTURES / "video_avc1.mp4").read_bytes()
     assert b"moof" in (FIXTURES / "video_fragmented.mp4").read_bytes()
+    assert b"\0\0\x80" in (FIXTURES / "mpeg4_short_header.avi").read_bytes()
 
 
 def test_the_writer_lays_files_out_as_ffmpeg_does(tmp_path):

@@ -14,7 +14,10 @@ at a PSNR no more than 1 dB below cv2's own file of the same frames and
 at most twice its bytes.  The colour conversion for writing takes
 libswscale's luma exactly and its chroma to within 1 (on 12.45% of the V and
 13.11% of the U samples of the test's image: a stated difference).  Refused streams name their form.
-Clips are 176x144 or less, but for the committed 720x1280 pair."""
+The committed fixtures include the Advanced Simple Profile's, XviD's and
+DivX's and Motion JPEG's (``test_torch_video_asp.py`` and
+``test_torch_mjpeg.py`` make more here).  Clips are 176x144 or less, but
+for the committed 720x1280 files and the 480x640 MJPEG."""
 
 import hashlib
 import json
@@ -31,8 +34,9 @@ import torch
 
 import mpeg4_oracle
 from orienmask_tpu.utils.envs import cpu_subprocess_env
-from orienmask_tpu_torch.data import mpeg4, mpeg4_encode, video, yuv
+from orienmask_tpu_torch.data import mjpeg, mpeg4, mpeg4_encode, video, yuv
 from orienmask_tpu_torch.data.image_io import write_png
+from chip_smoke import both_loops_decoder
 from test_torch_infer import _config, inputs  # noqa: F401 (the fixture)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -41,8 +45,10 @@ DIGESTS = json.loads((FIXTURES / "digests.json").read_text())
 READABLE = sorted(n for n, d in DIGESTS.items() if n.endswith((".mp4", ".avi"))
                   and "refused" not in d)
 SMALL = [n for n in READABLE if "720x1280" not in n]
-REFUSED_STREAMS = ["mpeg4_bvop.avi", "mpeg4_qpel.avi", "mpeg4_interlaced.avi",
-                   "mpeg4_mpeg_quant.avi", "mpeg4_partitioned.avi"]
+# the MPEG-4 streams still refused: cv2 reads them to frames (interlaced:
+# near-black, after libswscale's "Cannot convert interlaced to progressive";
+# GMC and reversible VLC: what libavcodec makes of the rewritten VOL)
+REFUSED_STREAMS = ["mpeg4_interlaced.avi", "mpeg4_gmc.avi", "mpeg4_rvlc.avi"]
 # the mean absolute difference of the two CLIs' videos as cv2 reads them,
 # over every pixel of every frame: measured 2.97 on the 96x128 clip (2.28-3.25
 # a frame, at most 40 at a pixel), both CLIs drawing the same detections in
@@ -77,8 +83,13 @@ def _scene(h, w, n, dx, dy, seed=0):
 
 @pytest.mark.parametrize("name", READABLE)
 def test_planes_equal_libavcodecs(name):
+    """libavcodec's ``mpeg4`` (with the AVI's codec tag, as FFmpeg's
+    demuxer sets it) or ``mjpeg`` decoder."""
     reader = video.VideoReader(FIXTURES / name)
-    want = mpeg4_oracle.decode(list(reader.packet_bytes()), reader.config)
+    codec = b"mjpeg" if reader.codec == "mjpeg" else b"mpeg4"
+    want = mpeg4_oracle.decode(list(reader.packet_bytes()), reader.config,
+                               codec_tag=reader.codec_tag if reader.container == "avi" else b"",
+                               codec=codec)
     assert _equal_planes(list(reader.planes()), want)
 
 
@@ -129,22 +140,22 @@ def test_streams_of_each_setting_decode_to_libavcodecs_planes(setting):
 
 @pytest.mark.parametrize("name", SMALL)
 def test_the_cpp_macroblock_loop_equals_the_plain_one(name):
-    """Each VOP: the same planes and the same end bit."""
+    """Each VOP, through ``chip_smoke.py``'s decoder of both loops: the
+    same planes, end bit, kinds and stored vectors (B-VOPs, quarter-pel,
+    MPEG quantisation, XviD's IDCT, data partitioning too); each MJPEG
+    frame: the same planes."""
     reader = video.VideoReader(FIXTURES / name)
-    decoder = mpeg4.Decoder(reader.config, native=False)
-    ref = None
+    if reader.codec == "mjpeg":
+        for packet in reader.packet_bytes():
+            frame = mjpeg.parse(packet, reader.height)
+            assert all(np.array_equal(a, b) for a, b in zip(mjpeg.planes_native(frame),
+                                                             mjpeg.planes_py(frame)))
+        return
+    both_loops = both_loops_decoder()
+    decoder = both_loops(reader.config, codec_tag=reader.codec_tag)
     for packet in reader.packet_bytes():
-        at = decoder._headers(packet)
-        if at is None:
-            continue
-        vop = mpeg4.Vop(packet[at:], decoder.vol)
-        if not vop.coded:
-            continue
-        prm = mpeg4.params(decoder.vol, vop)
-        got, end = mpeg4.decode_vop_native(packet[at:], vop.bitpos, prm, ref)
-        want, want_end = mpeg4.decode_vop_py(packet[at:], vop.bitpos, prm, ref)
-        assert end == want_end and all(np.array_equal(a, b) for a, b in zip(got, want))
-        ref = got
+        decoder.decode(packet)
+    assert both_loops.vops >= 1
 
 
 @pytest.mark.parametrize("size", [(72, 88), (40, 72)])
@@ -246,8 +257,8 @@ def test_the_writer_is_within_1_db_and_2x_the_bytes_of_cv2s_file(tmp_path, ext):
 @pytest.mark.parametrize("name", REFUSED_STREAMS)
 def test_refused_streams_name_their_form(name):
     """Each refused stream names its form; the frames read before the
-    refusal are cv2's first frames, in cv2's order (a B-VOP stream's I-VOP,
-    held back one VOP as FFmpeg holds it, and not the P-VOP after it)."""
+    refusal are cv2's first frames, in cv2's order (none: each is refused
+    at its VOL, where cv2 reads frames)."""
     got = []
     with pytest.raises(video.UnsupportedVideo) as err:
         for frame in video.VideoReader(FIXTURES / name):
@@ -260,22 +271,28 @@ def test_refused_streams_name_their_form(name):
 
 
 def test_xvid_and_divx_streams_and_packed_bitstreams_are_refused():
-    """FFmpeg decodes XviD's and DivX's streams with their own IDCTs; an
-    XVID-tagged stream without libavcodec's user data is taken as XviD's;
-    two VOPs in one packet are DivX's packed B-frames."""
+    """The XviD, DivX and packed forms this test once refused are read now,
+    as FFmpeg reads them: the cv2-written XVID-tagged stream (libavcodec's
+    user data) to cv2's frames; with XviD's or DivX's user data in its
+    place, or none under the XVID tag, to libavcodec's planes (XviD's IDCT
+    and workarounds); two VOPs in one packet without DivX's packed flag
+    decode the first alone, as FFmpeg does.  The short video header (H.263)
+    stays refused."""
     reader = video.VideoReader(FIXTURES / "video_xvid_tag.avi")
     assert reader.codec_tag == b"XVID" and len(list(reader)) == 6  # cv2's, with Lavc data
     packets = list(reader.packet_bytes())
-    for patched, form in ((packets[0].replace(b"Lavc", b"XviD"), "XviD"),
-                          (packets[0].replace(b"Lavc", b"DivX"), "DivX")):
-        with pytest.raises(mpeg4.UnsupportedMpeg4, match=form):
-            mpeg4.Decoder(codec_tag=b"XVID").decode(patched)
-    with pytest.raises(mpeg4.UnsupportedMpeg4, match="XVID"):
-        mpeg4.Decoder(codec_tag=b"XVID").decode(packets[0].replace(b"Lavc", b"Mine"))
+    for patched in ([packets[0].replace(b"Lavc", b"XviD")] + packets[1:],
+                    [packets[0].replace(b"Lavc", b"DivX")] + packets[1:],
+                    [packets[0].replace(b"Lavc", b"Mine")] + packets[1:]):
+        want = mpeg4_oracle.decode(patched, codec_tag=b"XVID")
+        for native in (True, False):
+            decoder = mpeg4.Decoder(codec_tag=b"XVID", native=native)
+            got = [f for p in patched for f in decoder.decode(p)] + decoder.flush()
+            assert _equal_planes(got, want)
+    want = mpeg4_oracle.decode([packets[0], packets[1] + packets[2]])
     decoder = mpeg4.Decoder()
-    decoder.decode(packets[0])
-    with pytest.raises(mpeg4.UnsupportedMpeg4, match="packed"):
-        decoder.decode(packets[1] + packets[2])
+    got = [f for p in (packets[0], packets[1] + packets[2]) for f in decoder.decode(p)]
+    assert _equal_planes(got, want)
     with pytest.raises(mpeg4.UnsupportedMpeg4, match="short video header"):
         mpeg4.Decoder().decode(b"\0\0\x80\x02\x0a" + bytes(20))
 
