@@ -79,15 +79,16 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    identical to the host route's on the same device outputs (each image's
    card-route COCO dicts too), launch counts read around each run (kernel 1
    twice, kernels 2 and 6 once an image);
-13. the 736² stream: ``--video <24 seeded 720x1280 PNG frames>`` with
+13. the 736² stream: ``--video <12 seeded 720x1280 PNG frames>`` with
    ``orienmask_yolo_coco_736_anchor4_fpn_plus_infer`` at depth 2, each
    frame's device outputs and streamed host lists identical to the plain
    versions'; kernel 1 at (1, 33,327) and (1, 32,000) and kernel 2 at 736²
    bit for bit against their plain versions, each timed beside its plain
    version, its bound and (kernel 1) torch.topk; streamed FPS at depth 1
-   and 2 (frames decoded in host memory, 10 warm-ups, 5 windows of 80
+   and 2 (frames decoded in host memory, 10 warm-ups, 3 windows of 40
    frames, the median window, with the host's ms a frame inside ``submit``
-   and ``retrieve``) and ``run_device`` alone on a frame staged on the card;
+   and ``retrieve``) and ``run_device`` alone on a frame staged on the card
+   (3 windows of 100 frames);
 14. batched inference at 544², B = 8 and 16: launch counts of one call at
    each, outputs identical to the plain-version postprocess on the same
    heads, kernel 1's launch plans, kernels 1 and 2 at the batch shapes as in
@@ -124,11 +125,11 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    (``utils/mini_dataset.py``: 32 seeded PNG scenes at 480x640 and 427x613,
    elliptic and polygonal instances, COCO json with polygons and RLE) and
    the published train config at full width on it (one device's share,
-   B = 8, f32, its train transform and 4 loader workers, 3 epochs each
+   B = 8, f32, its train transform and 4 loader workers, 2 epochs each
    validated, ``pretrained`` a missing file); ``orienmask_tpu_torch.train
    .main`` in this process, then ``orienmask_tpu_torch.test.main`` on the
    best checkpoint with the val set as its test set, launch counts read
-   around each; every epoch's loss finite and epoch 3's below epoch 1's;
+   around each; every epoch's loss finite and epoch 2's below epoch 1's;
    the checkpoints named as the JAX package names them and loaded back;
    kernel 5 on the loader's first batch, and kernels 1 and 2 on every val
    and test batch's heads, bit-identical to their plain versions; the last
@@ -144,7 +145,7 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    card, spawned with ``torch.multiprocessing`` (gloo with CUDA tensors:
    NCCL takes no two ranks on one device), on phase 17's dataset with 2
    loader workers a rank: first one step of 2 ranks x 4 of phase 7's
-   images, then ``train.main`` for 2 epochs of 2 steps each validated,
+   images, then ``train.main`` for 1 epoch of 2 steps, validated,
    then ``test.main`` with ``n_device=2`` on its best checkpoint, launch
    counts read around each rank's runs; both ranks end equal by bits (the
    step's and the train CLI's states), every epoch's loss finite, rank 0's
@@ -191,8 +192,8 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    import ``orienmask_tpu_torch.models``, its outputs bit-identical to the
    live ``run_device``'s on phase 4's seeded image(s), kernels 1 and 2
    launched 2 and 1 times a served call; export and load seconds, the
-   artifacts' bytes, and served against live e2e FPS at batch 1 (3 windows
-   of 100 frames a turn; live, served, served, live);
+   artifacts' bytes, and served against live e2e FPS at batch 1 (2 windows
+   of 50 frames a turn; live, served, served, live);
 22. spatial partitioning (``parallel/spatial.py``): two ranks on the one
    card (gloo with CUDA tensors, spawned as in phase 18), each image's rows
    over both (544²: 288 + 256 input rows): (a) the 544² infer config at
@@ -203,7 +204,7 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    ``run_batch_spatial`` on the one-process f32 heads equal to
    ``_run_batch`` by bits and to the plain versions' route, kernel 2's row
    block at row0 0 and 272 equal to its plain version; (c) ``infer
-   --spatial 2`` in a subprocess over 4 seeded PNGs at 544² (-j -o) and 6
+   --spatial 2`` in a subprocess over 2 seeded PNGs at 544² (-j -o) and 3
    720x1280 frames through the 736² ``--video`` config; (d) the int8
    pipeline under the space group against one process's; (e) the spatial
    train step at full width, B = 2 (phase 7's first images), against one
@@ -272,6 +273,23 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    kernel 2 once a frame, every call identical to its plain version, each
    output the writer's bytes for the plain-version drawings; (c) the host
    ms a frame of demux, decode and conversion to RGB of each.
+27. H.264 files (``data/h264.py``, ``csrc/h264_host.cc``): (a) every
+   committed H.264 fixture (I and P slices under CAVLC and CABAC: every
+   macroblock type, the 8x8 transform with scaling matrices, weighted P,
+   MMCO and long-term references, POC types 0-2, reordered output, several
+   slices, deblocking idc 0-2, I_PCM, cropping, full range) read on the
+   host to cv2's committed digests, rate and count, the forms still
+   refused (B, SP and data-partitioned slices, field coding, 4:2:2, 10
+   bits, slice groups, redundant pictures, HEVC, cabac_init_idc 1 with the
+   8x8 transform) refused by their names, the C++ slice and deblocking
+   loops equal to the plain ones on every picture of the small fixtures
+   and the first two of the 720x1280 file; (b) the infer CLI at 736² over the 24-frame 720x1280
+   High-profile CABAC MP4 (phase 25's scene and detecting weights) and the
+   16-frame 480x640 Constrained Baseline CAVLC AVI (phase 26's MJPEG scene
+   and weights), each -o out.mp4: kernel 1 twice and kernel 2 once a
+   frame, every call identical to its plain version, each output the
+   writer's bytes for the plain-version drawings; (c) the host ms a frame
+   of demux, decode and conversion to RGB of each.
 
 Each phase's first line gives the seconds since the script's start.  The
 last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
@@ -280,7 +298,7 @@ last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``serving_544``, ``spatial_544``);
 ``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
 "depth2": ..., "staged_fps": ...}, "jpeg": {...}, "image_files": {...},
-"webp": {...}, "video": {...}, "asp_mjpeg": {...}}``; the card's name and
+"webp": {...}, "video": {...}, "asp_mjpeg": {...}, "h264": {...}}``; the card's name and
 power limit; the kernels' JSON record: every kernel carries per-path launch
 counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
 jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
@@ -291,8 +309,9 @@ serving_int8, and with kernel 6 accuracy_f32, accuracy_bf16 and
 accuracy_int8; kernels 1 and 2 spatial and spatial_int8, kernel 5
 spatial_train, kernels 5, 1, 2 and 6 spatial_train_cli; kernels 1 and 2
 image_files_cli and image_files_video, kernel 5 train_resizes; kernels 1 and
-2 webp_cli, webp_video and platforms_cuda; kernels 1 and 2 video_mp4 and
-video_avi), kernels 1 and 2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
+2 webp_cli, webp_video and platforms_cuda; kernels 1 and 2 video_mp4,
+video_avi, asp_cli, mjpeg_cli, h264_cabac_cli and h264_cavlc_cli), kernels 1
+and 2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
 kernel 6 phase 16's cases; the last line is ``{"ok": true, "device":
 {...}}``.  ``--profile DIR`` also writes
 torch.profiler tables of 20 frames and of 3 train steps in each dtype to
@@ -1838,12 +1857,14 @@ def time_eval(ev):
 # ---------------------------------------------------- CLI, stream, batches
 
 CLI_IMAGES = 8
-STREAM_FRAMES = 24
+STREAM_FRAMES = 12
 # frames an e2e window where phases 20 and 21 compare two pipelines
-COMPARE_FRAMES = 100
-# frames a streamed-FPS window (at 200, two depths of 5 windows took about
-# 120 s of the script's time limit)
-STREAM_WINDOW_FRAMES = 80
+COMPARE_FRAMES = 50
+# frames a streamed-FPS window and the windows a depth (at 200 frames, two
+# depths of 5 windows took about 120 s of the script's time limit; at 80
+# frames and 5 windows about 53 s)
+STREAM_WINDOW_FRAMES = 40
+STREAM_WINDOWS = 3
 BATCHES = (8, 16)
 
 
@@ -2019,15 +2040,16 @@ def stream_window(stream, frames, n):
 
 def stream_fps(pipe, frames, depth, n=STREAM_WINDOW_FRAMES):
     """Streamed FPS at ``depth``: frames decoded in host memory, 10
-    warm-ups, 5 windows of ``n`` frames, the median window; with the host's
-    ms a frame inside ``submit`` and ``retrieve`` in that window."""
+    warm-ups, ``STREAM_WINDOWS`` windows of ``n`` frames, the median window;
+    with the host's ms a frame inside ``submit`` and ``retrieve`` in that
+    window."""
     from orienmask_tpu_torch.stream import StreamingPipeline
 
     stream = StreamingPipeline(pipe, depth=depth)
     stream_window(stream, frames, 10)
-    windows = [stream_window(stream, frames, n) for _ in range(5)]
+    windows = [stream_window(stream, frames, n) for _ in range(STREAM_WINDOWS)]
     rates = [n / w[0] for w in windows]
-    mid = windows[int(np.argsort(rates)[2])]
+    mid = windows[int(np.argsort(rates)[len(rates) // 2])]
     return dict(fps=float(np.median(rates)), windows=rates,
                 submit_ms=mid[1] / n * 1e3, retrieve_ms=mid[2] / n * 1e3)
 
@@ -2119,7 +2141,7 @@ def check_stream(workdir):
     frames = [read_image(p)[None] for p in sorted(frames_dir.iterdir())]
     times = check_kernels_at("736x736", pipe, torch.from_numpy(frames[0]).cuda())
     fps = {f"depth{d}": stream_fps(pipe, frames, d) for d in (1, 2)}
-    staged, _ = e2e_fps(pipe, torch.from_numpy(frames[0]).cuda())
+    staged, _ = e2e_fps(pipe, torch.from_numpy(frames[0]).cuda(), STREAM_WINDOWS, 100)
     for key, r in fps.items():
         log(f"  streamed 736x736 {key}: {r['fps']:.2f} FPS (median; windows "
             f"{', '.join(f'{w:.2f}' for w in r['windows'])}); host in submit "
@@ -2522,7 +2544,7 @@ def check_recover():
 
 FILES_IMAGES = 32
 FILES_SIZES = ((480, 640), (427, 613))
-FILES_EPOCHS = 3
+FILES_EPOCHS = 2
 
 
 def files_configs(workdir, n_device=1, epochs=FILES_EPOCHS, **updates):
@@ -2530,7 +2552,7 @@ def files_configs(workdir, n_device=1, epochs=FILES_EPOCHS, **updates):
     elliptic and polygonal instances, COCO json with polygons and RLE) and
     two config files: the published train config at full width and depth on
     it (by default one device's share, B = 8; its own dtype, transforms and
-    loader workers; 3 epochs validated each, ``epoch2.ckpt``; ``pretrained``
+    loader workers; 2 epochs validated each, ``epoch2.ckpt``; ``pretrained``
     a file that is not there; ``updates`` merged last) and its test config
     (the val set, batch 16, ``n_device`` as the train config's).  Returns
     (train config, its file, test config file, seconds writing)."""
@@ -2803,7 +2825,7 @@ def check_train_files(workdir):
 # ------------------------------------------------------- data parallelism
 
 DP_RANKS = 2
-DP_EPOCHS = 2
+DP_EPOCHS = 1
 DP_WORKERS = 2  # loader workers a rank: the card's host has 8 cores for everything
 DP_DEADLINE_S = 480
 # tests/test_torch_parallel.py's tolerances for a step from the same state:
@@ -3792,7 +3814,7 @@ def check_int8(workdir, files_cfg, best):
 # -------------------------------------------------------------- serving
 
 SERVING_SHAPES = ((1, 480, 640, 3), (8, 480, 640, 3))
-SERVING_WINDOWS = 3  # e2e_fps windows a turn; turns: live, served, served, live
+SERVING_WINDOWS = 2  # e2e_fps windows a turn; turns: live, served, served, live
 SERVING_DEADLINE_S = 300
 
 
@@ -3969,11 +3991,11 @@ def check_serving():
 
 SPACE_RANKS = 2
 SPACE_DEADLINE_S = 420
-SPACE_FRAMES = 10  # timed frames a pipeline, after 3 warm-ups
+SPACE_FRAMES = 5  # timed frames a pipeline, after 3 warm-ups
 SPACE_STEP_IMAGES = 2  # the equivalence step's B (phase 7's first images)
 SPACE_WORKERS = 1  # loader workers a rank in the train CLI
-SPACE_CLI_IMAGES = 4
-SPACE_VIDEO_FRAMES = 6
+SPACE_CLI_IMAGES = 2
+SPACE_VIDEO_FRAMES = 3
 # spatial f32 heads against one process's (TF32 off): the same convolutions
 # on row shards with their halos, where cuDNN may take another algorithm
 SPACE_F32_RTOL = 1e-4
@@ -4845,12 +4867,19 @@ VIDEO_WINDOWS = 2  # streamed windows a source in (c), after one warm-up window
 VIDEO_DRAWN_A_FRAME = 2  # detections above conf_thresh a frame of (a), on average
 
 
+def video_phase(name):
+    """The phase (25, 26 or 27) that holds video fixture ``name``."""
+    if name.startswith(H264_PREFIXES):
+        return 27
+    return 26 if name in ASP_MJPEG_FIXTURES else 25
+
+
 def video_fixture_names(phase=25):
-    """The readable committed video fixtures of phase 25 or 26, from
+    """The readable committed video fixtures of phase 25, 26 or 27, from
     digests.json."""
     digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
     return digests, sorted(n for n, d in digests.items() if n.endswith((".mp4", ".avi"))
-                           and "refused" not in d and (n in ASP_MJPEG_FIXTURES) == (phase == 26))
+                           and "refused" not in d and video_phase(n) == phase)
 
 
 def check_video_fixtures():
@@ -4879,7 +4908,7 @@ def check_video_fixtures():
             raise AssertionError(f"{name} does not read to cv2's frames, rate and count")
         frames += len(got)
     refused = sorted(n for n, d in digests.items() if "refused" in d
-                     and n not in ASP_MJPEG_FIXTURES)
+                     and video_phase(n) == 25)
     check_refused(digests, refused)
     # the small files: phase 26 holds a 720x1280 file's first VOPs
     vops, _ = compare_loops([n for n in names if "720x1280" not in n])
@@ -5369,6 +5398,188 @@ def check_asp_mjpeg_codecs():
     return out
 
 
+# ------------------------------------------------------------ phase 27
+
+# phase 27's fixtures: every file whose name starts so (H.264, and HEVC's
+# refused entries)
+H264_PREFIXES = ("h264_", "hevc_")
+# phase 27 (b): the 24-frame 720x1280 pan of phase 25 as High-profile CABAC
+# MP4, and the 480x640 Constrained Baseline CAVLC AVI (the scene of phase
+# 26's MJPEG file), each -o out.mp4, with the weights fitted to that scene
+H264_RUNS = (("h264_high_cabac_720x1280.mp4", 24, (720, 1280, 3), "detecting.ckpt"),
+             ("h264_baseline_480x640.avi", 16, (480, 640, 3), "detecting_mjpeg.ckpt"))
+# pictures of the 720x1280 file held to the plain loop in (a) (the plain
+# loop takes seconds a picture there; the 480x640 file is not held to it)
+PLAIN_PICTURES = 2
+# (c)'s timed runs a file (the decode, with the probe, took 1.2 s a run of
+# the 720x1280 file; phase 27 alone 51.3 s with 5 runs)
+H264_REPEATS = 3
+
+
+def h264_both_loops(reader, limit=None):
+    """Decode ``reader``'s H.264 stream by the C++ loop and the plain one
+    (its first ``limit`` packets), at the delay cv2's probe finds; the
+    pictures compared, failing where the planes differ."""
+    from orienmask_tpu_torch.data import h264
+
+    packets = list(reader.packet_bytes())[:limit]
+    delay = h264.probe_delay(reader.packet_bytes(), reader.config, reader.codec_tag,
+                             annexb=reader.annexb)
+    planes = []
+    for native in (True, False):
+        decoder = h264.Decoder(reader.config, native=native, codec_tag=reader.codec_tag,
+                               delay=delay, annexb=reader.annexb)
+        planes.append([f for p in packets for f in decoder.decode(p)] + decoder.flush())
+    if len(planes[0]) != len(planes[1]) or not all(
+            np.array_equal(a, b) for x, y in zip(*planes) for a, b in zip(x, y)):
+        raise AssertionError(f"{reader.path}: the C++ slice loop differs from the plain one")
+    return len(packets)
+
+
+def check_h264_fixtures():
+    """Phase 27 (a), on the card's host: every readable H.264 fixture reads
+    to cv2's committed digests, rate and frame count; each refused form
+    (B, SP and data-partitioned slices, field coding, 4:2:2, 10 bits, slice
+    groups, redundant pictures, HEVC, cabac_init_idc 1 with the 8x8
+    transform) is refused by its name; the C++ slice and deblocking loops
+    equal the plain ones on every picture of the small fixtures and on the
+    first ``PLAIN_PICTURES`` of the 720x1280 file."""
+    import hashlib
+
+    from orienmask_tpu_torch.data import video
+
+    digests, names = video_fixture_names(27)
+    frames = 0
+    for name in names:
+        want = digests[name]
+        reader = video.VideoReader(IMAGE_FIXTURES / name)
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in reader]
+        if got != want["frame_sha256"] or (reader.fps, reader.frame_count) != \
+                (want["fps"], want["frame_count"]):
+            raise AssertionError(f"{name} does not read to cv2's frames, rate and count")
+        frames += len(got)
+    refused = sorted(n for n, d in digests.items() if "refused" in d and video_phase(n) == 27)
+    check_refused(digests, refused)
+    big, webcam = H264_RUNS[0][0], H264_RUNS[1][0]
+    pictures = 0
+    for name in names:
+        if name != webcam:
+            reader = video.VideoReader(IMAGE_FIXTURES / name)
+            pictures += h264_both_loops(reader, PLAIN_PICTURES if name == big else None)
+    log(f"  {len(names)} H.264 fixtures read to cv2's committed digests ({frames} frames), "
+        f"{len(refused)} refused by their names ({', '.join(refused)}); the C++ slice loop "
+        f"equal to the plain one on {pictures} pictures ({PLAIN_PICTURES} of 720x1280)")
+    return {"fixtures": len(names), "refused": len(refused), "pictures_checked": pictures}
+
+
+def check_h264_cli(workdir):
+    """Phase 27 (b): the infer CLI on the card at 736² over the 720x1280
+    High-profile CABAC MP4 (with phase 25's detecting weights: the file
+    holds phase 25's scene) and the 480x640 Baseline CAVLC AVI (with phase
+    26's weights for its scene), each -o out.mp4: kernel 1 twice and kernel
+    2 once a frame, every call identical to the plain-version postprocess
+    on its heads; detections drawn; each output the writer's bytes for the
+    plain-version drawings, read back at the source's size, count and
+    rate."""
+    import random
+
+    import orienmask_tpu_torch.config as configs
+    from orienmask_tpu_torch.data import video
+    from orienmask_tpu_torch.utils.visualizer import InferenceVisualizer
+
+    name = "orienmask_yolo_coco_736_anchor4_fpn_plus_infer"
+    config = getattr(configs, name)
+    thresh = InferenceVisualizer(**_kw(config["visualizer"])).conf_thresh
+    sources = {"detecting.ckpt": VIDEO_RUNS[0][0], "detecting_mjpeg.ckpt": ASP_MJPEG_RUNS[1][0]}
+    t = time.perf_counter()
+    for ckpt, source in sources.items():
+        if not (workdir / ckpt).exists():  # made by phases 25 and 26 in the whole script
+            frames = list(video.VideoReader(IMAGE_FIXTURES / source))
+            detecting_checkpoint(workdir / ckpt, build_pipeline(name)[0], frames, thresh)
+    log(f"  detecting weights ready in {time.perf_counter() - t:.2f} s")
+    counts, res = {}, {}
+    for source, n, shape, ckpt in H264_RUNS:
+        src = IMAGE_FIXTURES / source
+        fps = video.VideoReader(src).fps
+        tag = "h264_cabac_cli" if source.endswith(".mp4") else "h264_cavlc_cli"
+        out = workdir / f"{tag}.mp4"
+        random.seed(SEED + 27)
+        t = time.perf_counter()
+        lines, calls, retrieved, launched, _ = run_cli(["-c", name, "-w", str(workdir / ckpt),
+                                                        "--video", str(src), "-o", str(out)])
+        run_s = time.perf_counter() - t
+        log(f"  {source} -> {out.name}: {len(calls)} frames in {run_s:.2f} s (model build "
+            f"included), launches: {launched}; report: " + "; ".join(lines))
+        if len(calls) != n or len(retrieved) != n or launched["exact_topk"] != 2 * n \
+                or launched["assemble_masks_packed"] != n or sum(launched.values()) != 3 * n:
+            raise AssertionError(f"{tag}: expected {n} frames, kernel 1 twice and kernel 2 "
+                                 f"once a frame; got {len(calls)}, {launched}")
+        plain, wants = check_against_plain(tag, calls, _kw(config["postprocess"]), 736)
+        for want, host in zip(wants, retrieved):
+            for got_r, want_r in zip(host, plain.to_host_list(want)):
+                for key in want_r:
+                    if not np.array_equal(got_r[key], want_r[key]):
+                        raise AssertionError(f"{tag}: the streamed host '{key}' differs")
+        expected, drawn = expected_video(workdir / f"expected_{tag}.mp4", src, wants, plain,
+                                         config, SEED + 27, fps)
+        if not sum(drawn):
+            raise AssertionError(f"{tag}: no detection above conf_thresh {thresh} in {n} "
+                                 "frames; the video would hold the source frames alone")
+        if out.read_bytes() != expected:
+            raise AssertionError(f"{tag}: the output differs from the writer's file of the "
+                                 "plain-version drawings")
+        reader = video.VideoReader(out)
+        back = list(reader)
+        if len(back) != n or back[0].shape != shape or reader.fps != fps or \
+                reader.frame_count != n:
+            raise AssertionError(f"{tag}: the output reads back as {len(back)} frames of "
+                                 f"{back[0].shape} at {reader.fps}")
+        stream_line = [ln for ln in lines if ln.startswith("The average streaming time")]
+        res[tag] = {"run_s": run_s, "bytes": len(expected), "detections_drawn": sum(drawn),
+                    "frames_drawn_on": sum(1 for d in drawn if d),
+                    "cli_fps": float(stream_line[0].split("(")[1].split(" fps")[0])}
+        log(f"  {tag}: every frame identical to the plain-version postprocess on its heads; "
+            f"the output ({len(expected)} bytes, {sum(drawn)} detections drawn on "
+            f"{res[tag]['frames_drawn_on']} of {n} frames) is the writer's file of the "
+            f"plain-version drawings, read back to {n} frames of {shape[1]}x{shape[0]} at {fps}")
+        counts[tag] = launched
+    return counts, res
+
+
+def check_h264_codecs():
+    """Phase 27 (c): the host ms a frame (median of ``H264_REPEATS``) of
+    demux, decode (with the probe cv2's reader makes) and conversion to RGB
+    of each chip-phase file."""
+    from orienmask_tpu_torch.data import h264, video, yuv
+
+    out = {}
+    for source, n, _, _ in H264_RUNS:
+        src = IMAGE_FIXTURES / source
+        reader = video.VideoReader(src)
+        packets = list(reader.packet_bytes())
+        planes = list(reader.planes())
+
+        def decode():
+            delay = h264.probe_delay(packets, reader.config, reader.codec_tag,
+                                     annexb=reader.annexb)
+            decoder = h264.Decoder(reader.config, codec_tag=reader.codec_tag, delay=delay,
+                                   annexb=reader.annexb)
+            for packet in packets:
+                decoder.decode(packet)
+            decoder.flush()
+
+        coeffs = yuv.coefficients(*reader.colour)
+        key = source.split(".")[0]
+        out[key] = {"demux": median_ms(lambda: list(video.VideoReader(src).packet_bytes()),
+                                       H264_REPEATS) / n,
+                    "decode": median_ms(decode, H264_REPEATS) / n,
+                    "to_rgb": median_ms(lambda: [yuv.yuv_to_rgb(*p, coeffs) for p in planes],
+                                        H264_REPEATS) / n}
+        log(f"  host ms a {key} frame (median of {H264_REPEATS}, {n} frames): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out[key].items()) + f"; card: {card_line()}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="also write a torch.profiler table")
@@ -5470,11 +5681,11 @@ def main(argv=None):
     jpeg.update(jpeg_cli)
     header("[16] kernel 6: recover_masks vs its plain version")
     recover_err, recover_cases_ = check_recover()
-    header("[17] training and evaluation from files: the train CLI (3 epochs), then the test CLI")
+    header("[17] training and evaluation from files: the train CLI (2 epochs), then the test CLI")
     with tempfile.TemporaryDirectory() as files_dir:
         files_counts, files_paint_err, train_files, files_run = check_train_files(Path(files_dir))
         header("[18] data parallelism: n_device=2 as two ranks on the card (gloo with CUDA "
-            "tensors); the train CLI (2 epochs), then the test CLI")
+            "tensors); the train CLI (1 epoch), then the test CLI")
         with tempfile.TemporaryDirectory() as workdir:
             dp_counts, dp_paint_err, dp_train = check_data_parallel(Path(workdir))
         header("[19] the train step's options: remat, frozen stages, BatchNorm eval, param groups")
@@ -5522,9 +5733,18 @@ def main(argv=None):
         t = time.perf_counter()
         asp_files = check_asp_mjpeg_fixtures()
         asp_counts, asp_files["cli"] = check_asp_mjpeg_cli(Path(workdir))  # phase 25's weights
-    asp_files["codecs"] = check_asp_mjpeg_codecs()
-    asp_files["phase_s"] = time.perf_counter() - t
-    log(f"  phase 26 in {asp_files['phase_s']:.1f} s; card: {card_line()}")
+        asp_files["codecs"] = check_asp_mjpeg_codecs()
+        asp_files["phase_s"] = time.perf_counter() - t
+        log(f"  phase 26 in {asp_files['phase_s']:.1f} s; card: {card_line()}")
+        header("[27] H.264 files (I and P slices, CAVLC and CABAC) in MP4 and AVI: the fixtures "
+               "to cv2's digests, the infer CLI at 736x736 over each (--video, -o out.mp4), the "
+               "codec on the host")
+        t = time.perf_counter()
+        h264_files = check_h264_fixtures()
+        h264_counts, h264_files["cli"] = check_h264_cli(Path(workdir))  # phases 25, 26's weights
+    h264_files["codecs"] = check_h264_codecs()
+    h264_files["phase_s"] = time.perf_counter() - t
+    log(f"  phase 27 in {h264_files['phase_s']:.1f} s; card: {card_line()}")
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -5550,7 +5770,7 @@ def main(argv=None):
         paths[name]["webp_cli"] = webp_cli_counts["-v -o"][name]
         paths[name]["webp_video"] = webp_cli_counts["--video -o"][name]
         paths[name]["platforms_cuda"] = platform_counts["platforms_cuda"][name]
-        for tag, launched in {**video_counts, **asp_counts}.items():  # phases 25, 26
+        for tag, launched in {**video_counts, **asp_counts, **h264_counts}.items():  # 25-27
             paths[name][tag] = launched[name]
     for name in paths:  # phase 17's CLIs, each kernel's count around each
         for cli, launched in files_counts.items():
@@ -5610,7 +5830,8 @@ def main(argv=None):
                     "int8_544": int8, "serving_544": serving, "spatial_544": spatial_544}))
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
                     "stream_736": stream_fps, "jpeg": jpeg, "image_files": image_files,
-                    "webp": webp_files, "video": video_files, "asp_mjpeg": asp_files}))
+                    "webp": webp_files, "video": video_files, "asp_mjpeg": asp_files,
+                    "h264": h264_files}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,9 @@ of ``data/video.py`` (the port's replacement for cv2's FFmpeg backend).
 
 ``read`` finds the first video track of ``moov`` (``hdlr`` ``vide``): its
 sample entry must be ``mp4v`` (MPEG-4 Part 2), whose ``esds`` holds the
-decoder configuration (the VOL headers); its samples come from ``stsz``,
+decoder configuration (the VOL headers), or ``avc1``/``avc3`` (H.264), whose
+``avcC`` record does (``avc3`` may leave it out: its parameter sets travel
+in the samples); its samples come from ``stsz``,
 ``stsc`` and ``stco`` or ``co64`` in decoding order (every sample is
 decoded from the first, so ``stss`` is not read).  One edit of ``elst`` is honoured as FFmpeg honours it:
 samples whose presentation time falls before the edit's media time, or
@@ -14,9 +16,9 @@ as FFmpeg's demuxer sets the average frame rate that
 ``CAP_PROP_FRAME_COUNT``.
 
 Refused, naming the form: a fragmented file (``moof``), any other video
-sample entry (``avc1``, ``hvc1``, ``av01``, ``vp09``, ...) by its fourcc, a
-file with no video track (by its tracks' fourccs, such as ``mp4a``), and
-edit lists of more than one edit.
+sample entry (``hvc1``, ``hev1``, ``av01``, ``vp09``, ...) by its fourcc, an
+``avc1`` entry without ``avcC``, a file with no video track (by its tracks'
+fourccs, such as ``mp4a``), and edit lists of more than one edit.
 
 ``Writer`` lays a file out as FFmpeg's mov muxer does (the bytes are the
 port's own): ``ftyp`` ``isom``, a ``free`` box, ``mdat``, then ``moov``
@@ -33,6 +35,7 @@ import struct
 
 REFUSAL = "ROADMAP Queue 1 item 1, 'What the infer CLI still refuses'"
 MOVIE_TIMESCALE = 1000
+ENTRIES = (b"mp4v", b"avc1", b"avc3")  # the video sample entries read
 LARGE = 1 << 32
 
 
@@ -158,13 +161,20 @@ def _track(data, at, size, movie_timescale):
         return None, fourcc
     t = Track()
     t.fourcc = fourcc
-    if fourcc != b"mp4v":
+    if fourcc not in ENTRIES:
         return t, fourcc
     entry = stsd[0] + 8  # the sample entry's box
     entry_size = struct.unpack_from(">I", data, entry)[0]
-    esds = _find(data, entry + 8 + 78, entry_size - 8 - 78, b"esds")
-    if esds is not None:
-        t.config = esds_config(data, *esds)
+    if fourcc == b"mp4v":
+        esds = _find(data, entry + 8 + 78, entry_size - 8 - 78, b"esds")
+        if esds is not None:
+            t.config = esds_config(data, *esds)
+    else:
+        avcc = _find(data, entry + 8 + 78, entry_size - 8 - 78, b"avcC")
+        if avcc is not None:
+            t.config = bytes(data[avcc[0]:avcc[0] + avcc[1]])
+        elif fourcc == b"avc1":
+            raise UnsupportedMp4("an 'avc1' track without avcC")
     mdhd = _find(data, *mdia, b"mdhd")
     version, pos = _full(data, mdhd[0])
     t.timescale = struct.unpack_from(">I", data, pos + (16 if version == 1 else 8))[0]
@@ -246,9 +256,9 @@ def read(data):
         fourccs.append(fourcc.decode("latin-1"))
         if track is None:
             continue
-        if track.fourcc != b"mp4v":
+        if track.fourcc not in ENTRIES:
             raise UnsupportedMp4(f"a video track in {track.fourcc.decode('latin-1')!r} "
-                                 "(MPEG-4 Part 2 'mp4v' only)")
+                                 "(MPEG-4 Part 2 'mp4v' and H.264 'avc1', 'avc3' only)")
         return track
     raise UnsupportedMp4("an MP4 without a video track (tracks: "
                          + (", ".join(repr(f) for f in fourccs) or "none") + ")")

@@ -4,10 +4,12 @@ CLI's ``cv2.VideoCapture`` and ``cv2.VideoWriter(..., "mp4v", ...)``.
 ``VideoReader(path)`` picks the container by the file's first bytes (RIFF
 AVI or ISO BMFF), not by its name, and decodes its MPEG-4 Part 2 Simple or
 Advanced Simple Profile video (``data/mpeg4.py``; XviD's and DivX's
-streams too) or, in AVI, its Motion JPEG (``data/mjpeg.py``) to (H, W, 3)
-uint8 RGB frames, bit for bit as ``cv2.VideoCapture`` reads them after
-``cvtColor(BGR2RGB)`` (``data/yuv.py``).  ``fps`` and ``frame_count`` are what cv2's
-``CAP_PROP_FPS`` and ``CAP_PROP_FRAME_COUNT`` report.  A file cut short
+streams too), its H.264 I and P pictures (``data/h264.py``) or, in AVI, its
+Motion JPEG (``data/mjpeg.py``) to (H, W, 3) uint8 RGB frames, bit for bit
+as ``cv2.VideoCapture`` reads them after ``cvtColor(BGR2RGB)``
+(``data/yuv.py``; an H.264 frame by its colour matrix and range).  ``fps``
+and ``frame_count`` are what cv2's ``CAP_PROP_FPS`` and
+``CAP_PROP_FRAME_COUNT`` report.  A file cut short
 yields the whole frames before the cut.
 
 ``VideoWriter(path, fps)`` picks the container by the extension, as cv2
@@ -25,19 +27,23 @@ import struct
 
 import numpy as np
 
-from . import avi, mjpeg, mp4, mpeg4, mpeg4_encode, yuv
+from . import avi, h264, mjpeg, mp4, mpeg4, mpeg4_encode, yuv
 
 READABLE = ("MPEG-4 Part 2 Simple and Advanced Simple Profile video (I-, P- and B-VOPs, 4MV, "
             "quarter-pel, MPEG quantisation, resync markers, data partitioning, f_code 1-7; "
             "XviD's and DivX's streams, DivX packed bitstreams) in MP4 ('mp4v') or AVI "
             "('mp4v', 'FMP4', 'XVID', 'XVIX', 'DIVX', 'DX50', 'DIV1', 'MP4S', 'M4S2', 'RMP4', "
-            "'SIPP', 'ZMP4', '3IV2'), and 4:2:0 or 4:2:2 "
-            "Motion JPEG in AVI ('MJPG', 'AVI1')")
+            "'SIPP', 'ZMP4', '3IV2'), H.264 I and P slices of progressive 8-bit 4:2:0 video "
+            "(CAVLC and CABAC, Baseline, Main and High profiles) in MP4 ('avc1', 'avc3') or "
+            "AVI ('H264', 'h264', 'X264', 'x264', 'avc1', 'AVC1', 'DAVC'), and 4:2:0 or "
+            "4:2:2 Motion JPEG in AVI ('MJPG', 'AVI1')")
 WRITABLE = (".mp4", ".avi")
 # AVI fourccs of MPEG-4 Part 2 video
 AVI_FOURCCS = {t for tag in (b"MP4V", b"FMP4", b"XVID", b"XVIX", b"DIVX", b"DX50", b"DIV1",
                              b"MP4S", b"M4S2", b"RMP4", b"SIPP", b"ZMP4", b"3IV2")
                for t in (tag, tag.lower())}
+# AVI fourccs of H.264 video
+H264_FOURCCS = {b"H264", b"h264", b"X264", b"x264", b"avc1", b"AVC1", b"DAVC"}
 _MP4_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip", b"moof", b"styp")
 
 
@@ -58,6 +64,7 @@ class VideoReader:
             self._data = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) if size else b""
         data = self._data
         self.shown = None
+        self.colour = (2, False)  # an H.264 frame's colour matrix and range
         try:
             self.codec = "mpeg4"
             if data[:4] == b"RIFF" and data[8:12] == b"AVI ":
@@ -66,6 +73,8 @@ class VideoReader:
                 if stream.fourcc in mjpeg.FOURCCS:
                     self.codec = "mjpeg"
                     self.height = abs(stream.size[1])
+                elif stream.fourcc in H264_FOURCCS:
+                    self.codec = "h264"
                 elif stream.fourcc not in AVI_FOURCCS:
                     raise UnsupportedVideo(self.path, "an AVI video stream in "
                                            f"{stream.fourcc.decode('latin-1')!r}")
@@ -82,9 +91,14 @@ class VideoReader:
                 self.fps = track.fps
                 self.frame_count = track.count
                 self.shown = None if track.shown is None else set(track.shown)
-                self.codec_tag = b"mp4v"
+                self.codec_tag = track.fourcc
+                if track.fourcc != b"mp4v":
+                    self.codec = "h264"
             else:
                 raise UnsupportedVideo(self.path, "not a video file")
+            # an avcC track's samples are handed out as cv2 filters them
+            self.annexb = self.codec == "h264" and self.container == "mp4" and \
+                self.config[:1] == b"\x01"
         except UnsupportedVideo:
             raise
         except (avi.UnsupportedAvi, mp4.UnsupportedMp4) as e:
@@ -97,12 +111,16 @@ class VideoReader:
 
     def packet_bytes(self):
         """The stream's packets as cv2 hands them out with
-        ``CAP_PROP_FORMAT`` -1, in order, up to the first one cut short."""
+        ``CAP_PROP_FORMAT`` -1, in order, up to the first one cut short (an
+        ``avcC`` track's samples through ``h264.AnnexB``, as cv2 filters
+        them)."""
         data = self._data
+        annexb = h264.AnnexB(self.config) if self.annexb else None
         for offset, size in self.packets:
             if offset + size > len(data):
                 return
-            yield bytes(data[offset:offset + size])
+            packet = bytes(data[offset:offset + size])
+            yield annexb(packet) if annexb else packet
 
     def planes(self):
         """The decoded (Y, U, V) planes of each frame shown (``yuvj`` ones
@@ -110,16 +128,23 @@ class VideoReader:
         if self.codec == "mjpeg":
             yield from self._mjpeg_planes()
             return
+        refusal = h264.UnsupportedH264 if self.codec == "h264" else mpeg4.UnsupportedMpeg4
         try:
-            decoder = mpeg4.Decoder(self.config, codec_tag=self.codec_tag)
-        except mpeg4.UnsupportedMpeg4 as e:
+            if self.codec == "h264":  # cv2 starts its decoder at the delay the probe found
+                delay = h264.probe_delay(self.packet_bytes(), self.config, self.codec_tag,
+                                         annexb=self.annexb)
+                decoder = h264.Decoder(self.config, codec_tag=self.codec_tag, delay=delay,
+                                       annexb=self.annexb)
+            else:
+                decoder = mpeg4.Decoder(self.config, codec_tag=self.codec_tag)
+        except refusal as e:
             raise UnsupportedVideo(self.path, e.form) from None
         except (ValueError, EOFError) as e:
             raise UnsupportedVideo(self.path, f"a corrupt decoder configuration ({e})") from None
         for index, packet in enumerate(self.packet_bytes()):
             try:
                 frames = decoder.decode(packet)
-            except mpeg4.UnsupportedMpeg4 as e:
+            except refusal as e:
                 raise UnsupportedVideo(self.path, e.form) from None
             except (ValueError, EOFError) as e:
                 if index == len(self.packets) - 1:
@@ -128,8 +153,15 @@ class VideoReader:
                 raise UnsupportedVideo(self.path, f"a corrupt packet {index} ({e})") from None
             if self.shown is not None and index not in self.shown:
                 continue
-            yield from frames
-        yield from decoder.flush()
+            for frame in frames:
+                yield self._frame(decoder, frame)
+        for frame in decoder.flush():
+            yield self._frame(decoder, frame)
+
+    def _frame(self, decoder, planes):
+        if self.codec == "h264":
+            self.colour = decoder.colour
+        return planes
 
     def _mjpeg_planes(self):
         packets = list(self.packets)
@@ -144,9 +176,11 @@ class VideoReader:
                 raise UnsupportedVideo(self.path, f"a corrupt packet {index} ({e})") from None
 
     def __iter__(self):
-        convert = yuv.yuvj_to_rgb if self.codec == "mjpeg" else yuv.yuv420_to_rgb
         for y, u, v in self.planes():
-            yield convert(y, u, v)
+            if self.codec == "h264":
+                yield yuv.yuv_to_rgb(y, u, v, yuv.coefficients(*self.colour))
+            else:
+                yield (yuv.yuvj_to_rgb if self.codec == "mjpeg" else yuv.yuv420_to_rgb)(y, u, v)
 
     def close(self):
         if isinstance(self._data, mmap.mmap):

@@ -20,8 +20,15 @@ libswscale builds for a ``yuvj`` source (no luma offset or gain; the
 chroma coefficients scaled by 224/255: ``FULL_*``), each chroma sample
 serving 2x2 luma pixels (4:2:0) or 2x1 (4:2:2, by the chroma's height).
 
+``yuv_to_rgb``: the same arithmetic for any colour matrix and range, as
+cv2 converts an H.264 frame after ``sws_setColorspaceDetails`` with the
+frame's matrix (``matrix_coefficients``) and range (``coefficients``
+builds the five coefficients and the luma offset as libswscale's
+``ff_yuv2rgb_c_init_tables`` does from ``ff_yuv2rgb_coeffs``).
+
 The ``_py`` functions are the plain versions; the ones the reader and
-writer run are the C++ loops of ``csrc/mpeg4_host.cc`` (``_native``).
+writer run are the C++ loops of ``csrc/mpeg4_host.cc`` and
+``csrc/h264_host.cc`` (``_native``).
 """
 
 import numpy as np
@@ -47,6 +54,56 @@ def yuv420_to_rgb_py(y, u, v):
     r = yv + ((v8 * VR_COEFF) >> 16)
     g = yv + ((u8 * UG_COEFF) >> 16) + ((v8 * VG_COEFF) >> 16)
     b = yv + ((u8 * UB_COEFF) >> 16)
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+# libswscale's ff_yuv2rgb_coeffs in 16.16 by AVColorSpace (matrix_coefficients):
+# crv, cbu, cgu, cgv
+YUV2RGB_COEFFS = ((117489, 138438, 13975, 34925), (117489, 138438, 13975, 34925),
+                  (104597, 132201, 25675, 53279), (104597, 132201, 25675, 53279),
+                  (104448, 132798, 24759, 53109), (104597, 132201, 25675, 53279),
+                  (104597, 132201, 25675, 53279), (117579, 136230, 16907, 35559),
+                  None, (110013, 140363, 12277, 42626), (110013, 140363, 12277, 42626))
+DEFAULT_COLOURSPACE = 5  # SWS_CS_DEFAULT: BT.601
+
+
+def _div(a, b):
+    """C's integer division (toward zero)."""
+    return a // b if a >= 0 else -((-a) // b)
+
+
+def coefficients(colourspace=2, full_range=False):
+    """(Y, its offset, V->R, U->B, V->G, U->G) in 1/8192ths (the offset in
+    eighths) for frames of AVColorSpace ``colourspace`` and range."""
+    if not 0 <= colourspace <= 10 or YUV2RGB_COEFFS[colourspace] is None:
+        colourspace = DEFAULT_COLOURSPACE
+    crv, cbu, cgu, cgv = YUV2RGB_COEFFS[colourspace]
+    cgu, cgv = -cgu, -cgv
+    cy, oy = 1 << 16, 0
+    if full_range:
+        crv, cbu, cgu, cgv = (_div(c * 224, 255) for c in (crv, cbu, cgu, cgv))
+    else:
+        cy, oy = cy * 255 // 219, 16 << 16
+
+    def round16(f):
+        return (f + (1 << 15)) >> 16
+
+    return (round16(cy << 13), round16(oy << 3), round16(crv << 13), round16(cbu << 13),
+            round16(cgv << 13), round16(cgu << 13))
+
+
+def yuv_to_rgb_py(y, u, v, coeffs):
+    """(H, W) Y and (ceil(H/2), ceil(W/2)) U, V -> (H, W, 3) uint8 RGB with
+    ``coefficients``' (Y, offset, V->R, U->B, V->G, U->G)."""
+    cy, oy, vr, ub, vg, ug = coeffs
+    h, w = y.shape
+    up = np.repeat(np.repeat(u, 2, 0), 2, 1)[:h, :w].astype(np.int64)
+    vp = np.repeat(np.repeat(v, 2, 0), 2, 1)[:h, :w].astype(np.int64)
+    yv = ((y.astype(np.int64) * 8 - oy) * cy) >> 16
+    u8, v8 = up * 8 - 1024, vp * 8 - 1024
+    r = yv + ((v8 * vr) >> 16)
+    g = yv + ((u8 * ug) >> 16) + ((v8 * vg) >> 16)
+    b = yv + ((u8 * ub) >> 16)
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
@@ -122,6 +179,21 @@ def rgb_to_yuv420_native(rgb):
     return y, u, v
 
 
+def yuv_to_rgb_native(y, u, v, coeffs):
+    """``yuv_to_rgb_py`` in C++ (``omh_yuv_to_rgb``)."""
+    from .. import kernels
+
+    h, w = y.shape
+    out = np.empty((h, w, 3), np.uint8)
+    y, u, v = (np.ascontiguousarray(p) for p in (y, u, v))
+    c = np.asarray(coeffs, np.int32)
+    kernels.host_library("h264_host").omh_yuv_to_rgb(
+        y.ctypes.data, u.ctypes.data, v.ctypes.data, u.shape[1], w, h, c.ctypes.data,
+        out.ctypes.data)
+    return out
+
+
 yuv420_to_rgb = yuv420_to_rgb_native
+yuv_to_rgb = yuv_to_rgb_native
 yuvj_to_rgb = yuvj_to_rgb_native
 rgb_to_yuv420 = rgb_to_yuv420_native

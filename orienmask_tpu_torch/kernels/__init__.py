@@ -13,7 +13,7 @@ its wrapper raises by one where it launches the kernel.
 
 Host code with a C interface, ``csrc/<name>.cc`` (the JPEG entropy
 decoder and coder, TIFF's LZW codec, WebP's VP8 and VP8L loops, MPEG-4 Part 2's
-macroblock loops and colour conversions, the native
+macroblock loops and colour conversions, H.264's slice and deblocking loops, the native
 host library ``omtpu``), is built the same way with the
 host C++ compiler (``g++``, which nvcc itself needs) into
 ``csrc/build/lib<name>.so`` by ``host_library``; it runs on the CPU, so the
@@ -129,6 +129,18 @@ HOST_SIGNATURES = {
         "omv_mjpeg_planes": (None, [_P, _I, _I, _P, _P]),
         # RGB, width, height, Y, U, V out
         "omv_rgb_to_yuv": (None, [_P, _I, _I, _P, _P, _P]),
+    },
+    "h264_host": {
+        # RBSP, its length, bit position, parameters, tables, LevelScale4x4,
+        # LevelScale8x8, the references' (Y, U, V) pointers, their picture
+        # ids, their count, weights, weighted, Y, U, V, state
+        "omh_decode_slice": (_L, [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+                                  _P]),
+        "omh_error_string": (ctypes.c_char_p, [_I]),
+        # Y, U, V, mb_w, mb_h, Cb and Cr QP offsets, state, tables
+        "omh_deblock": (None, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
+        # Y, U, V, the chroma's row stride, width, height, coefficients, RGB out
+        "omh_yuv_to_rgb": (None, [_P, _P, _P, _L, _I, _I, _P, _P]),
     },
     "omtpu": {
         # dets (n, 5), n, threshold, keep

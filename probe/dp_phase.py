@@ -1,6 +1,6 @@
 """Phase 18 of chip_smoke.py alone (data parallelism: the published
 config's n_device=2 as two ranks on the one card, the equivalence step, the
-train CLI for 2 epochs and the test CLI; then the one-process and one-rank
+train CLI for 1 epoch and the test CLI; then the one-process and one-rank
 NCCL steps and the one-process test CLI) after the build: the short first
 call after a change to the process group, the synced BatchNorm, the loss's
 or the step's collectives, or the CLIs' flags.  Writes the phase's launch

@@ -1,5 +1,5 @@
 """Phase 17 of chip_smoke.py alone (training and evaluation from files: the
-train CLI for 3 epochs on the port's mini dataset at full width, then the
+train CLI for 2 epochs on the port's mini dataset at full width, then the
 test CLI on its best checkpoint) after the build: the short first call
 after a change to the data path, the trainer, its checkpoints or the CLIs.
 Writes the phase's launch counts and timings to OUT (default

@@ -32,6 +32,8 @@ AV_PIX_FMT_YUV420P, AV_PIX_FMT_BGR24, SWS_BICUBIC = 0, 3, 4
 PACKET_DATA, PACKET_SIZE = 24, 32
 FRAME_LINESIZE, FRAME_SIZE, FRAME_FORMAT = 64, 104, 116
 CONTEXT_CODEC_TAG = 28  # AVCodecContext.codec_tag
+CONTEXT_EXTRADATA = 72  # AVCodecContext.extradata, extradata_size after it
+CONTEXT_HAS_B_FRAMES = 172  # AVCodecContext.has_b_frames (after refs)
 AV_PIX_FMT_YUV422P, AV_PIX_FMT_YUVJ420P, AV_PIX_FMT_YUVJ422P = 4, 12, 13
 PLANAR_422 = (AV_PIX_FMT_YUV422P, AV_PIX_FMT_YUVJ422P)
 _PIX_NAMES = {AV_PIX_FMT_YUV420P: "yuv420p", AV_PIX_FMT_YUVJ420P: "yuvj420p",
@@ -48,6 +50,7 @@ def _lib(stem):
 def _avutil():
     lib = _lib("libavutil")
     for name, res, args in (("av_frame_alloc", _P, []), ("av_frame_free", None, [_P]),
+                            ("av_mallocz", _P, [ctypes.c_size_t]),
                             ("av_frame_get_buffer", ctypes.c_int, [_P, ctypes.c_int]),
                             ("av_opt_set", ctypes.c_int, [_P, ctypes.c_char_p, ctypes.c_char_p,
                                                           ctypes.c_int])):
@@ -81,17 +84,29 @@ def _ints(address, n):
     return list((ctypes.c_int * n).from_address(address))
 
 
-def decode(packets, extradata=b"", codec_tag=b"", codec=b"mpeg4"):
+def decode(packets, extradata=b"", codec_tag=b"", codec=b"mpeg4", formats=None, delay=0):
     """libavcodec's ``mpeg4`` (or ``codec``) decoder on ``packets``
-    (``extradata``, a container's VOL, leads the first; ``codec_tag`` the
-    container's fourcc, as FFmpeg's demuxers set it): each frame's (Y, U, V)
-    planes, the chroma planes at the frame's chroma size."""
+    (``extradata``, a container's VOL, leads the first; for ``h264`` it is
+    the codec context's extradata, an ``avcC`` record or Annex B parameter
+    sets, as FFmpeg's demuxers set it; ``codec_tag`` the container's fourcc):
+    each frame's (Y, U, V) planes, the chroma planes at the frame's chroma
+    size.  ``formats``, a list, receives each frame's pixel format;
+    ``delay`` is the context's ``has_b_frames`` at its opening (the
+    ``video_delay`` a demuxer's probe hands the decoder)."""
     avcodec, avutil = _avcodec(), _avutil()
     decoder = avcodec.avcodec_find_decoder_by_name(codec)
     ctx = avcodec.avcodec_alloc_context3(decoder)
     if codec_tag:
         ctypes.c_uint32.from_address(ctx + CONTEXT_CODEC_TAG).value = int.from_bytes(
             codec_tag, "little")
+    if codec == b"h264" and extradata:
+        buf = avutil.av_mallocz(len(extradata) + 64)
+        ctypes.memmove(buf, bytes(extradata), len(extradata))
+        _P.from_address(ctx + CONTEXT_EXTRADATA).value = buf
+        ctypes.c_int.from_address(ctx + CONTEXT_EXTRADATA + 8).value = len(extradata)
+        extradata = b""
+    if delay:
+        ctypes.c_int.from_address(ctx + CONTEXT_HAS_B_FRAMES).value = delay
     codec = decoder
     if avcodec.avcodec_open2(ctx, codec, None) != 0:
         raise RuntimeError("avcodec_open2 failed")
@@ -104,6 +119,8 @@ def decode(packets, extradata=b"", codec_tag=b"", codec=b"mpeg4"):
             linesize = _ints(frame + FRAME_LINESIZE, 3)
             w, h = _ints(frame + FRAME_SIZE, 2)
             fmt = _ints(frame + FRAME_FORMAT, 1)[0]
+            if formats is not None:
+                formats.append(fmt)
             cw, ch = (w + 1) // 2, (h + 1) // 2 if fmt not in PLANAR_422 else h
             planes = []
             for i, (pw, ph) in enumerate(((w, h), (cw, ch), (cw, ch))):

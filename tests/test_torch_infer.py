@@ -155,9 +155,10 @@ VIDEO_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "image
       "out.mp4"], "interlaced video", 3),
 ], ids=["extra0-cv2.VideoCapture", "extra1-cv2.VideoWriter", "extra2-refused-mid-stream"])
 def test_refused_flags_exit_with_their_message(inputs, extra, message, left, tmp_path):
-    """--video over a video file the reader refuses (interlaced video; an
-    AVI of another fourcc, before -o writes anything; three frames, then an
-    interlaced VOL) exits naming the form; what -o wrote before a refusal
+    """--video over a video file the reader refuses (interlaced video;
+    MPEG-4 Part 2 bytes under the ``H264`` fourcc, an H.264 stream without a
+    sequence parameter set, before -o writes anything; three frames, then
+    an interlaced VOL) exits naming the form; what -o wrote before a refusal
     is a whole file of the ``left`` frames read before it (none: no file),
     which cv2 and the port's reader both read.  (B-VOPs and MJPEG, which
     these cases refused before the reader took them, are read now.)  The

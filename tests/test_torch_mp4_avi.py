@@ -192,9 +192,11 @@ def test_an_mp4_edit_that_starts_later_hides_the_frames_before_it(tmp_path):
 @pytest.mark.parametrize("name", ["video_h264_tag.avi", "video_avc1.mp4",
                                   "video_fragmented.mp4", "mpeg4_short_header.avi"])
 def test_refused_containers_name_their_form(name):
-    """Another AVI fourcc, another MP4 sample entry, a fragmented MP4 and
-    the short video header (H.263) in an ``mp4v`` AVI (MJPEG in AVI, once
-    refused here, is read: ``test_torch_mjpeg.py``)."""
+    """MPEG-4 Part 2 bytes under the ``H264`` fourcc (an H.264 stream
+    without a sequence parameter set), an ``avc1`` sample entry without
+    ``avcC``, a fragmented MP4 and the short video header (H.263) in an
+    ``mp4v`` AVI (MJPEG in AVI, once refused here, is read:
+    ``test_torch_mjpeg.py``; H.264 too: ``test_torch_h264.py``)."""
     with pytest.raises(video.UnsupportedVideo) as err:
         list(video.VideoReader(FIXTURES / name))
     assert DIGESTS[name]["refused"] in str(err.value)
@@ -203,9 +205,9 @@ def test_refused_containers_name_their_form(name):
 
 
 def test_the_refused_fixtures_are_what_their_names_say():
-    """cv2 writes MJPG in AVI (read now); the H264-tagged AVI, the avc1 and
-    fragmented files and the short header are made by hand
-    (probe/make_video_fixtures.py)."""
+    """cv2 writes MJPG in AVI (read now); the H264-tagged AVI (MPEG-4 Part
+    2 bytes), the avc1 file (an mp4v one renamed), the fragmented file and
+    the short header are made by hand (probe/make_video_fixtures.py)."""
     assert avi.read((FIXTURES / "video_mjpg.avi").read_bytes()).fourcc == b"MJPG"
     assert avi.read((FIXTURES / "video_h264_tag.avi").read_bytes()).fourcc == b"H264"
     assert b"avc1" in (FIXTURES / "video_avc1.mp4").read_bytes()

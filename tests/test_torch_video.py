@@ -34,7 +34,7 @@ import torch
 
 import mpeg4_oracle
 from orienmask_tpu.utils.envs import cpu_subprocess_env
-from orienmask_tpu_torch.data import mjpeg, mpeg4, mpeg4_encode, video, yuv
+from orienmask_tpu_torch.data import h264, mjpeg, mpeg4, mpeg4_encode, video, yuv
 from orienmask_tpu_torch.data.image_io import write_png
 from chip_smoke import both_loops_decoder
 from test_torch_infer import _config, inputs  # noqa: F401 (the fixture)
@@ -84,8 +84,16 @@ def _scene(h, w, n, dx, dy, seed=0):
 @pytest.mark.parametrize("name", READABLE)
 def test_planes_equal_libavcodecs(name):
     """libavcodec's ``mpeg4`` (with the AVI's codec tag, as FFmpeg's
-    demuxer sets it) or ``mjpeg`` decoder."""
+    demuxer sets it), ``mjpeg`` or ``h264`` decoder (opened at the delay
+    cv2's probe finds; Annex B packets carry their parameter sets)."""
     reader = video.VideoReader(FIXTURES / name)
+    if reader.codec == "h264":
+        packets = list(reader.packet_bytes())
+        delay = h264.probe_delay(packets, reader.config, reader.codec_tag, annexb=reader.annexb)
+        want = mpeg4_oracle.decode(packets, b"" if reader.annexb else reader.config,
+                                   codec=b"h264", delay=delay)
+        assert _equal_planes(list(reader.planes()), want)
+        return
     codec = b"mjpeg" if reader.codec == "mjpeg" else b"mpeg4"
     want = mpeg4_oracle.decode(list(reader.packet_bytes()), reader.config,
                                codec_tag=reader.codec_tag if reader.container == "avi" else b"",
@@ -143,8 +151,17 @@ def test_the_cpp_macroblock_loop_equals_the_plain_one(name):
     """Each VOP, through ``chip_smoke.py``'s decoder of both loops: the
     same planes, end bit, kinds and stored vectors (B-VOPs, quarter-pel,
     MPEG quantisation, XviD's IDCT, data partitioning too); each MJPEG
-    frame: the same planes."""
+    frame: the same planes; each H.264 stream: the same planes."""
     reader = video.VideoReader(FIXTURES / name)
+    if reader.codec == "h264":
+        got = []
+        for native in (False, True):
+            decoder = h264.Decoder(reader.config, native=native, codec_tag=reader.codec_tag,
+                                   annexb=reader.annexb)
+            got.append([f for p in reader.packet_bytes() for f in decoder.decode(p)] +
+                       decoder.flush())
+        assert got[0] and _equal_planes(*got)
+        return
     if reader.codec == "mjpeg":
         for packet in reader.packet_bytes():
             frame = mjpeg.parse(packet, reader.height)
