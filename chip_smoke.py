@@ -279,9 +279,9 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    MMCO and long-term references, POC types 0-2, reordered output, several
    slices, deblocking idc 0-2, I_PCM, cropping, full range) read on the
    host to cv2's committed digests, rate and count, the forms still
-   refused (B, SP and data-partitioned slices, field coding, 4:2:2, 10
-   bits, slice groups, redundant pictures, HEVC, cabac_init_idc 1 with the
-   8x8 transform) refused by their names, the C++ slice and deblocking
+   refused (SP and data-partitioned slices, field coding, 4:2:2, 10 bits,
+   slice groups, redundant pictures, HEVC) refused by their names, the C++
+   slice and deblocking
    loops equal to the plain ones on every picture of the small fixtures
    and the first two of the 720x1280 file; (b) the infer CLI at 736² over the 24-frame 720x1280
    High-profile CABAC MP4 (phase 25's scene and detecting weights) and the
@@ -290,6 +290,20 @@ prints no result.  Phases, in order (any failure raises and exits non-zero):
    frame, every call identical to its plain version, each output the
    writer's bytes for the plain-version drawings; (c) the host ms a frame
    of demux, decode and conversion to RGB of each.
+28. H.264 B slices: (a) every committed B-slice fixture (every B
+   macroblock and sub type, B_Skip, spatial and temporal direct under both
+   direct_8x8_inference values, weighted bi-prediction 0-2, both lists'
+   modifications, long-term pictures, a pyramid, P and B slices in one
+   picture, MP4 composition times and edits) read on the host to cv2's
+   committed digests, rate and count, the forms still refused refused by
+   their names, the C++ loops equal to the plain ones on every picture of
+   the small fixtures and on the first three (I, P, B) of the 720x1280
+   file; (b) the infer CLI at 736² over the 24-frame 720x1280 MP4 in x264's
+   default GOP (3 B frames, a pyramid, spatial direct, implicit weights,
+   High CABAC; phase 25's scene and weights) and the 16-frame 480x640 Main
+   CAVLC AVI (temporal direct, explicit weights; phase 26's MJPEG scene and
+   weights), each -o out.mp4, as phase 27 (b); (c) the host ms a frame of
+   demux, decode (split by slice type I, P and B) and conversion to RGB.
 
 Each phase's first line gives the seconds since the script's start.  The
 last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
@@ -298,7 +312,8 @@ last five lines: the end-to-end JSON (``e2e_fps_544_bs1``,
 ``serving_544``, ``spatial_544``);
 ``{"infer_544_b8": ..., "infer_544_b16": ..., "stream_736": {"depth1": ...,
 "depth2": ..., "staged_fps": ...}, "jpeg": {...}, "image_files": {...},
-"webp": {...}, "video": {...}, "asp_mjpeg": {...}, "h264": {...}}``; the card's name and
+"webp": {...}, "video": {...}, "asp_mjpeg": {...}, "h264": {...}, "h264_b": {...}}``; the
+card's name and
 power limit; the kernels' JSON record: every kernel carries per-path launch
 counts (``paths``: kernels 1 and 2 infer, eval, cli, stream_736, batch,
 jpeg_cli; kernel 6 eval, cli, jpeg_cli; kernel 5 train; kernels 3 and 4
@@ -310,7 +325,8 @@ accuracy_int8; kernels 1 and 2 spatial and spatial_int8, kernel 5
 spatial_train, kernels 5, 1, 2 and 6 spatial_train_cli; kernels 1 and 2
 image_files_cli and image_files_video, kernel 5 train_resizes; kernels 1 and
 2 webp_cli, webp_video and platforms_cuda; kernels 1 and 2 video_mp4,
-video_avi, asp_cli, mjpeg_cli, h264_cabac_cli and h264_cavlc_cli), kernels 1
+video_avi, asp_cli, mjpeg_cli, h264_cabac_cli, h264_cavlc_cli, h264_b_cabac_cli and
+h264_b_cavlc_cli), kernels 1
 and 2 their times at the 736² and batch shapes (``shapes_736``, ``batch``),
 kernel 6 phase 16's cases; the last line is ``{"ok": true, "device":
 {...}}``.  ``--profile DIR`` also writes
@@ -1864,7 +1880,7 @@ COMPARE_FRAMES = 50
 # depths of 5 windows took about 120 s of the script's time limit; at 80
 # frames and 5 windows about 53 s)
 STREAM_WINDOW_FRAMES = 40
-STREAM_WINDOWS = 3
+STREAM_WINDOWS = 2
 BATCHES = (8, 16)
 
 
@@ -3814,7 +3830,7 @@ def check_int8(workdir, files_cfg, best):
 # -------------------------------------------------------------- serving
 
 SERVING_SHAPES = ((1, 480, 640, 3), (8, 480, 640, 3))
-SERVING_WINDOWS = 2  # e2e_fps windows a turn; turns: live, served, served, live
+SERVING_WINDOWS = 1  # e2e_fps windows a turn; turns: live, served, served, live
 SERVING_DEADLINE_S = 300
 
 
@@ -4474,7 +4490,7 @@ IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "image_fixtures"
 # none a whole number of 16x16 MCUs, and grey
 CODER_SIZES = ((1, 1), (7, 9), (17, 33), (9, 40), (31, 17), (23, 57))
 CODER_QUALITIES = (75, 95, 98)
-CODEC_REPEATS = 5
+CODEC_REPEATS = 3
 RESIZE_IMAGES = 8  # one B = 8 train step an interpolation
 
 
@@ -4693,9 +4709,8 @@ def check_train_resizes(workdir):
 # ------------------------------------------------- WebP and platforms (24)
 
 # phase 24 (a)'s directory: the committed fixtures a user's -d would hold
-WEBP_CLI_FIXTURES = ("webp_vp8l.webp", "webp_vp8_q50.webp", "webp_vp8_q95.webp",
-                     "webp_vp8x_alpha.webp", "webp_animated.webp", "webp_exif_6.webp",
-                     "webp_odd_33x65.webp")
+WEBP_CLI_FIXTURES = ("webp_vp8l.webp", "webp_vp8_q95.webp", "webp_vp8x_alpha.webp",
+                     "webp_animated.webp")
 WEBP_SCENE = (480, 640)  # the seeded scene whose host ms (b) records
 PLATFORMS = ("cpu", "cuda")
 PLATFORM_SHAPE = (1, 480, 640, 3)
@@ -4863,20 +4878,22 @@ def check_platforms():
 # CLI run writes
 VIDEO_RUNS = (("video_720x1280_25.mp4", "out.mp4"), ("video_720x1280_2997.avi", "out.avi"))
 VIDEO_FRAMES = 24
-VIDEO_WINDOWS = 2  # streamed windows a source in (c), after one warm-up window
+VIDEO_WINDOWS = 1  # streamed windows a source in (c), after one warm-up window
 VIDEO_DRAWN_A_FRAME = 2  # detections above conf_thresh a frame of (a), on average
 
 
 def video_phase(name):
-    """The phase (25, 26 or 27) that holds video fixture ``name``."""
+    """The phase (25, 26, 27 or 28) that holds video fixture ``name``."""
+    if name.startswith(H264_B_PREFIX):
+        return 28
     if name.startswith(H264_PREFIXES):
         return 27
     return 26 if name in ASP_MJPEG_FIXTURES else 25
 
 
 def video_fixture_names(phase=25):
-    """The readable committed video fixtures of phase 25, 26 or 27, from
-    digests.json."""
+    """The readable committed video fixtures of phase 25, 26, 27 or 28,
+    from digests.json."""
     digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
     return digests, sorted(n for n, d in digests.items() if n.endswith((".mp4", ".avi"))
                            and "refused" not in d and video_phase(n) == phase)
@@ -5413,7 +5430,7 @@ H264_RUNS = (("h264_high_cabac_720x1280.mp4", 24, (720, 1280, 3), "detecting.ckp
 PLAIN_PICTURES = 2
 # (c)'s timed runs a file (the decode, with the probe, took 1.2 s a run of
 # the 720x1280 file; phase 27 alone 51.3 s with 5 runs)
-H264_REPEATS = 3
+H264_REPEATS = 2
 
 
 def h264_both_loops(reader, limit=None):
@@ -5424,7 +5441,7 @@ def h264_both_loops(reader, limit=None):
 
     packets = list(reader.packet_bytes())[:limit]
     delay = h264.probe_delay(reader.packet_bytes(), reader.config, reader.codec_tag,
-                             annexb=reader.annexb)
+                             annexb=reader.annexb, mp4=reader.probe)
     planes = []
     for native in (True, False):
         decoder = h264.Decoder(reader.config, native=native, codec_tag=reader.codec_tag,
@@ -5436,19 +5453,19 @@ def h264_both_loops(reader, limit=None):
     return len(packets)
 
 
-def check_h264_fixtures():
-    """Phase 27 (a), on the card's host: every readable H.264 fixture reads
-    to cv2's committed digests, rate and frame count; each refused form
-    (B, SP and data-partitioned slices, field coding, 4:2:2, 10 bits, slice
-    groups, redundant pictures, HEVC, cabac_init_idc 1 with the 8x8
-    transform) is refused by its name; the C++ slice and deblocking loops
-    equal the plain ones on every picture of the small fixtures and on the
-    first ``PLAIN_PICTURES`` of the 720x1280 file."""
+def check_h264_fixtures(phase=27, runs=H264_RUNS, plain_pictures=PLAIN_PICTURES):
+    """Phase 27 (a) (28's over its B-slice fixtures and ``runs``), on the
+    card's host: every readable fixture of the phase reads to cv2's
+    committed digests, rate and frame count; each refused form (SP and
+    data-partitioned slices, field coding, 4:2:2, 10 bits, slice groups,
+    redundant pictures, HEVC) is refused by its name; the C++ slice and
+    deblocking loops equal the plain ones on every picture of the small
+    fixtures and on the first ``plain_pictures`` of the 720x1280 file."""
     import hashlib
 
     from orienmask_tpu_torch.data import video
 
-    digests, names = video_fixture_names(27)
+    digests, names = video_fixture_names(phase)
     frames = 0
     for name in names:
         want = digests[name]
@@ -5460,20 +5477,21 @@ def check_h264_fixtures():
         frames += len(got)
     refused = sorted(n for n, d in digests.items() if "refused" in d and video_phase(n) == 27)
     check_refused(digests, refused)
-    big, webcam = H264_RUNS[0][0], H264_RUNS[1][0]
+    big, webcam = runs[0][0], runs[1][0]
     pictures = 0
     for name in names:
         if name != webcam:
             reader = video.VideoReader(IMAGE_FIXTURES / name)
-            pictures += h264_both_loops(reader, PLAIN_PICTURES if name == big else None)
-    log(f"  {len(names)} H.264 fixtures read to cv2's committed digests ({frames} frames), "
+            pictures += h264_both_loops(reader, plain_pictures if name == big else None)
+    log(f"  {len(names)} fixtures read to cv2's committed digests ({frames} frames), "
         f"{len(refused)} refused by their names ({', '.join(refused)}); the C++ slice loop "
-        f"equal to the plain one on {pictures} pictures ({PLAIN_PICTURES} of 720x1280)")
+        f"equal to the plain one on {pictures} pictures ({plain_pictures} of 720x1280)")
     return {"fixtures": len(names), "refused": len(refused), "pictures_checked": pictures}
 
 
-def check_h264_cli(workdir):
-    """Phase 27 (b): the infer CLI on the card at 736² over the 720x1280
+def check_h264_cli(workdir, runs=H264_RUNS, prefix="h264", seed=SEED + 27):
+    """Phase 27 (b) (and 28's over ``runs``, tags ``prefix``_cabac_cli and
+    ``prefix``_cavlc_cli): the infer CLI on the card at 736² over the 720x1280
     High-profile CABAC MP4 (with phase 25's detecting weights: the file
     holds phase 25's scene) and the 480x640 Baseline CAVLC AVI (with phase
     26's weights for its scene), each -o out.mp4: kernel 1 twice and kernel
@@ -5498,12 +5516,12 @@ def check_h264_cli(workdir):
             detecting_checkpoint(workdir / ckpt, build_pipeline(name)[0], frames, thresh)
     log(f"  detecting weights ready in {time.perf_counter() - t:.2f} s")
     counts, res = {}, {}
-    for source, n, shape, ckpt in H264_RUNS:
+    for source, n, shape, ckpt in runs:
         src = IMAGE_FIXTURES / source
         fps = video.VideoReader(src).fps
-        tag = "h264_cabac_cli" if source.endswith(".mp4") else "h264_cavlc_cli"
+        tag = f"{prefix}_cabac_cli" if source.endswith(".mp4") else f"{prefix}_cavlc_cli"
         out = workdir / f"{tag}.mp4"
-        random.seed(SEED + 27)
+        random.seed(seed)
         t = time.perf_counter()
         lines, calls, retrieved, launched, _ = run_cli(["-c", name, "-w", str(workdir / ckpt),
                                                         "--video", str(src), "-o", str(out)])
@@ -5521,7 +5539,7 @@ def check_h264_cli(workdir):
                     if not np.array_equal(got_r[key], want_r[key]):
                         raise AssertionError(f"{tag}: the streamed host '{key}' differs")
         expected, drawn = expected_video(workdir / f"expected_{tag}.mp4", src, wants, plain,
-                                         config, SEED + 27, fps)
+                                         config, seed, fps)
         if not sum(drawn):
             raise AssertionError(f"{tag}: no detection above conf_thresh {thresh} in {n} "
                                  "frames; the video would hold the source frames alone")
@@ -5546,38 +5564,67 @@ def check_h264_cli(workdir):
     return counts, res
 
 
-def check_h264_codecs():
-    """Phase 27 (c): the host ms a frame (median of ``H264_REPEATS``) of
-    demux, decode (with the probe cv2's reader makes) and conversion to RGB
-    of each chip-phase file."""
+def check_h264_codecs(runs=H264_RUNS):
+    """Phase 27 (c) (28's over ``runs``): the host ms a frame (median of
+    ``H264_REPEATS``) of demux, decode (with the probe cv2's reader makes)
+    and conversion to RGB of each chip-phase file, and each slice type's
+    decode ms a picture (each packet's decode timed alone, by its picture's
+    first slice)."""
     from orienmask_tpu_torch.data import h264, video, yuv
 
     out = {}
-    for source, n, _, _ in H264_RUNS:
+    for source, n, _, _ in runs:
         src = IMAGE_FIXTURES / source
         reader = video.VideoReader(src)
         packets = list(reader.packet_bytes())
         planes = list(reader.planes())
-
-        def decode():
+        totals, by_type = [], {}
+        for _ in range(H264_REPEATS):
+            pictures = {}
+            start = time.perf_counter()
             delay = h264.probe_delay(packets, reader.config, reader.codec_tag,
-                                     annexb=reader.annexb)
+                                     annexb=reader.annexb, mp4=reader.probe)
             decoder = h264.Decoder(reader.config, codec_tag=reader.codec_tag, delay=delay,
                                    annexb=reader.annexb)
             for packet in packets:
+                t = time.perf_counter()
                 decoder.decode(packet)
+                kind = "IPB"[(h264.I_SLICE, h264.P_SLICE, h264.B_SLICE).index(
+                    decoder.cur_header.type)]
+                pictures.setdefault(kind, []).append(time.perf_counter() - t)
             decoder.flush()
-
+            totals.append(time.perf_counter() - start)
+            for kind, v in pictures.items():
+                by_type.setdefault(kind, []).append(1e3 * sum(v) / len(v))
         coeffs = yuv.coefficients(*reader.colour)
         key = source.split(".")[0]
         out[key] = {"demux": median_ms(lambda: list(video.VideoReader(src).packet_bytes()),
                                        H264_REPEATS) / n,
-                    "decode": median_ms(decode, H264_REPEATS) / n,
+                    "decode": 1e3 * float(np.median(totals)) / n,
+                    **{f"decode_{k}": float(np.median(v)) for k, v in sorted(by_type.items())},
                     "to_rgb": median_ms(lambda: [yuv.yuv_to_rgb(*p, coeffs) for p in planes],
                                         H264_REPEATS) / n}
-        log(f"  host ms a {key} frame (median of {H264_REPEATS}, {n} frames): " + ", ".join(
-            f"{k} {v:.2f}" for k, v in out[key].items()) + f"; card: {card_line()}")
+        log(f"  host ms a {key} frame (median of {H264_REPEATS}, {n} frames; decode_X a "
+            "picture of slice type X): " + ", ".join(f"{k} {v:.2f}" for k, v in out[key].items())
+            + f"; card: {card_line()}")
     return out
+
+
+# ------------------------------------------------------------ phase 28
+
+# phase 28's fixtures: the B-slice files
+H264_B_PREFIX = "h264_b_"
+# phase 28 (b): phase 25's 24-frame 720x1280 pan in x264's default GOP (3 B
+# frames under a pyramid, spatial direct, implicit weights, the 8x8
+# transform, High CABAC) as MP4 with ctts and an edit, and phase 26's MJPEG
+# scene as a 16-frame 480x640 Main CAVLC AVI of two B frames between P
+# frames (temporal direct, explicit weights), each -o out.mp4, with the
+# weights fitted to each scene
+H264_B_RUNS = (("h264_b_cabac_720x1280.mp4", 24, (720, 1280, 3), "detecting.ckpt"),
+               ("h264_b_cavlc_480x640.avi", 16, (480, 640, 3), "detecting_mjpeg.ckpt"))
+# pictures of the 720x1280 file held to the plain loop in (a): its I, P and
+# first B (the plain loop takes about 4 s a picture there)
+PLAIN_PICTURES_B = 3
 
 
 def main(argv=None):
@@ -5742,9 +5789,19 @@ def main(argv=None):
         t = time.perf_counter()
         h264_files = check_h264_fixtures()
         h264_counts, h264_files["cli"] = check_h264_cli(Path(workdir))  # phases 25, 26's weights
-    h264_files["codecs"] = check_h264_codecs()
-    h264_files["phase_s"] = time.perf_counter() - t
-    log(f"  phase 27 in {h264_files['phase_s']:.1f} s; card: {card_line()}")
+        h264_files["codecs"] = check_h264_codecs()
+        h264_files["phase_s"] = time.perf_counter() - t
+        log(f"  phase 27 in {h264_files['phase_s']:.1f} s; card: {card_line()}")
+        header("[28] H.264 B slices (direct, bi-prediction, both lists, CAVLC and CABAC) and "
+               "MP4 composition times: the fixtures to cv2's digests, the infer CLI at 736x736 "
+               "over each (--video, -o out.mp4), the codec on the host by slice type")
+        t = time.perf_counter()
+        h264_b_files = check_h264_fixtures(28, H264_B_RUNS, PLAIN_PICTURES_B)
+        h264_b_counts, h264_b_files["cli"] = check_h264_cli(  # phases 25, 26's weights
+            Path(workdir), H264_B_RUNS, "h264_b", SEED + 28)
+    h264_b_files["codecs"] = check_h264_codecs(H264_B_RUNS)
+    h264_b_files["phase_s"] = time.perf_counter() - t
+    log(f"  phase 28 in {h264_b_files['phase_s']:.1f} s; card: {card_line()}")
 
     # launches: each path's count, read around that path's run alone; the
     # times are those of the infer path's inputs (kernels 1, 2), the eval
@@ -5770,7 +5827,8 @@ def main(argv=None):
         paths[name]["webp_cli"] = webp_cli_counts["-v -o"][name]
         paths[name]["webp_video"] = webp_cli_counts["--video -o"][name]
         paths[name]["platforms_cuda"] = platform_counts["platforms_cuda"][name]
-        for tag, launched in {**video_counts, **asp_counts, **h264_counts}.items():  # 25-27
+        for tag, launched in {**video_counts, **asp_counts, **h264_counts,
+                              **h264_b_counts}.items():  # 25-28
             paths[name][tag] = launched[name]
     for name in paths:  # phase 17's CLIs, each kernel's count around each
         for cli, launched in files_counts.items():
@@ -5831,7 +5889,7 @@ def main(argv=None):
     log(json.dumps({"infer_544_b8": batch_rates[8], "infer_544_b16": batch_rates[16],
                     "stream_736": stream_fps, "jpeg": jpeg, "image_files": image_files,
                     "webp": webp_files, "video": video_files, "asp_mjpeg": asp_files,
-                    "h264": h264_files}))
+                    "h264": h264_files, "h264_b": h264_b_files}))
     log(card_line())
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

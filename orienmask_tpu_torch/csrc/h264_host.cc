@@ -1,5 +1,6 @@
 // H.264 loops of data/h264.py: a slice's macroblocks (CAVLC and CABAC
-// entropy decoding, intra and inter prediction, the inverse transforms),
+// entropy decoding, intra, inter and direct prediction, bi-prediction and
+// weighted prediction, the inverse transforms),
 // the deblocking filter of a picture, and the colour conversion of
 // data/yuv.py for any colour matrix.  Each is the plain Python version
 // (decode_slice_py, deblock_py, yuv_to_rgb_py) written again in C++, and
@@ -28,13 +29,31 @@ struct Error {
 [[noreturn]] void fail(int code) { throw Error{code}; }
 
 // data/h264.py's macroblock kinds and parameter vector
-enum { I4, I8, I16, PCM, P16X16, P16X8, P8X16, P8X8, P8X8REF0, PSKIP };
-enum { P_SLICE = 0, I_SLICE = 2 };
+enum {
+  I4, I8, I16, PCM, P16X16, P16X8, P8X16, P8X8, P8X8REF0, PSKIP, BDIRECT, B16X16, B16X8, B8X16,
+  B8X8, BSKIP
+};
+enum { P_SLICE = 0, B_SLICE = 1, I_SLICE = 2 };
+enum { WEIGHT_NONE, WEIGHT_EXPLICIT, WEIGHT_IMPLICIT };
 enum {
   PR_MB_W, PR_MB_H, PR_FIRST_MB, PR_TYPE, PR_CABAC, PR_INIT_IDC, PR_QP, PR_NUM_REF, PR_T8_MODE,
   PR_CONSTRAINED, PR_CB_OFF, PR_CR_OFF, PR_SLICE_NUM, PR_DBK_IDC, PR_DBK_A, PR_DBK_B,
-  PR_LUMA_DENOM, PR_CHROMA_DENOM
+  PR_LUMA_DENOM, PR_CHROMA_DENOM, PR_NUM_REF1, PR_WEIGHT_MODE, PR_DIRECT_SPATIAL, PR_DIRECT_8X8,
+  PR_COL_SHORT
 };
+inline bool is_skip(int kind) { return kind == PSKIP || kind == BSKIP; }
+// B mb_type 1-21 (Table 7-14): the kind and each partition's lists (1 L0, 2 L1, 3 both)
+const int B_KIND[22] = {BDIRECT, B16X16, B16X16, B16X16, B16X8, B8X16, B16X8, B8X16, B16X8, B8X16,
+                        B16X8, B8X16, B16X8, B8X16, B16X8, B8X16, B16X8, B8X16, B16X8, B8X16,
+                        B16X8, B8X16};
+const int B_MODES[22][2] = {{0, 0}, {1, 0}, {2, 0}, {3, 0}, {1, 1}, {1, 1}, {2, 2}, {2, 2},
+                            {1, 2}, {1, 2}, {2, 1}, {2, 1}, {1, 3}, {1, 3}, {2, 3}, {2, 3},
+                            {3, 1}, {3, 1}, {3, 2}, {3, 2}, {3, 3}, {3, 3}};
+// sub_mb_type: (width, height, lists); B's 0 is direct
+const int P_SUB[4][3] = {{8, 8, 1}, {8, 4, 1}, {4, 8, 1}, {4, 4, 1}};
+const int B_SUB[13][3] = {{8, 8, 0}, {8, 8, 1}, {8, 8, 2}, {8, 8, 3}, {8, 4, 1},
+                          {4, 8, 1}, {8, 4, 2}, {4, 8, 2}, {8, 4, 3}, {4, 8, 3},
+                          {4, 4, 1}, {4, 4, 2}, {4, 4, 3}};
 const int BLK_RASTER[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};
 int BLK_ORDER[16];  // raster index -> luma4x4BlkIdx
 
@@ -208,26 +227,51 @@ struct Cabac {
     return 0;
   }
   // the binarisations (CabacElements of data/h264.py)
-  int mb_type_i(int inc, int offset3) {
-    bool i = offset3;
-    if (!decision(i ? 3 + inc : 17)) return 0;
+  // at ctxIdxOffset 3 (I slices), 17 (P's suffix) or 32 (B's suffix)
+  int mb_type_i(int inc, int offset) {
+    bool i = offset == 3;
+    if (!decision(i ? 3 + inc : offset)) return 0;
     if (terminate()) return 25;
-    int luma = decision(i ? 6 : 18);
-    int chroma = decision(i ? 7 : 19);
-    if (chroma) chroma += decision(i ? 8 : 19);
-    int m1 = decision(i ? 9 : 20);
-    int m0 = decision(i ? 10 : 20);
+    int luma = decision(i ? 6 : offset + 1);
+    int chroma = decision(i ? 7 : offset + 2);
+    if (chroma) chroma += decision(i ? 8 : offset + 2);
+    int m1 = decision(i ? 9 : offset + 3);
+    int m0 = decision(i ? 10 : offset + 3);
     return 1 + (m1 << 1 | m0) + 4 * chroma + 12 * luma;
   }
   int mb_type_p() {
-    if (decision(14)) return 5 + mb_type_i(0, 0);
+    if (decision(14)) return 5 + mb_type_i(0, 17);
     if (decision(15)) return decision(17) ? 1 : 2;
     return decision(16) ? 3 : 0;
+  }
+  int mb_type_b(int inc) {
+    if (!decision(27 + inc)) return 0;
+    if (!decision(30)) return 1 + decision(32);
+    int bits = decision(31) << 3;
+    bits |= decision(32) << 2;
+    bits |= decision(32) << 1;
+    bits |= decision(32);
+    if (bits < 8) return bits + 3;
+    if (bits == 13) return 23 + mb_type_i(0, 32);
+    if (bits == 14) return 11;
+    if (bits == 15) return 22;
+    return ((bits << 1) | decision(32)) - 4;
   }
   int sub_mb_type() {
     if (decision(21)) return 0;
     if (!decision(22)) return 1;
     return decision(23) ? 2 : 3;
+  }
+  int sub_mb_type_b() {
+    if (!decision(36)) return 0;
+    if (!decision(37)) return 1 + decision(39);
+    int base = 3;
+    if (decision(38)) {
+      if (decision(39)) return 11 + decision(39);
+      base = 7;
+    }
+    int b1 = decision(39);
+    return base + 2 * b1 + decision(39);
   }
   int rem_intra_mode() {
     int out = 0;
@@ -674,14 +718,20 @@ int weight1(int p, int w, int o, int denom) {
   return clip255(v);
 }
 
+int weight2(int a, int b, int w0, int w1, int o0, int o1, int denom) {
+  return clip255(((a * w0 + b * w1 + (1 << denom)) >> (denom + 1)) + ((o0 + o1 + 1) >> 1));
+}
+
 int chroma_qp(const Tables& T, int qp, int offset) {
   return T.chroma_qp[clip3(0, 51, qp + offset)];
 }
 
-// the picture's state arrays (data/h264.py's STATE, in its order)
+// the picture's state arrays (data/h264.py's STATE, in its order); each
+// list's (mv, ref, refpic, mvd) also as lmv[list] etc.
 struct State {
   int *kind, *slice, *qp, *t8, *cbp, *cmode, *modes, *nz, *nzc, *cbfdc, *mv, *ref, *refpic,
-      *mvd, *dbk;
+      *mvd, *dbk, *mv1, *ref1, *refpic1, *mvd1, *direct, *lists;
+  int *lmv[2], *lref[2], *lpic[2], *lmvd[2];
   State(int* s, int n) {
     int* p = s;
     kind = p; p += n;
@@ -698,7 +748,31 @@ struct State {
     ref = p; p += 16 * n;
     refpic = p; p += 16 * n;
     mvd = p; p += 32 * n;
-    dbk = p;
+    dbk = p; p += 3 * n;
+    mv1 = p; p += 32 * n;
+    ref1 = p; p += 16 * n;
+    refpic1 = p; p += 16 * n;
+    mvd1 = p; p += 32 * n;
+    direct = p; p += 16 * n;
+    lists = p;
+    lmv[0] = mv; lmv[1] = mv1;
+    lref[0] = ref; lref[1] = ref1;
+    lpic[0] = refpic; lpic[1] = refpic1;
+    lmvd[0] = mvd; lmvd[1] = mvd1;
+  }
+};
+
+// the co-located picture's arrays (Lists.col of data/h264.py)
+struct Col {
+  const int *kind, *ref[2], *mv[2], *map[2];
+  Col(const int* c, int n) {
+    kind = c; c += n;
+    ref[0] = c; c += 16 * n;
+    ref[1] = c; c += 16 * n;
+    mv[0] = c; c += 32 * n;
+    mv[1] = c; c += 32 * n;
+    map[0] = c; c += 16 * n;
+    map[1] = c;
   }
 };
 
@@ -728,36 +802,50 @@ struct Slice {
   State s;
   uint8_t *Y, *U, *V;
   int W, H, CW, CH;
-  const uint8_t* const* refs;  // (Y, U, V) per reference
-  const int* ref_ids;
-  int n_refs;
-  const int* weights;
-  bool weighted;
+  const uint8_t* const* refs[2];  // (Y, U, V) per reference of each list
+  const int* ref_ids[2];
+  int n_refs[2];
+  const int* weights[2];  // each reference's 6 explicit weights and offsets
+  const int* implicit;    // w0 by (L0, L1) index
+  const int* dist_scale;  // DistScaleFactor by L0 index
+  Col col;
   const int *ls4, *ls8;  // (6, 6, 16) and (2, 6, 64)
   bool cabac;
-  int slice_type, num_ref, slice_num, constrained, t8_mode;
+  int slice_type, num_ref[2], slice_num, constrained, t8_mode, weight_mode;
   Bits r;
   Cabac cab;
   int qp, last_dqp = 0, i16_mode = 0;
-  bool done[16];
+  bool done[2][16];  // each list's 4x4 blocks predicted
 
   Slice(const Tables& t, const uint8_t* data, int64_t len, int64_t bitpos, const int* p,
-        int* state, const uint8_t* const* rf, const int* ids, int nr, const int* wt, bool wtd,
-        const int* l4, const int* l8, uint8_t* y, uint8_t* u, uint8_t* v)
+        int* state, const uint8_t* const* rf, const int* ids, const int* nr, const int* wt,
+        const int* imp, const int* dsf, const int* colarr, const int* l4, const int* l8,
+        uint8_t* y, uint8_t* u, uint8_t* v)
       : T(t), prm(p), mb_w(p[PR_MB_W]), mb_h(p[PR_MB_H]), n_mb(mb_w * mb_h),
         s(state, mb_w * mb_h), Y(y), U(u), V(v), W(16 * mb_w), H(16 * mb_h), CW(8 * mb_w),
-        CH(8 * mb_h), refs(rf), ref_ids(ids), n_refs(nr), weights(wt), weighted(wtd), ls4(l4),
-        ls8(l8), cabac(p[PR_CABAC]), slice_type(p[PR_TYPE]), num_ref(p[PR_NUM_REF]),
-        slice_num(p[PR_SLICE_NUM]), constrained(p[PR_CONSTRAINED]), t8_mode(p[PR_T8_MODE]),
+        CH(8 * mb_h), implicit(imp), dist_scale(dsf), col(colarr, mb_w * mb_h), ls4(l4), ls8(l8),
+        cabac(p[PR_CABAC]), slice_type(p[PR_TYPE]), slice_num(p[PR_SLICE_NUM]),
+        constrained(p[PR_CONSTRAINED]), t8_mode(p[PR_T8_MODE]), weight_mode(p[PR_WEIGHT_MODE]),
         r(data, len, bitpos), qp(p[PR_QP]) {
+    n_refs[0] = nr[0];
+    n_refs[1] = nr[1];
+    refs[0] = rf;
+    refs[1] = rf + 3 * nr[0];
+    ref_ids[0] = ids;
+    ref_ids[1] = ids + nr[0];
+    weights[0] = wt;
+    weights[1] = wt + 6 * nr[0];
+    num_ref[0] = p[PR_NUM_REF];
+    num_ref[1] = p[PR_NUM_REF1];
     cab.r = &r;
     cab.T = &T;
     if (cabac) {
       r.pos = (r.pos + 7) & ~7LL;
-      cab.init(slice_type == P_SLICE ? p[PR_INIT_IDC] : -1, p[PR_QP]);
+      cab.init(slice_type != I_SLICE ? p[PR_INIT_IDC] : -1, p[PR_QP]);
       cab.start();
     }
-    for (int k = 0; k < 16; k++) done[k] = false;
+    for (int l = 0; l < 2; l++)
+      for (int k = 0; k < 16; k++) done[l][k] = false;
   }
 
   // neighbours
@@ -792,20 +880,21 @@ struct Slice {
 
   int decode() {
     int a = prm[PR_FIRST_MB];
-    bool p_slice = slice_type == P_SLICE;
+    bool inter = slice_type != I_SLICE;
+    int skip_base = slice_type == B_SLICE ? 24 : 11;
     while (true) {
-      if (p_slice && !cabac) {
+      if (inter && !cabac) {
         uint32_t run = r.ue();
         for (uint32_t k = 0; k < run; k++) {
           check(a);
-          p_skip(a);
+          skip(a);
           a++;
         }
         if (run && !r.more_rbsp_data()) return a;
       }
       check(a);
-      if (p_slice && cabac && cab.decision(11 + skip_ctx(a)))
-        p_skip(a);
+      if (inter && cabac && cab.decision(skip_base + skip_ctx(a)))
+        skip(a);
       else
         macroblock(a);
       a++;
@@ -820,14 +909,21 @@ struct Slice {
   int skip_ctx(int a) const {
     int inc = 0;
     int na = mb_a(a), nb = mb_b(a);
-    if (na >= 0 && s.kind[na] != PSKIP) inc++;
-    if (nb >= 0 && s.kind[nb] != PSKIP) inc++;
+    if (na >= 0 && !is_skip(s.kind[na])) inc++;
+    if (nb >= 0 && !is_skip(s.kind[nb])) inc++;
     return inc;
+  }
+  void skip(int a) {
+    if (slice_type == B_SLICE)
+      b_skip(a);
+    else
+      p_skip(a);
   }
 
   void start_mb(int a, int kind) {
     s.kind[a] = kind;
     s.slice[a] = slice_num;
+    s.lists[a] = slice_type == B_SLICE ? 2 : 1;
     s.dbk[3 * a] = prm[PR_DBK_IDC];
     s.dbk[3 * a + 1] = prm[PR_DBK_A];
     s.dbk[3 * a + 2] = prm[PR_DBK_B];
@@ -836,23 +932,37 @@ struct Slice {
     s.cbfdc[3 * a] = s.cbfdc[3 * a + 1] = s.cbfdc[3 * a + 2] = 0;
     for (int k = 16 * a; k < 16 * a + 16; k++) {
       s.modes[k] = -1;
-      s.nz[k] = 0;
-      s.ref[k] = s.refpic[k] = -1;
-      s.mv[2 * k] = s.mv[2 * k + 1] = s.mvd[2 * k] = s.mvd[2 * k + 1] = 0;
+      s.nz[k] = s.direct[k] = 0;
+      for (int l = 0; l < 2; l++) {
+        s.lref[l][k] = s.lpic[l][k] = -1;
+        s.lmv[l][2 * k] = s.lmv[l][2 * k + 1] = s.lmvd[l][2 * k] = s.lmvd[l][2 * k + 1] = 0;
+      }
     }
     for (int k = 8 * a; k < 8 * a + 8; k++) s.nzc[k] = 0;
-    for (int k = 0; k < 16; k++) done[k] = false;
+    for (int l = 0; l < 2; l++)
+      for (int k = 0; k < 16; k++) done[l][k] = false;
   }
 
   void macroblock(int a) {
-    int raw = cabac ? (slice_type == P_SLICE ? cab.mb_type_p() : cab.mb_type_i(mb_type_inc(a), 1))
-                    : (int)r.ue();
+    int raw;
+    if (!cabac)
+      raw = (int)r.ue();
+    else if (slice_type == P_SLICE)
+      raw = cab.mb_type_p();
+    else if (slice_type == B_SLICE)
+      raw = cab.mb_type_b(mb_type_b_inc(a));
+    else
+      raw = cab.mb_type_i(mb_type_inc(a), 3);
     int kind, itype = -1;
+    const int* modes = nullptr;
     if (slice_type == P_SLICE && raw < 5) {
       static const int kinds[5] = {P16X16, P16X8, P8X16, P8X8, P8X8REF0};
       kind = kinds[raw];
+    } else if (slice_type == B_SLICE && raw < 23) {
+      kind = raw == 22 ? B8X8 : B_KIND[raw];
+      if (raw > 0 && raw < 22) modes = B_MODES[raw];
     } else {
-      itype = slice_type == P_SLICE ? raw - 5 : raw;
+      itype = raw - (slice_type == I_SLICE ? 0 : slice_type == P_SLICE ? 5 : 23);
       if (itype > 25) fail(ERR_MB_TYPE);
       kind = itype == 0 ? I4 : itype == 25 ? PCM : I16;
     }
@@ -860,29 +970,31 @@ struct Slice {
     if (kind == PCM) return pcm(a);
     int t8 = 0, cbp = 0;
     bool small = false;
-    if (kind == P8X8 || kind == P8X8REF0) {
+    if (kind == P8X8 || kind == P8X8REF0 || kind == B8X8) {
       small = sub_mb_pred(a, kind);
-    } else {
-      if (kind == I4) {
-        if (t8_mode) {
-          t8 = cabac ? cab.decision(399 + t8_inc(a)) : r.bit();
-          if (t8) {
-            kind = I8;
-            s.kind[a] = I8;
-          }
+    } else if (kind == BDIRECT) {
+      direct(a, 15);
+      small = !prm[PR_DIRECT_8X8];
+    } else if (kind == I4) {
+      if (t8_mode) {
+        t8 = cabac ? cab.decision(399 + t8_inc(a)) : r.bit();
+        if (t8) {
+          kind = I8;
+          s.kind[a] = I8;
         }
-        intra_nxn_modes(a, t8);
-      } else if (kind == I16) {
-        i16_mode = (itype - 1) % 4;
-        cbp = (((itype - 1) / 4) % 3) << 4 | (itype >= 13 ? 15 : 0);
-      } else {
-        mb_pred_inter(a, kind);
       }
-      if (kind == I4 || kind == I8 || kind == I16) {
-        int mode = cabac ? cab.chroma_mode(cmode_inc(a)) : (int)r.ue();
-        if (mode > 3) fail(ERR_RANGE);
-        s.cmode[a] = mode;
-      }
+      intra_nxn_modes(a, t8);
+    } else if (kind == I16) {
+      i16_mode = (itype - 1) % 4;
+      cbp = (((itype - 1) / 4) % 3) << 4 | (itype >= 13 ? 15 : 0);
+    } else {
+      static const int one[2] = {1, 1};
+      mb_pred_inter(a, kind, modes ? modes : one);
+    }
+    if (kind == I4 || kind == I8 || kind == I16) {
+      int mode = cabac ? cab.chroma_mode(cmode_inc(a)) : (int)r.ue();
+      if (mode > 3) fail(ERR_RANGE);
+      s.cmode[a] = mode;
     }
     if (kind != I16) {
       cbp = coded_block_pattern(a, kind <= PCM);
@@ -906,7 +1018,7 @@ struct Slice {
     if (kind <= PCM) {
       intra_pred_residual(a, kind, t8, c);
     } else {
-      inter_pred(a, kind);
+      inter_pred(a);
       add_luma_residual(a, kind, t8, c);
     }
     chroma(a, kind, c);
@@ -918,6 +1030,13 @@ struct Slice {
     int na = mb_a(a), nb = mb_b(a);
     if (na >= 0 && s.kind[na] != I4 && s.kind[na] != I8) inc++;
     if (nb >= 0 && s.kind[nb] != I4 && s.kind[nb] != I8) inc++;
+    return inc;
+  }
+  int mb_type_b_inc(int a) const {
+    int inc = 0;
+    int na = mb_a(a), nb = mb_b(a);
+    if (na >= 0 && s.kind[na] != BSKIP && s.kind[na] != BDIRECT) inc++;
+    if (nb >= 0 && s.kind[nb] != BSKIP && s.kind[nb] != BDIRECT) inc++;
     return inc;
   }
   int t8_inc(int a) const {
@@ -994,53 +1113,59 @@ struct Slice {
   }
 
   // inter partitions
-  int ref_inc(int a, int x, int y) const {
+  int ref_inc(int a, int x, int y, int l) const {
     int inc = 0, i;
+    const int* ref = s.lref[l];
     int n = neighbour4(a, x - 1, y, &i);
-    if (n >= 0 && s.kind[n] > PCM && s.kind[n] != PSKIP && s.ref[16 * n + i] > 0) inc += 1;
+    if (n >= 0 && s.kind[n] > PCM && !is_skip(s.kind[n]) && !s.direct[16 * n + i] &&
+        ref[16 * n + i] > 0)
+      inc += 1;
     n = neighbour4(a, x, y - 1, &i);
-    if (n >= 0 && s.kind[n] > PCM && s.kind[n] != PSKIP && s.ref[16 * n + i] > 0) inc += 2;
+    if (n >= 0 && s.kind[n] > PCM && !is_skip(s.kind[n]) && !s.direct[16 * n + i] &&
+        ref[16 * n + i] > 0)
+      inc += 2;
     return inc;
   }
-  int ref_idx(int a, int x, int y) {
+  int ref_idx(int a, int x, int y, int l) {
     int ref;
     if (cabac)
-      ref = cab.ref_idx(ref_inc(a, x, y));
+      ref = cab.ref_idx(ref_inc(a, x, y, l));
     else
-      ref = num_ref - 1 == 1 ? 1 - r.bit() : (int)r.ue();
-    if (ref >= num_ref) fail(ERR_REF);
+      ref = num_ref[l] - 1 == 1 ? 1 - r.bit() : (int)r.ue();
+    if (ref >= num_ref[l]) fail(ERR_REF);
     return ref;
   }
-  void set_ref(int a, int x, int y, int w, int h, int ref) {
-    int pid = ref < n_refs ? ref_ids[ref] : -1;
+  void set_ref(int a, int x, int y, int w, int h, int ref, int l) {
+    int pid = ref >= 0 && ref < n_refs[l] ? ref_ids[l][ref] : -1;
     for (int by = y >> 2; by < (y + h) >> 2; by++)
       for (int bx = x >> 2; bx < (x + w) >> 2; bx++) {
         int k = 16 * a + 4 * by + bx;
-        s.ref[k] = ref;
-        s.refpic[k] = pid;
+        s.lref[l][k] = ref;
+        s.lpic[l][k] = pid;
       }
   }
   struct Nb {
     bool avail;
     int ref, x, y;
   };
-  Nb mv_neighbour(int a, int x, int y) const {
+  Nb mv_neighbour(int a, int x, int y, int l) const {
     int i;
     int n = neighbour4(a, x, y, &i);
-    if (n < 0 || (n == a && !done[i])) return {false, -1, 0, 0};
+    if (n < 0 || (n == a && !done[l][i])) return {false, -1, 0, 0};
     if (s.kind[n] <= PCM) return {true, -1, 0, 0};
     int k = 16 * n + i;
-    return {true, s.ref[k], s.mv[2 * k], s.mv[2 * k + 1]};
+    return {true, s.lref[l][k], s.lmv[l][2 * k], s.lmv[l][2 * k + 1]};
   }
-  void mv_pred(int a, int x, int y, int w, int h, int ref, int kind, int part, int* mvp) const {
-    Nb na = mv_neighbour(a, x - 1, y), nb = mv_neighbour(a, x, y - 1);
-    Nb nc = mv_neighbour(a, x + w, y - 1);
-    if (!nc.avail) nc = mv_neighbour(a, x - 1, y - 1);
+  void mv_pred(int a, int x, int y, int w, int h, int ref, int kind, int part, int l,
+               int* mvp) const {
+    Nb na = mv_neighbour(a, x - 1, y, l), nb = mv_neighbour(a, x, y - 1, l);
+    Nb nc = mv_neighbour(a, x + w, y - 1, l);
+    if (!nc.avail) nc = mv_neighbour(a, x - 1, y - 1, l);
     (void)h;
-    if (kind == P16X8) {
+    if (kind == P16X8 || kind == B16X8) {
       if (part == 0 && nb.ref == ref) return (void)(mvp[0] = nb.x, mvp[1] = nb.y);
       if (part == 1 && na.ref == ref) return (void)(mvp[0] = na.x, mvp[1] = na.y);
-    } else if (kind == P8X16) {
+    } else if (kind == P8X16 || kind == B8X16) {
       if (part == 0 && na.ref == ref) return (void)(mvp[0] = na.x, mvp[1] = na.y);
       if (part == 1 && nc.ref == ref) return (void)(mvp[0] = nc.x, mvp[1] = nc.y);
     }
@@ -1055,109 +1180,211 @@ struct Slice {
     mvp[0] = median3(na.x, nb.x, nc.x);
     mvp[1] = median3(na.y, nb.y, nc.y);
   }
-  int mvd_inc(int a, int x, int y, int comp) const {
+  int mvd_inc(int a, int x, int y, int comp, int l) const {
     int total = 0, i;
+    const int* mvd = s.lmvd[l];
     int n = neighbour4(a, x - 1, y, &i);
-    if (n >= 0) total += s.mvd[2 * (16 * n + i) + comp];
+    if (n >= 0) total += mvd[2 * (16 * n + i) + comp];
     n = neighbour4(a, x, y - 1, &i);
-    if (n >= 0) total += s.mvd[2 * (16 * n + i) + comp];
+    if (n >= 0) total += mvd[2 * (16 * n + i) + comp];
     return total < 3 ? 0 : total <= 32 ? 1 : 2;
   }
-  void store_mv(int a, int x, int y, int w, int h, int mvx, int mvy, int dx, int dy) {
+  void store_mv(int a, int x, int y, int w, int h, int mvx, int mvy, int dx, int dy, int l) {
     if (mvx < -8192 || mvx >= 8192 || mvy < -8192 || mvy >= 8192) fail(ERR_MV);
     for (int by = y >> 2; by < (y + h) >> 2; by++)
       for (int bx = x >> 2; bx < (x + w) >> 2; bx++) {
         int k = 16 * a + 4 * by + bx;
-        s.mv[2 * k] = mvx;
-        s.mv[2 * k + 1] = mvy;
-        s.mvd[2 * k] = std::abs(dx);
-        s.mvd[2 * k + 1] = std::abs(dy);
-        done[4 * by + bx] = true;
+        s.lmv[l][2 * k] = mvx;
+        s.lmv[l][2 * k + 1] = mvy;
+        s.lmvd[l][2 * k] = std::abs(dx);
+        s.lmvd[l][2 * k + 1] = std::abs(dy);
+        done[l][4 * by + bx] = true;
       }
   }
-  void motion_vector(int a, int x, int y, int w, int h, const int* mvp) {
+  void motion_vector(int a, int x, int y, int w, int h, const int* mvp, int l) {
     int d[2];
     for (int comp = 0; comp < 2; comp++)
-      d[comp] = cabac ? cab.mvd(comp, mvd_inc(a, x, y, comp)) : r.se();
-    store_mv(a, x, y, w, h, mvp[0] + d[0], mvp[1] + d[1], d[0], d[1]);
+      d[comp] = cabac ? cab.mvd(comp, mvd_inc(a, x, y, comp, l)) : r.se();
+    store_mv(a, x, y, w, h, mvp[0] + d[0], mvp[1] + d[1], d[0], d[1], l);
   }
-  void mb_pred_inter(int a, int kind) {
-    int parts[2][4], n;
-    if (kind == P16X16) {
-      n = 1;
-      int p0[4] = {0, 0, 16, 16};
-      std::memcpy(parts[0], p0, sizeof p0);
-    } else if (kind == P16X8) {
-      n = 2;
-      int p0[4] = {0, 0, 16, 8}, p1[4] = {0, 8, 16, 8};
-      std::memcpy(parts[0], p0, sizeof p0);
-      std::memcpy(parts[1], p1, sizeof p1);
-    } else {
-      n = 2;
-      int p0[4] = {0, 0, 8, 16}, p1[4] = {8, 0, 8, 16};
-      std::memcpy(parts[0], p0, sizeof p0);
-      std::memcpy(parts[1], p1, sizeof p1);
-    }
-    int refs[2];
-    for (int p = 0; p < n; p++) {
-      refs[p] = num_ref > 1 ? ref_idx(a, parts[p][0], parts[p][1]) : 0;
-      set_ref(a, parts[p][0], parts[p][1], parts[p][2], parts[p][3], refs[p]);
-    }
-    for (int p = 0; p < n; p++) {
-      int mvp[2];
-      mv_pred(a, parts[p][0], parts[p][1], parts[p][2], parts[p][3], refs[p], kind, p, mvp);
-      motion_vector(a, parts[p][0], parts[p][1], parts[p][2], parts[p][3], mvp);
-    }
+  // partitions of a 16x16, 16x8 or 8x16 kind: (x, y, w, h)
+  static int parts_of(int kind, int parts[2][4]) {
+    static const int P16[1][4] = {{0, 0, 16, 16}}, P168[2][4] = {{0, 0, 16, 8}, {0, 8, 16, 8}},
+                     P816[2][4] = {{0, 0, 8, 16}, {8, 0, 8, 16}};
+    const int(*src)[4] = kind == P16X16 || kind == B16X16 ? P16
+                         : kind == P16X8 || kind == B16X8 ? P168 : P816;
+    int n = src == P16 ? 1 : 2;
+    for (int p = 0; p < n; p++) std::memcpy(parts[p], src[p], sizeof parts[p]);
+    return n;
+  }
+  // mb_pred of a 16x16, 16x8 or 8x16 kind whose partitions use the lists modes
+  void mb_pred_inter(int a, int kind, const int* modes) {
+    int parts[2][4];
+    int n = parts_of(kind, parts);
+    int refs[2][2] = {{-1, -1}, {-1, -1}};
+    for (int l = 0; l < 2; l++)
+      for (int p = 0; p < n; p++)
+        if (modes[p] >> l & 1) {
+          refs[l][p] = num_ref[l] > 1 ? ref_idx(a, parts[p][0], parts[p][1], l) : 0;
+          set_ref(a, parts[p][0], parts[p][1], parts[p][2], parts[p][3], refs[l][p], l);
+        }
+    for (int l = 0; l < 2; l++)
+      for (int p = 0; p < n; p++) {
+        const int* q = parts[p];
+        if (modes[p] >> l & 1) {
+          int mvp[2];
+          mv_pred(a, q[0], q[1], q[2], q[3], refs[l][p], kind, p, l, mvp);
+          motion_vector(a, q[0], q[1], q[2], q[3], mvp, l);
+        } else {
+          store_mv(a, q[0], q[1], q[2], q[3], 0, 0, 0, 0, l);
+        }
+      }
   }
   bool sub_mb_pred(int a, int kind) {
+    bool b = kind == B8X8;
+    const int(*table)[3] = b ? B_SUB : P_SUB;
     int subs[4];
     for (int k = 0; k < 4; k++) {
-      subs[k] = cabac ? cab.sub_mb_type() : (int)r.ue();
-      if (subs[k] > 3) fail(ERR_RANGE);
+      subs[k] = !cabac ? (int)r.ue() : b ? cab.sub_mb_type_b() : cab.sub_mb_type();
+      if (subs[k] > (b ? 12 : 3)) fail(ERR_RANGE);
     }
-    int refs[4];
-    for (int b8 = 0; b8 < 4; b8++) {
-      int x = 8 * (b8 & 1), y = 8 * (b8 >> 1);
-      refs[b8] = num_ref > 1 && kind == P8X8 ? ref_idx(a, x, y) : 0;
-      set_ref(a, x, y, 8, 8, refs[b8]);
-    }
-    static const int SIZES[4][2] = {{8, 8}, {8, 4}, {4, 8}, {4, 4}}, COUNT[4] = {1, 2, 2, 4};
-    for (int b8 = 0; b8 < 4; b8++) {
-      int x8 = 8 * (b8 & 1), y8 = 8 * (b8 >> 1);
-      int w = SIZES[subs[b8]][0], h = SIZES[subs[b8]][1];
-      for (int sub = 0; sub < COUNT[subs[b8]]; sub++) {
-        int x, y;
-        if (w == 4 && h == 4) {
-          x = x8 + 4 * (sub & 1);
-          y = y8 + 4 * (sub >> 1);
-        } else {
-          x = x8 + 4 * sub * (w == 4);
-          y = y8 + 4 * sub * (h == 4);
-        }
-        int mvp[2];
-        mv_pred(a, x, y, w, h, refs[b8], P8X8, -1, mvp);
-        motion_vector(a, x, y, w, h, mvp);
+    int direct_mask = 0;
+    for (int k = 0; k < 4; k++)
+      if (b && subs[k] == 0) direct_mask |= 1 << k;
+    if (direct_mask) direct(a, direct_mask);
+    int lists = b ? 2 : 1;
+    int refs[2][4];
+    for (int l = 0; l < lists; l++)
+      for (int b8 = 0; b8 < 4; b8++) {
+        if (direct_mask >> b8 & 1) continue;
+        int x = 8 * (b8 & 1), y = 8 * (b8 >> 1);
+        if (table[subs[b8]][2] >> l & 1)
+          refs[l][b8] = num_ref[l] > 1 && kind != P8X8REF0 ? ref_idx(a, x, y, l) : 0;
+        else
+          refs[l][b8] = -1;
+        set_ref(a, x, y, 8, 8, refs[l][b8], l);
       }
-    }
-    return subs[0] || subs[1] || subs[2] || subs[3];
+    for (int l = 0; l < lists; l++)
+      for (int b8 = 0; b8 < 4; b8++) {
+        int x8 = 8 * (b8 & 1), y8 = 8 * (b8 >> 1);
+        if (direct_mask >> b8 & 1) {
+          for (int k = 0; k < 4; k++) done[l][BLK_RASTER[4 * b8 + k]] = true;
+          continue;
+        }
+        int w = table[subs[b8]][0], h = table[subs[b8]][1];
+        if (!(table[subs[b8]][2] >> l & 1)) {
+          store_mv(a, x8, y8, 8, 8, 0, 0, 0, 0, l);
+          continue;
+        }
+        int count = w == 4 && h == 4 ? 4 : w == 8 && h == 8 ? 1 : 2;
+        for (int sub = 0; sub < count; sub++) {
+          int x, y;
+          if (w == 4 && h == 4) {
+            x = x8 + 4 * (sub & 1);
+            y = y8 + 4 * (sub >> 1);
+          } else {
+            x = x8 + 4 * sub * (w == 4);
+            y = y8 + 4 * sub * (h == 4);
+          }
+          int mvp[2];
+          mv_pred(a, x, y, w, h, refs[l][b8], kind, -1, l, mvp);
+          motion_vector(a, x, y, w, h, mvp, l);
+        }
+      }
+    if (direct_mask && !prm[PR_DIRECT_8X8]) return true;
+    for (int k = 0; k < 4; k++)
+      if (!(direct_mask >> k & 1) && (table[subs[k]][0] != 8 || table[subs[k]][1] != 8))
+        return true;
+    return false;
   }
   void p_skip_mv(int a, int* mv) const {
-    Nb na = mv_neighbour(a, -1, 0), nb = mv_neighbour(a, 0, -1);
+    Nb na = mv_neighbour(a, -1, 0, 0), nb = mv_neighbour(a, 0, -1, 0);
     if (!na.avail || !nb.avail || (na.ref == 0 && na.x == 0 && na.y == 0) ||
         (nb.ref == 0 && nb.x == 0 && nb.y == 0)) {
       mv[0] = mv[1] = 0;
       return;
     }
-    mv_pred(a, 0, 0, 16, 16, 0, P16X16, 0, mv);
+    mv_pred(a, 0, 0, 16, 16, 0, P16X16, 0, 0, mv);
   }
   void p_skip(int a) {
     start_mb(a, PSKIP);
     int mv[2];
     p_skip_mv(a, mv);
-    set_ref(a, 0, 0, 16, 16, 0);
-    store_mv(a, 0, 0, 16, 16, mv[0], mv[1], 0, 0);
+    set_ref(a, 0, 0, 16, 16, 0, 0);
+    store_mv(a, 0, 0, 16, 16, mv[0], mv[1], 0, 0, 0);
     last_dqp = 0;
-    inter_pred(a, P16X16);
+    inter_pred(a);
+  }
+  void b_skip(int a) {
+    start_mb(a, BSKIP);
+    direct(a, 15);
+    last_dqp = 0;
+    inter_pred(a);
+  }
+  // direct prediction (8.4.1.2) of the 8x8 blocks in mask b8s
+  void direct(int a, int b8s) {
+    bool spatial = prm[PR_DIRECT_SPATIAL], infer = prm[PR_DIRECT_8X8];
+    int refs[2] = {0, 0}, mvps[2][2] = {{0, 0}, {0, 0}};
+    bool zero = false;
+    if (spatial) {
+      for (int l = 0; l < 2; l++) {
+        Nb na = mv_neighbour(a, -1, 0, l), nb = mv_neighbour(a, 0, -1, l);
+        Nb nc = mv_neighbour(a, 16, -1, l);
+        if (!nc.avail) nc = mv_neighbour(a, -1, -1, l);
+        int ref = -1;
+        for (int cand : {na.ref, nb.ref, nc.ref})
+          if (cand >= 0 && (ref < 0 || cand < ref)) ref = cand;
+        refs[l] = ref;
+        if (ref >= 0) mv_pred(a, 0, 0, 16, 16, ref, B16X16, 0, l, mvps[l]);
+      }
+      if (refs[0] < 0 && refs[1] < 0) {
+        refs[0] = refs[1] = 0;
+        zero = true;
+      }
+    }
+    bool col_intra = col.kind[a] <= PCM;
+    for (int b8 = 0; b8 < 4; b8++) {
+      if (!(b8s >> b8 & 1)) continue;
+      for (int j = 0; j < 4; j++) {
+        int rr = BLK_RASTER[4 * b8 + j], bx = rr & 3, by = rr >> 2;
+        int ck = 16 * a + (infer ? (by >> 1) * 12 + (bx >> 1) * 3 : rr);
+        int col_ref = -1, col_list = 0, cmv[2] = {0, 0};
+        if (!col_intra) {
+          col_list = col.ref[0][ck] >= 0 ? 0 : 1;
+          col_ref = col.ref[col_list][ck];
+          cmv[0] = col.mv[col_list][2 * ck];
+          cmv[1] = col.mv[col_list][2 * ck + 1];
+        }
+        int bref[2], bmv[2][2];
+        if (spatial) {
+          bool col_zero = prm[PR_COL_SHORT] && col_ref == 0 && std::abs(cmv[0]) <= 1 &&
+                          std::abs(cmv[1]) <= 1;
+          for (int l = 0; l < 2; l++) {
+            bref[l] = refs[l];
+            bool z = refs[l] < 0 || zero || (refs[l] == 0 && col_zero);
+            bmv[l][0] = z ? 0 : mvps[l][0];
+            bmv[l][1] = z ? 0 : mvps[l][1];
+          }
+        } else {
+          int ref0 = col_intra ? 0 : col.map[col_list][ck];
+          int scale = dist_scale[ref0];
+          bref[0] = ref0;
+          bref[1] = 0;
+          bmv[0][0] = (scale * cmv[0] + 128) >> 8;
+          bmv[0][1] = (scale * cmv[1] + 128) >> 8;
+          bmv[1][0] = bmv[0][0] - cmv[0];
+          bmv[1][1] = bmv[0][1] - cmv[1];
+        }
+        int k = 16 * a + rr;
+        s.direct[k] = 1;
+        for (int l = 0; l < 2; l++) {
+          s.lref[l][k] = bref[l];
+          s.lpic[l][k] = bref[l] >= 0 && bref[l] < n_refs[l] ? ref_ids[l][bref[l]] : -1;
+          s.lmv[l][2 * k] = bmv[l][0];
+          s.lmv[l][2 * k + 1] = bmv[l][1];
+        }
+      }
+    }
   }
 
   int cbp_luma_inc(int a, int b8, int luma) const {
@@ -1170,7 +1397,7 @@ struct Slice {
         conds[k] = (luma >> nb8) & 1 ? 0 : 1;
       else if (n < 0 || s.kind[n] == PCM)
         conds[k] = 0;
-      else if (s.kind[n] != PSKIP && ((s.cbp[n] >> nb8) & 1))
+      else if (!is_skip(s.kind[n]) && ((s.cbp[n] >> nb8) & 1))
         conds[k] = 0;
       else
         conds[k] = 1;
@@ -1190,7 +1417,7 @@ struct Slice {
     for (int k = 0; k < 2; k++) {
       int n = ns[k];
       if (n < 0) continue;
-      int chroma = s.kind[n] == PCM ? 2 : s.kind[n] == PSKIP ? 0 : s.cbp[n] >> 4;
+      int chroma = s.kind[n] == PCM ? 2 : is_skip(s.kind[n]) ? 0 : s.cbp[n] >> 4;
       inc0 += (1 + k) * (chroma != 0);
       inc1 += (1 + k) * (chroma == 2);
     }
@@ -1210,7 +1437,7 @@ struct Slice {
       int i;
       int n = neighbour4(a, xy[k][0], xy[k][1], &i);
       h[k] = n >= 0;
-      v[k] = n < 0 ? 0 : s.kind[n] == PSKIP ? 0 : s.nz[16 * n + i];
+      v[k] = n < 0 ? 0 : is_skip(s.kind[n]) ? 0 : s.nz[16 * n + i];
     }
     return nc_of(v[0], h[0], v[1], h[1]);
   }
@@ -1226,7 +1453,7 @@ struct Slice {
       }
       int n = x < 0 ? mb_a(a) : mb_b(a);
       h[k] = n >= 0;
-      v[k] = n < 0 ? 0 : s.kind[n] == PSKIP ? 0 : s.nzc[8 * n + 4 * comp + 2 * (y & 1) + (x & 1)];
+      v[k] = n < 0 ? 0 : is_skip(s.kind[n]) ? 0 : s.nzc[8 * n + 4 * comp + 2 * (y & 1) + (x & 1)];
     }
     return nc_of(v[0], h[0], v[1], h[1]);
   }
@@ -1255,7 +1482,7 @@ struct Slice {
         cond = intra ? 1 : 0;
       else if (s.kind[n] == PCM)
         cond = 1;
-      else if (s.kind[n] == PSKIP)
+      else if (is_skip(s.kind[n]))
         cond = 0;
       else if (cat == 0)
         cond = s.kind[n] == I16 ? s.cbfdc[3 * n] : 0;
@@ -1527,52 +1754,110 @@ struct Slice {
           Y[(y0 + by + y) * W + x0 + bx + x] = (uint8_t)clip255(pred[y * n + x]);
     }
   }
-  void inter_pred(int a, int kind) {
+  // the prediction of one block from list l's reference ref
+  void predict(int l, int ref, int x, int y, int w, int h, int mvx, int mvy, int* py, int* pu,
+               int* pv) const {
+    if (ref < 0 || ref >= n_refs[l]) fail(ERR_NO_REF);
+    const uint8_t* const* rp = refs[l] + 3 * ref;
+    luma_mc(rp[0], W, H, x, y, w, h, mvx, mvy, py);
+    chroma_mc(rp[1], CW, CH, x >> 1, y >> 1, w >> 1, h >> 1, mvx, mvy, pu);
+    chroma_mc(rp[2], CW, CH, x >> 1, y >> 1, w >> 1, h >> 1, mvx, mvy, pv);
+  }
+  // motion-compensated prediction of the macroblock: its 4x4 blocks of
+  // equal references and vectors merged into 16x16 or 8x8 blocks, each
+  // from one list or both, weighted as the slice says
+  void inter_pred(int a) {
     int x0 = 16 * (a % mb_w), y0 = 16 * (a / mb_w);
-    int blocks[16][4], nb = 0;
-    if (kind == P16X16) {
-      int b[4] = {0, 0, 16, 16};
-      std::memcpy(blocks[nb++], b, sizeof b);
-    } else if (kind == P16X8) {
-      int b0[4] = {0, 0, 16, 8}, b1[4] = {0, 8, 16, 8};
-      std::memcpy(blocks[nb++], b0, sizeof b0);
-      std::memcpy(blocks[nb++], b1, sizeof b1);
-    } else if (kind == P8X16) {
-      int b0[4] = {0, 0, 8, 16}, b1[4] = {8, 0, 8, 16};
-      std::memcpy(blocks[nb++], b0, sizeof b0);
-      std::memcpy(blocks[nb++], b1, sizeof b1);
+    int keys[16][6];
+    for (int rr = 0; rr < 16; rr++) {
+      int k = 16 * a + rr;
+      int key[6] = {s.ref[k], s.ref1[k], s.mv[2 * k], s.mv[2 * k + 1], s.mv1[2 * k],
+                    s.mv1[2 * k + 1]};
+      std::memcpy(keys[rr], key, sizeof key);
+    }
+    auto same = [&](int i, int j) { return std::memcmp(keys[i], keys[j], sizeof keys[i]) == 0; };
+    int blocks[16][3], nb = 0;  // (raster index, x, size)
+    bool whole = true;
+    for (int rr = 1; rr < 16; rr++) whole = whole && same(0, rr);
+    if (whole) {
+      blocks[nb][0] = 0;
+      blocks[nb++][2] = 16;
     } else {
-      for (int rr = 0; rr < 16; rr++) {
-        int b[4] = {4 * (rr & 3), 4 * (rr >> 2), 4, 4};
-        std::memcpy(blocks[nb++], b, sizeof b);
+      for (int b8 = 0; b8 < 4; b8++) {
+        const int* rs = BLK_RASTER + 4 * b8;
+        if (same(rs[0], rs[1]) && same(rs[0], rs[2]) && same(rs[0], rs[3])) {
+          blocks[nb][0] = rs[0];
+          blocks[nb++][2] = 8;
+        } else {
+          for (int j = 0; j < 4; j++) {
+            blocks[nb][0] = rs[j];
+            blocks[nb++][2] = 4;
+          }
+        }
       }
     }
-    int py[256], pu[64], pv[64];
-    for (int k = 0; k < nb; k++) {
-      int bx = blocks[k][0], by = blocks[k][1], w = blocks[k][2], h = blocks[k][3];
-      int idx = 16 * a + (by >> 2) * 4 + (bx >> 2);
-      int ref = s.ref[idx], mvx = s.mv[2 * idx], mvy = s.mv[2 * idx + 1];
-      if (ref < 0 || ref >= n_refs) fail(ERR_NO_REF);
-      const uint8_t* const* rp = refs + 3 * ref;
-      luma_mc(rp[0], W, H, x0 + bx, y0 + by, w, h, mvx, mvy, py);
-      chroma_mc(rp[1], CW, CH, (x0 + bx) >> 1, (y0 + by) >> 1, w >> 1, h >> 1, mvx, mvy, pu);
-      chroma_mc(rp[2], CW, CH, (x0 + bx) >> 1, (y0 + by) >> 1, w >> 1, h >> 1, mvx, mvy, pv);
-      if (weighted) {
-        const int* wt = weights + 6 * ref;
-        int ld = prm[PR_LUMA_DENOM], cd = prm[PR_CHROMA_DENOM];
-        for (int i = 0; i < w * h; i++) py[i] = weight1(py[i], wt[0], wt[1], ld);
-        for (int i = 0; i < (w >> 1) * (h >> 1); i++) {
-          pu[i] = weight1(pu[i], wt[2], wt[3], cd);
-          pv[i] = weight1(pv[i], wt[4], wt[5], cd);
+    int py[2][256], pu[2][64], pv[2][64];
+    for (int q = 0; q < nb; q++) {
+      int rr = blocks[q][0], w = blocks[q][2], h = w;
+      int bx = 4 * (rr & 3), by = 4 * (rr >> 2);
+      const int* key = keys[rr];
+      int used[2], n = 0;
+      for (int l = 0; l < 2; l++)
+        if (key[l] >= 0) {
+          predict(l, key[l], x0 + bx, y0 + by, w, h, key[2 + 2 * l], key[3 + 2 * l], py[n], pu[n],
+                  pv[n]);
+          used[n++] = l;
+        }
+      if (!n) fail(ERR_NO_REF);
+      int cn = (w >> 1) * (h >> 1);
+      int ld = prm[PR_LUMA_DENOM], cd = prm[PR_CHROMA_DENOM];
+      if (n == 1 && weight_mode == WEIGHT_EXPLICIT) {
+        const int* wt = weights[used[0]] + 6 * key[used[0]];
+        for (int i = 0; i < w * h; i++) py[0][i] = weight1(py[0][i], wt[0], wt[1], ld);
+        for (int i = 0; i < cn; i++) {
+          pu[0][i] = weight1(pu[0][i], wt[2], wt[3], cd);
+          pv[0][i] = weight1(pv[0][i], wt[4], wt[5], cd);
+        }
+      } else if (n == 2) {
+        int w0[3], w1[3], o0[3] = {0, 0, 0}, o1[3] = {0, 0, 0}, den[3] = {5, 5, 5};
+        if (weight_mode == WEIGHT_EXPLICIT) {
+          const int *t0 = weights[0] + 6 * key[0], *t1 = weights[1] + 6 * key[1];
+          for (int c = 0; c < 3; c++) {
+            w0[c] = t0[2 * c];
+            w1[c] = t1[2 * c];
+            o0[c] = t0[2 * c + 1];
+            o1[c] = t1[2 * c + 1];
+            den[c] = c ? cd : ld;
+          }
+        } else {
+          int v = weight_mode == WEIGHT_IMPLICIT ? implicit[key[0] * n_refs[1] + key[1]] : 32;
+          for (int c = 0; c < 3; c++) {
+            w0[c] = v;
+            w1[c] = 64 - v;
+          }
+        }
+        if (weight_mode == WEIGHT_NONE) {
+          for (int i = 0; i < w * h; i++) py[0][i] = (py[0][i] + py[1][i] + 1) >> 1;
+          for (int i = 0; i < cn; i++) {
+            pu[0][i] = (pu[0][i] + pu[1][i] + 1) >> 1;
+            pv[0][i] = (pv[0][i] + pv[1][i] + 1) >> 1;
+          }
+        } else {
+          for (int i = 0; i < w * h; i++)
+            py[0][i] = weight2(py[0][i], py[1][i], w0[0], w1[0], o0[0], o1[0], den[0]);
+          for (int i = 0; i < cn; i++) {
+            pu[0][i] = weight2(pu[0][i], pu[1][i], w0[1], w1[1], o0[1], o1[1], den[1]);
+            pv[0][i] = weight2(pv[0][i], pv[1][i], w0[2], w1[2], o0[2], o1[2], den[2]);
+          }
         }
       }
       for (int y = 0; y < h; y++)
-        for (int x = 0; x < w; x++) Y[(y0 + by + y) * W + x0 + bx + x] = (uint8_t)py[y * w + x];
+        for (int x = 0; x < w; x++) Y[(y0 + by + y) * W + x0 + bx + x] = (uint8_t)py[0][y * w + x];
       int cy = (y0 + by) >> 1, cx = (x0 + bx) >> 1;
       for (int y = 0; y < (h >> 1); y++)
         for (int x = 0; x < (w >> 1); x++) {
-          U[(cy + y) * CW + cx + x] = (uint8_t)pu[y * (w >> 1) + x];
-          V[(cy + y) * CW + cx + x] = (uint8_t)pv[y * (w >> 1) + x];
+          U[(cy + y) * CW + cx + x] = (uint8_t)pu[0][y * (w >> 1) + x];
+          V[(cy + y) * CW + cx + x] = (uint8_t)pv[0][y * (w >> 1) + x];
         }
     }
   }
@@ -1686,6 +1971,12 @@ bool coded(const State& s, int m, int i) {
   return s.nz[16 * m + i] > 0;
 }
 
+inline bool far_mv(const int* mv, int kq, const int* mv2, int kp) {
+  return std::abs(mv[2 * kq] - mv2[2 * kp]) >= 4 || std::abs(mv[2 * kq + 1] - mv2[2 * kp + 1]) >= 4;
+}
+
+// bS of a luma edge's four segments; a q of a B slice compares both lists
+// in both pairings (edge_bs of data/h264.py)
 void edge_bs(const State& s, int a, int n, bool vertical, int edge, bool mb_edge, int* out) {
   for (int seg = 0; seg < 4; seg++) {
     int qi, pi;
@@ -1705,8 +1996,13 @@ void edge_bs(const State& s, int a, int n, bool vertical, int edge, bool mb_edge
       continue;
     }
     int kq = 16 * a + qi, kp = 16 * n + pi;
-    out[seg] = (s.refpic[kq] != s.refpic[kp] || std::abs(s.mv[2 * kq] - s.mv[2 * kp]) >= 4 ||
-                std::abs(s.mv[2 * kq + 1] - s.mv[2 * kp + 1]) >= 4) ? 1 : 0;
+    bool v = s.refpic[kq] != s.refpic[kp] || far_mv(s.mv, kq, s.mv, kp);
+    if (s.lists[a] == 2) {
+      v = v || s.refpic1[kq] != s.refpic1[kp] || far_mv(s.mv1, kq, s.mv1, kp);
+      if (v && s.refpic[kq] == s.refpic1[kp] && s.refpic1[kq] == s.refpic[kp])
+        v = far_mv(s.mv, kq, s.mv1, kp) || far_mv(s.mv1, kq, s.mv, kp);
+    }
+    out[seg] = v;
   }
 }
 
@@ -1716,14 +2012,17 @@ extern "C" {
 
 // One slice's macroblocks from bit `bitpos` of the RBSP `data` (`len`
 // bytes, then 16 zero bytes) into the picture's planes (Y of 16 mb_w x 16
-// mb_h, U and V half of it) and state; the references' planes as (Y, U, V)
-// pointers and picture ids; `weights` (n_refs x 6) when `weighted`.  The
+// mb_h, U and V half of it) and state; the references of L0 then L1
+// (n_refs[0], n_refs[1] of them) as (Y, U, V) pointers and picture ids;
+// their explicit `weights` (6 each, L0's then L1's), the `implicit` w0 by
+// (L0, L1) index, temporal direct's `dist_scale` by L0 index and the
+// co-located picture's arrays `col` (data/h264.py's Lists).  The
 // macroblock after the slice's last, or a negative error code.
 int64_t omh_decode_slice(const uint8_t* data, int64_t len, int64_t bitpos, const int* prm,
                          const int* tables, const int* ls4, const int* ls8,
-                         const uint64_t* ref_ptrs, const int* ref_ids, int n_refs,
-                         const int* weights, int weighted, uint8_t* y, uint8_t* u, uint8_t* v,
-                         int* state) {
+                         const uint64_t* ref_ptrs, const int* ref_ids, const int* n_refs,
+                         const int* weights, const int* implicit, const int* dist_scale,
+                         const int* col, uint8_t* y, uint8_t* u, uint8_t* v, int* state) {
   static Tables* T = nullptr;
   if (!T || VLCS.source != tables) {
     delete T;
@@ -1732,11 +2031,12 @@ int64_t omh_decode_slice(const uint8_t* data, int64_t len, int64_t bitpos, const
     VLCS.source = tables;
     for (int k = 0; k < 16; k++) BLK_ORDER[BLK_RASTER[k]] = k;
   }
-  std::vector<const uint8_t*> refs(3 * (size_t)std::max(n_refs, 1));
-  for (int i = 0; i < 3 * n_refs; i++) refs[i] = (const uint8_t*)(uintptr_t)ref_ptrs[i];
+  int total = n_refs[0] + n_refs[1];
+  std::vector<const uint8_t*> refs(3 * (size_t)std::max(total, 1));
+  for (int i = 0; i < 3 * total; i++) refs[i] = (const uint8_t*)(uintptr_t)ref_ptrs[i];
   try {
-    Slice sl(*T, data, len, bitpos, prm, state, refs.data(), ref_ids, n_refs, weights,
-             weighted != 0, ls4, ls8, y, u, v);
+    Slice sl(*T, data, len, bitpos, prm, state, refs.data(), ref_ids, n_refs, weights, implicit,
+             dist_scale, col, ls4, ls8, y, u, v);
     return sl.decode();
   } catch (const Error& e) {
     return e.code;

@@ -1,6 +1,6 @@
 """H.264 (ITU-T H.264 | ISO/IEC 14496-10) video, decoded as FFmpeg's
 ``h264`` decoder decodes it (the decoder behind ``cv2.VideoCapture`` for
-``avc1`` MP4 and ``H264`` AVI files), without cv2 or FFmpeg: I and P
+``avc1`` MP4 and ``H264`` AVI files), without cv2 or FFmpeg: I, P and B
 pictures of progressive, 8-bit, 4:2:0 streams under both entropy coders.
 
 The layers, from the packet down:
@@ -15,19 +15,24 @@ The layers, from the packet down:
   VUI (``video_full_range_flag`` picks the full-range conversion, as
   FFmpeg's ``yuvj420p``; ``bitstream_restriction``'s
   ``max_num_reorder_frames`` the output delay).
-* The slice header (``SliceHeader``): reference list modification,
-  explicit weighted prediction, reference marking (the sliding window,
-  MMCO 1-6), the deblocking controls, ``cabac_init_idc``.
+* The slice header (``SliceHeader``): both lists' modifications, explicit
+  weighted prediction (L1's too), reference marking (the sliding window,
+  MMCO 1-6), the deblocking controls, ``cabac_init_idc``, direct mode.
 * The slice data (``decode_slice_py``): the macroblock layer under CAVLC
-  (``Cavlc``) or CABAC (``Cabac``), every I and P macroblock type and sub
-  type, then its reconstruction: intra 4x4, 8x8 (with the reference sample
-  filter), 16x16 and chroma prediction under ``constrained_intra_pred``,
-  quarter-sample luma and eighth-sample chroma motion compensation over
-  clamped reference coordinates, explicit weighted prediction, the inverse
-  4x4 and 8x8 transforms with the DC transforms and the scaling lists.
-* The deblocking filter of the whole picture (``deblock_py``).
+  (``Cavlc``) or CABAC (``Cabac``), every I, P and B macroblock type and
+  sub type, B_Skip and direct prediction (spatial and temporal, from the
+  co-located picture, ``direct_8x8_inference``), then its reconstruction:
+  intra 4x4, 8x8 (with the reference sample filter), 16x16 and chroma
+  prediction under ``constrained_intra_pred``, quarter-sample luma and
+  eighth-sample chroma motion compensation over clamped reference
+  coordinates, bi-prediction, explicit and implicit weighted prediction,
+  the inverse 4x4 and 8x8 transforms with the DC transforms and the
+  scaling lists.
+* The deblocking filter of the whole picture (``deblock_py``), with B's
+  boundary strength over both lists.
 * The picture buffer (``Decoder``): ``frame_num``, reference marking, the
-  initial P list and its modifications, and the output order FFmpeg's
+  initial P and B lists and their modifications, the co-located picture's
+  reference map, and the output order FFmpeg's
   ``h264_select_output_frame`` gives (a delay from ``max_num_reorder_frames``,
   grown when POCs arrive out of order; pictures that come too late are
   dropped, as cv2 drops them).
@@ -44,7 +49,7 @@ that the fixture writer (``probe/h264_encode.py``) overrides to write the
 same elements with the same contexts; CABAC's binarisations (``Cabac``)
 take the value to code for the same reason.
 
-Refused, each by its name (``UnsupportedH264``): B, SP and SI slices, field
+Refused, each by its name (``UnsupportedH264``): SP and SI slices, field
 pictures and MBAFF, chroma formats other than 4:2:0 and separate colour
 planes, more than 8 bits, the lossless transform bypass, slice groups,
 redundant pictures, data partitioning, gaps in ``frame_num``.
@@ -59,9 +64,35 @@ from . import h264_tables as T
 REFUSAL = "ROADMAP Queue 1 item 1, 'What the infer CLI still refuses'"
 P_SLICE, B_SLICE, I_SLICE, SP_SLICE, SI_SLICE = 0, 1, 2, 3, 4
 # macroblock kinds kept per macroblock
-I4, I8, I16, PCM, P16X16, P16X8, P8X16, P8X8, P8X8REF0, PSKIP = range(10)
+(I4, I8, I16, PCM, P16X16, P16X8, P8X16, P8X8, P8X8REF0, PSKIP, BDIRECT, B16X16, B16X8, B8X16,
+ B8X8, BSKIP) = range(16)
 KIND_NAMES = ("I_NxN 4x4", "I_NxN 8x8", "I_16x16", "I_PCM", "P_L0_16x16", "P_L0_L0_16x8",
-              "P_L0_L0_8x16", "P_8x8", "P_8x8ref0", "P_Skip")
+              "P_L0_L0_8x16", "P_8x8", "P_8x8ref0", "P_Skip", "B_Direct_16x16", "B_16x16",
+              "B_16x8", "B_8x16", "B_8x8", "B_Skip")
+SKIPS = (PSKIP, BSKIP)
+# (x, y, w, h) of each partition of a kind
+PARTS = {P16X16: ((0, 0, 16, 16),), P16X8: ((0, 0, 16, 8), (0, 8, 16, 8)),
+         P8X16: ((0, 0, 8, 16), (8, 0, 8, 16))}
+PARTS.update({B16X16: PARTS[P16X16], B16X8: PARTS[P16X8], B8X16: PARTS[P8X16]})
+# B mb_type 1-21 (Table 7-14): the kind and each partition's lists (1 L0,
+# 2 L1, 3 both)
+_SHAPES = (B16X8, B8X16)
+B_MB_TYPES = {1: (B16X16, (1,)), 2: (B16X16, (2,)), 3: (B16X16, (3,))}
+for _k, _modes in enumerate(((1, 1), (2, 2), (1, 2), (2, 1), (1, 3), (2, 3), (3, 1), (3, 2),
+                             (3, 3))):
+    for _s, _kind in enumerate(_SHAPES):
+        B_MB_TYPES[4 + 2 * _k + _s] = (_kind, _modes)
+del _k, _s, _kind, _modes
+_PRED = {1: "L0", 2: "L1", 3: "Bi"}
+B_MB_NAMES = ["B_Direct_16x16"] + [
+    "B_" + "_".join(_PRED[m] for m in B_MB_TYPES[t][1])
+    + ("_16x16" if B_MB_TYPES[t][0] == B16X16 else "_16x8" if B_MB_TYPES[t][0] == B16X8
+       else "_8x16") for t in range(1, 22)] + ["B_8x8"]
+# sub_mb_type (Tables 7-17, 7-18): (width, height, lists); B's 0 is direct
+P_SUB_TYPES = ((8, 8, 1), (8, 4, 1), (4, 8, 1), (4, 4, 1))
+B_SUB_TYPES = ((8, 8, 0), (8, 8, 1), (8, 8, 2), (8, 8, 3), (8, 4, 1), (4, 8, 1), (8, 4, 2),
+               (4, 8, 2), (8, 4, 3), (4, 8, 3), (4, 4, 1), (4, 4, 2), (4, 4, 3))
+B_SUB_NAMES = ("B_Direct_8x8",) + tuple(f"B_{_PRED[m]}_{w}x{h}" for w, h, m in B_SUB_TYPES[1:])
 HIGH_PROFILES = (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135)
 # luma4x4BlkIdx -> raster index (4 * row + column) of its 4x4 block
 BLK_RASTER = (0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15)
@@ -69,11 +100,19 @@ BLK_ORDER = tuple(BLK_RASTER.index(r) for r in range(16))  # raster index -> lum
 # the parameter vector of a slice, by index
 (PR_MB_W, PR_MB_H, PR_FIRST_MB, PR_TYPE, PR_CABAC, PR_INIT_IDC, PR_QP, PR_NUM_REF, PR_T8_MODE,
  PR_CONSTRAINED, PR_CB_OFF, PR_CR_OFF, PR_SLICE_NUM, PR_DBK_IDC, PR_DBK_A, PR_DBK_B,
- PR_LUMA_DENOM, PR_CHROMA_DENOM, PR_LEN) = range(19)
+ PR_LUMA_DENOM, PR_CHROMA_DENOM, PR_NUM_REF1, PR_WEIGHT_MODE, PR_DIRECT_SPATIAL, PR_DIRECT_8X8,
+ PR_COL_SHORT, PR_LEN) = range(24)
+# PR_WEIGHT_MODE: no weighting, explicit weights, implicit weights (B only)
+WEIGHT_NONE, WEIGHT_EXPLICIT, WEIGHT_IMPLICIT = range(3)
 # state arrays of a picture, each (name, values a macroblock, initial value)
 STATE = (("kind", 1, -1), ("slice", 1, -1), ("qp", 1, 0), ("t8", 1, 0), ("cbp", 1, 0),
          ("cmode", 1, 0), ("modes", 16, -1), ("nz", 16, 0), ("nzc", 8, 0), ("cbfdc", 3, 0),
-         ("mv", 32, 0), ("ref", 16, -1), ("refpic", 16, -1), ("mvd", 32, 0), ("dbk", 3, 0))
+         ("mv", 32, 0), ("ref", 16, -1), ("refpic", 16, -1), ("mvd", 32, 0), ("dbk", 3, 0),
+         ("mv1", 32, 0), ("ref1", 16, -1), ("refpic1", 16, -1), ("mvd1", 32, 0),
+         ("direct", 16, 0), ("lists", 1, 1))
+# a list's state arrays: (vectors, reference indices, reference pictures,
+# |mvd|); an unused list holds index -1, picture -1 and a zero vector
+LIST_STATE = (("mv", "ref", "refpic", "mvd"), ("mv1", "ref1", "refpic1", "mvd1"))
 
 
 class UnsupportedH264(ValueError):
@@ -514,8 +553,6 @@ class SliceHeader:
         if raw_type > 9:
             raise ValueError(f"a slice_type of {raw_type}")
         self.type = raw_type % 5
-        if self.type == B_SLICE:
-            raise UnsupportedH264("B slices")
         if self.type in (SP_SLICE, SI_SLICE):
             raise UnsupportedH264("SP and SI slices")
         self.pps_id = r.ue()
@@ -538,23 +575,24 @@ class SliceHeader:
         self.redundant_pic_cnt = r.ue() if pps.redundant_pic_cnt_present else 0
         if self.redundant_pic_cnt:
             raise UnsupportedH264("redundant pictures (redundant_pic_cnt > 0)")
-        self.num_ref = pps.num_ref_idx_default[0]
-        self.modifications = []
-        self.weights = None
-        if self.type == P_SLICE:
-            if r.bit():
+        self.num_ref, self.num_ref1 = pps.num_ref_idx_default
+        self.direct_spatial = 0
+        self.modifications, self.modifications1 = [], []
+        self.weights = None  # (luma denominator, chroma denominator, L0 table, L1 table)
+        if self.type == B_SLICE:
+            self.direct_spatial = r.bit()
+        if self.type in (P_SLICE, B_SLICE):
+            if r.bit():  # num_ref_idx_active_override_flag
                 self.num_ref = r.ue() + 1
-                if self.num_ref > 32:
-                    raise ValueError(f"num_ref_idx_l0_active of {self.num_ref}")
-            if r.bit():  # ref_pic_list_modification_flag_l0
-                while True:
-                    idc = r.ue()
-                    if idc == 3:
-                        break
-                    if idc > 3 or len(self.modifications) > 32:
-                        raise ValueError(f"a modification_of_pic_nums_idc of {idc}")
-                    self.modifications.append((idc, r.ue()))
-            if pps.weighted_pred:
+                if self.type == B_SLICE:
+                    self.num_ref1 = r.ue() + 1
+                if max(self.num_ref, self.num_ref1) > 32:
+                    raise ValueError(f"num_ref_idx_active of {self.num_ref}, {self.num_ref1}")
+            self.modifications = self._modifications(r)
+            if self.type == B_SLICE:
+                self.modifications1 = self._modifications(r)
+            if (pps.weighted_pred and self.type == P_SLICE) or \
+                    (pps.weighted_bipred == 1 and self.type == B_SLICE):
                 self.weights = self._weights(r)
         self.long_term_reference = 0
         self.mmcos = None  # None: the sliding window
@@ -579,9 +617,6 @@ class SliceHeader:
             self.cabac_init_idc = r.ue()
             if self.cabac_init_idc > 2:
                 raise ValueError(f"a cabac_init_idc of {self.cabac_init_idc}")
-            if self.cabac_init_idc == 1 and pps.transform_8x8:
-                raise UnsupportedH264("CABAC P slices of cabac_init_idc 1 with the 8x8 "
-                                      "transform (the initialisation of ctxIdx 417-435)")
         self.qp = pps.init_qp + r.se()
         if not 0 <= self.qp <= 51:
             raise ValueError(f"a slice QP of {self.qp}")
@@ -599,21 +634,40 @@ class SliceHeader:
         if self.first_mb >= sps.mb_w * sps.mb_h:
             raise ValueError(f"a first_mb_in_slice of {self.first_mb}")
 
+    @staticmethod
+    def _modifications(r):
+        """ref_pic_list_modification of one list: (idc, value) pairs."""
+        out = []
+        if r.bit():  # ref_pic_list_modification_flag_lX
+            while True:
+                idc = r.ue()
+                if idc == 3:
+                    break
+                if idc > 3 or len(out) > 32:
+                    raise ValueError(f"a modification_of_pic_nums_idc of {idc}")
+                out.append((idc, r.ue()))
+        return out
+
     def _weights(self, r):
+        """pred_weight_table: each reference's (luma weight, offset, Cb
+        weight, offset, Cr weight, offset), for L0 and (B) L1."""
         luma_denom = r.ue()
         chroma_denom = r.ue()
         if luma_denom > 7 or chroma_denom > 7:
             raise ValueError("a weight denominator above 7")
-        table = []
-        for _ in range(self.num_ref):
-            w = [1 << luma_denom, 0, 1 << chroma_denom, 0, 1 << chroma_denom, 0]
-            for lo, hi in ((0, 2), (2, 6)):
-                if r.bit():
-                    w[lo:hi] = [r.se() for _ in range(lo, hi)]
-                    if not all(-128 <= v <= 127 for v in w[lo:hi]):
-                        raise ValueError(f"a prediction weight or offset outside -128..127")
-            table.append(w)
-        return luma_denom, chroma_denom, table
+        tables = []
+        for count in (self.num_ref, self.num_ref1) if self.type == B_SLICE else (self.num_ref,):
+            table = []
+            for _ in range(count):
+                w = [1 << luma_denom, 0, 1 << chroma_denom, 0, 1 << chroma_denom, 0]
+                for lo, hi in ((0, 2), (2, 6)):
+                    if r.bit():
+                        w[lo:hi] = [r.se() for _ in range(lo, hi)]
+                        if not all(-128 <= v <= 127 for v in w[lo:hi]):
+                            raise ValueError("a prediction weight or offset outside -128..127")
+                table.append(w)
+            tables.append(table)
+        return luma_denom, chroma_denom, tables[0], tables[1] if len(tables) > 1 else None
 
 
 # -- CAVLC (9.2) --------------------------------------------------------------
@@ -723,7 +777,7 @@ def init_contexts(init_idc, qp):
     qp = min(max(qp, 0), 51)
     states = []
     for mn in table:
-        m, n = mn if mn is not None else (0, 64)
+        m, n = mn
         pre = min(max(((m * qp) >> 4) + n, 1), 126)
         states.append([pre - 64, 1] if pre > 63 else [63 - pre, 0])
     return states
@@ -734,26 +788,66 @@ class CabacElements:
     ``decision``, ``bypass`` and ``terminate``, each given the bin to code
     (``v``) by a writer and None by the reader, and returning the bin."""
 
-    def mb_skip(self, inc, v=None):
-        return self.decision(11 + inc, v)
+    def mb_skip(self, inc, v=None, base=11):
+        """mb_skip_flag at ctxIdxOffset 11 (P slices) or 24 (B slices)."""
+        return self.decision(base + inc, v)
 
     def mb_type_i(self, inc, v=None, offset=3):
         """mb_type of an I macroblock (0 I_NxN, 1-24 I_16x16, 25 I_PCM), at
-        ctxIdxOffset 3 (I slices, ``inc`` from the neighbours) or 17 (the
-        suffix in P slices, Table 9-39)."""
+        ctxIdxOffset 3 (I slices, ``inc`` from the neighbours), 17 (the
+        suffix in P slices) or 32 (in B slices) (Table 9-39)."""
         i = offset == 3
         t = None if v is None else v - 1
-        if not self.decision(3 + inc if i else 17, None if v is None else int(v != 0)):
+        if not self.decision(3 + inc if i else offset, None if v is None else int(v != 0)):
             return 0
         if self.terminate(None if v is None else int(v == 25)):
             return 25
-        luma = self.decision(6 if i else 18, None if v is None else int(t >= 12))
-        chroma = self.decision(7 if i else 19, None if v is None else int(t // 4 % 3 != 0))
+        luma = self.decision(6 if i else offset + 1, None if v is None else int(t >= 12))
+        chroma = self.decision(7 if i else offset + 2,
+                               None if v is None else int(t // 4 % 3 != 0))
         if chroma:
-            chroma += self.decision(8 if i else 19, None if v is None else int(t // 4 % 3 == 2))
-        m1 = self.decision(9 if i else 20, None if v is None else (t % 4) >> 1)
-        m0 = self.decision(10 if i else 20, None if v is None else t & 1)
+            chroma += self.decision(8 if i else offset + 2,
+                                    None if v is None else int(t // 4 % 3 == 2))
+        m1 = self.decision(9 if i else offset + 3, None if v is None else (t % 4) >> 1)
+        m0 = self.decision(10 if i else offset + 3, None if v is None else t & 1)
         return 1 + (m1 << 1 | m0) + 4 * chroma + 12 * luma
+
+    def mb_type_b(self, inc, v=None):
+        """mb_type of a B slice: 0-22 the B types, 23-48 intra (23 + the I
+        type) (Tables 9-37, 9-39: ctxIdx 27-35)."""
+        if not self.decision(27 + inc, None if v is None else int(v != 0)):
+            return 0
+        if not self.decision(30, None if v is None else int(v >= 3)):
+            return 1 + self.decision(32, None if v is None else v - 1)
+        code = None
+        if v is not None:  # the four bins after "11" (a fifth for 12-21)
+            code = 13 if v >= 23 else 14 if v == 11 else 15 if v == 22 else \
+                v - 3 if v <= 10 else (v + 4) >> 1
+        bits = 0
+        for k, ctx in ((3, 31), (2, 32), (1, 32), (0, 32)):
+            bits |= self.decision(ctx, None if code is None else (code >> k) & 1) << k
+        if bits < 8:
+            return bits + 3
+        if bits == 13:
+            return 23 + self.mb_type_i(0, None if v is None else v - 23, offset=32)
+        if bits in (14, 15):
+            return 11 if bits == 14 else 22
+        return ((bits << 1) | self.decision(32, None if v is None else (v + 4) & 1)) - 4
+
+    def sub_mb_type_b(self, v=None):
+        """sub_mb_type of a B_8x8 macroblock, 0-12 (ctxIdx 36-39)."""
+        if not self.decision(36, None if v is None else int(v != 0)):
+            return 0
+        if not self.decision(37, None if v is None else int(v >= 3)):
+            return 1 + self.decision(39, None if v is None else v - 1)
+        if self.decision(38, None if v is None else int(v >= 7)):
+            if self.decision(39, None if v is None else int(v >= 11)):
+                return 11 + self.decision(39, None if v is None else v - 11)
+            base = 7
+        else:
+            base = 3
+        b1 = self.decision(39, None if v is None else ((v - base) >> 1) & 1)
+        return base + 2 * b1 + self.decision(39, None if v is None else (v - base) & 1)
 
     def mb_type_p(self, v=None):
         """mb_type of a P slice: 0-3 the P types, 5-30 intra (5 + the I
@@ -1316,13 +1410,20 @@ def weight(pred, w, o, denom):
     return np.clip(out, 0, 255)
 
 
+def bi_weight(a, b, w0, w1, o0, o1, denom):
+    """Weighted bi-prediction of two references (8.4.2.3.2), explicit or
+    implicit (``denom`` 5, no offsets)."""
+    return np.clip(((a * w0 + b * w1 + (1 << denom)) >> (denom + 1)) + ((o0 + o1 + 1) >> 1), 0,
+                   255)
+
+
 # -- the slice data -----------------------------------------------------------------
 
 class Picture:
     """A decoded picture: planes (coded size), its state arrays, and what
     the picture buffer keeps of it; ``pid`` tells it from the decoder's
     other pictures (the deblocking filter's "different reference
-    pictures")."""
+    pictures", direct prediction's co-located references)."""
 
     def __init__(self, mb_w, mb_h, pid):
         self.y = np.zeros((16 * mb_h, 16 * mb_w), np.uint8)
@@ -1342,59 +1443,82 @@ class Picture:
         self.crop = (0, 0, 0, 0)
         self.full_range = 0
         self.colourspace = 2  # AVColorSpace: unspecified
+        self.packet = -1  # the index of the packet that held it
+        self.b_first = False  # its first slice a B slice (FFmpeg's pict_type B)
+
+
+class Lists:
+    """What a slice predicts from: its reference lists (``refs[0]``,
+    ``refs[1]``: pictures), each list's explicit weights (or None), the
+    implicit bi-prediction weights w0 by (L0, L1) index (or None), temporal
+    direct's DistScaleFactor by L0 index, and the co-located picture's
+    arrays (``col``: its state's kind, ref, ref1, mv, mv1, and ``map``,
+    ``map1``: the L0 index each block's reference maps to; None outside B
+    slices)."""
+
+    def __init__(self, refs0, refs1=(), weights=(None, None), implicit=None, dist_scale=None,
+                 col=None):
+        self.refs = (list(refs0), list(refs1))
+        self.weights = weights
+        self.implicit = implicit
+        self.dist_scale = dist_scale
+        self.col = col
 
 
 class SliceDecoder:
     """Decodes one slice's macroblocks into a picture (the plain version).
 
-    ``prm`` is the parameter vector (``PR_*``), ``refs`` the reference
-    list's pictures, ``weights`` the explicit weights (or None),
-    ``level_scale`` the PPS's (LevelScale4x4, LevelScale8x8); ``coverage``
-    a Counter of the paths taken (``Decoder.coverage``)."""
+    ``prm`` is the parameter vector (``PR_*``), ``lists`` the slice's
+    ``Lists``, ``level_scale`` the PPS's (LevelScale4x4, LevelScale8x8);
+    ``coverage`` a Counter of the paths taken (``Decoder.coverage``)."""
 
-    def __init__(self, rbsp, bitpos, prm, pic, refs, weights, level_scale, coverage=None):
+    def __init__(self, rbsp, bitpos, prm, pic, lists, level_scale, coverage=None):
         self.coverage = collections.Counter() if coverage is None else coverage
-        self.prm = prm
-        self.mb_w, self.mb_h = prm[PR_MB_W], prm[PR_MB_H]
-        self.pic = pic
-        self.refs = refs
-        self.weights = weights
-        self.ls4, self.ls8 = level_scale
-        self.cabac = bool(prm[PR_CABAC])
-        self.slice_type = prm[PR_TYPE]
-        self.num_ref = prm[PR_NUM_REF]
-        self.slice_num = prm[PR_SLICE_NUM]
-        self.constrained = prm[PR_CONSTRAINED]
-        self.t8_mode = prm[PR_T8_MODE]
-        st = pic.state
-        self.s = {k: v.tolist() for k, v in st.items()}
+        self.setup(prm, pic, lists, level_scale)
         if self.cabac:
             pos = (bitpos + 7) & ~7  # cabac_alignment_one_bits
-            self.ent = Cabac(rbsp, pos, prm[PR_INIT_IDC] if self.slice_type == P_SLICE else -1,
+            self.ent = Cabac(rbsp, pos, prm[PR_INIT_IDC] if self.slice_type != I_SLICE else -1,
                              prm[PR_QP])
         else:
             self.ent = Cavlc(rbsp, bitpos)
+
+    def setup(self, prm, pic, lists, level_scale):
+        self.prm = prm
+        self.mb_w, self.mb_h = prm[PR_MB_W], prm[PR_MB_H]
+        self.pic = pic
+        self.lists = lists
+        self.ls4, self.ls8 = level_scale
+        self.cabac = bool(prm[PR_CABAC])
+        self.coder = "cabac" if self.cabac else "cavlc"
+        self.slice_type = prm[PR_TYPE]
+        self.num_ref = (prm[PR_NUM_REF], prm[PR_NUM_REF1])
+        self.slice_num = prm[PR_SLICE_NUM]
+        self.constrained = prm[PR_CONSTRAINED]
+        self.t8_mode = prm[PR_T8_MODE]
+        self.s = {k: v.tolist() for k, v in pic.state.items()}
+        self.col = None if lists.col is None else {k: v.tolist() for k, v in lists.col.items()}
         self.qp = prm[PR_QP]
         self.last_dqp = 0
-        self.done = [False] * 16
+        self.done = ([False] * 16, [False] * 16)  # each list's 4x4 blocks predicted
 
     # -- the slice loop ----------------------------------------------------------
     def decode(self):
         """The slice data (7.3.4): the macroblock after the slice's last."""
         addr = self.prm[PR_FIRST_MB]
-        p_slice = self.slice_type == P_SLICE
+        inter = self.slice_type != I_SLICE
         while True:
-            if p_slice and not self.cabac:
+            if inter and not self.cabac:
                 run = self.ent.ue()
                 for _ in range(run):
                     self.check(addr)
-                    self.p_skip(addr)
+                    self.skip(addr)
                     addr += 1
                 if run and not self.ent.more_rbsp_data():
                     return self.end(addr)
             self.check(addr)
-            if p_slice and self.cabac and self.ent.mb_skip(self.skip_ctx(addr)):
-                self.p_skip(addr)
+            if inter and self.cabac and self.ent.mb_skip(self.skip_ctx(addr),
+                                                         base=self.skip_base()):
+                self.skip(addr)
             else:
                 self.macroblock(addr)
             addr += 1
@@ -1415,15 +1539,25 @@ class SliceDecoder:
             self.pic.state[k][:] = v
         return addr
 
+    def skip_base(self):
+        return 24 if self.slice_type == B_SLICE else 11
+
     def skip_ctx(self, addr):
         return sum(1 for n in (self.mb_a(addr), self.mb_b(addr))
-                   if n >= 0 and self.s["kind"][n] != PSKIP)
+                   if n >= 0 and self.s["kind"][n] not in SKIPS)
+
+    def skip(self, addr):
+        if self.slice_type == B_SLICE:
+            self.b_skip(addr)
+        else:
+            self.p_skip(addr)
 
     def start_mb(self, addr, kind):
         """Reset macroblock ``addr``'s state for a macroblock of ``kind``."""
         s = self.s
         s["kind"][addr] = kind
         s["slice"][addr] = self.slice_num
+        s["lists"][addr] = 2 if self.slice_type == B_SLICE else 1
         s["dbk"][3 * addr:3 * addr + 3] = [self.prm[PR_DBK_IDC], self.prm[PR_DBK_A],
                                            self.prm[PR_DBK_B]]
         s["qp"][addr] = self.qp
@@ -1432,13 +1566,15 @@ class SliceDecoder:
         base = 16 * addr
         for k in range(base, base + 16):
             s["modes"][k] = -1
-            s["nz"][k] = 0
-            s["ref"][k] = s["refpic"][k] = -1
-            s["mv"][2 * k] = s["mv"][2 * k + 1] = s["mvd"][2 * k] = s["mvd"][2 * k + 1] = 0
+            s["nz"][k] = s["direct"][k] = 0
+            for mv, ref, refpic, mvd in LIST_STATE:
+                s[ref][k] = s[refpic][k] = -1
+                s[mv][2 * k] = s[mv][2 * k + 1] = s[mvd][2 * k] = s[mvd][2 * k + 1] = 0
         for k in range(8 * addr, 8 * addr + 8):
             s["nzc"][k] = 0
-        for k in range(16):
-            self.done[k] = False
+        for done in self.done:
+            for k in range(16):
+                done[k] = False
 
     # -- neighbours -------------------------------------------------------------------
     def available(self, n):
@@ -1482,49 +1618,56 @@ class SliceDecoder:
     def macroblock(self, addr):
         s = self.s
         raw = self.mb_type(addr)
-        if self.slice_type == P_SLICE:
-            if raw < 5:
-                kind = (P16X16, P16X8, P8X16, P8X8, P8X8REF0)[raw]
-                itype = -1
-            else:
-                itype = raw - 5
+        st = self.slice_type
+        modes = None
+        if st == P_SLICE and raw < 5:
+            kind = (P16X16, P16X8, P8X16, P8X8, P8X8REF0)[raw]
+        elif st == B_SLICE and raw < 23:
+            self.coverage["mb", B_MB_NAMES[raw], self.coder] += 1
+            kind = BDIRECT if raw == 0 else B8X8 if raw == 22 else B_MB_TYPES[raw][0]
+            modes = B_MB_TYPES[raw][1] if kind in (B16X16, B16X8, B8X16) else None
         else:
-            itype = raw
-        if self.slice_type == I_SLICE or raw >= 5:
+            itype = raw - (0 if st == I_SLICE else 5 if st == P_SLICE else 23)
             if itype > 25:
                 raise ValueError(f"an mb_type of {raw}")
             kind = I4 if itype == 0 else PCM if itype == 25 else I16
+            if st == B_SLICE:
+                self.coverage["mb", "B intra", self.coder] += 1
         self.start_mb(addr, kind)
         if kind == PCM:
-            self.coverage["mb", KIND_NAMES[PCM], "cabac" if self.cabac else "cavlc"] += 1
+            self.coverage["mb", KIND_NAMES[PCM], self.coder] += 1
             self.pcm(addr)
             return
         t8 = 0
         cbp = 0
-        if kind in (P8X8, P8X8REF0):
-            self.coverage["mb", KIND_NAMES[kind]] += 1
+        small = False
+        if kind in (P8X8, P8X8REF0, B8X8):
+            if kind != B8X8:
+                self.coverage["mb", KIND_NAMES[kind]] += 1
             small = self.sub_mb_pred(addr, kind)
+        elif kind == BDIRECT:
+            self.direct(addr, range(4))
+            small = not self.prm[PR_DIRECT_8X8]
+        elif kind == I4:
+            if self.t8_mode:
+                t8 = self.transform_8x8(addr)
+                if t8:
+                    kind = I8
+                    s["kind"][addr] = I8
+            self.coverage["mb", KIND_NAMES[kind]] += 1
+            self.intra_nxn_modes(addr, t8)
+        elif kind == I16:
+            mode = (itype - 1) % 4
+            cbp = (((itype - 1) // 4) % 3) << 4 | (15 if itype >= 13 else 0)
+            self.coverage["mb", "I_16x16", mode, cbp >> 4, cbp & 15] += 1
+            self.i16_mode = mode
         else:
-            small = False
-            if kind == I4:
-                if self.t8_mode:
-                    t8 = self.transform_8x8(addr)
-                    if t8:
-                        kind = I8
-                        s["kind"][addr] = I8
+            if modes is None:
                 self.coverage["mb", KIND_NAMES[kind]] += 1
-                self.intra_nxn_modes(addr, t8)
-            elif kind == I16:
-                mode = (itype - 1) % 4
-                cbp = (((itype - 1) // 4) % 3) << 4 | (15 if itype >= 13 else 0)
-                self.coverage["mb", "I_16x16", mode, cbp >> 4, cbp & 15] += 1
-                self.i16_mode = mode
-            else:
-                self.coverage["mb", KIND_NAMES[kind]] += 1
-                self.mb_pred_inter(addr, kind)
-            if kind in (I4, I8, I16):
-                s["cmode"][addr] = self.chroma_pred_mode(addr)
-                self.coverage["chroma", s["cmode"][addr]] += 1
+            self.mb_pred_inter(addr, kind, modes or (1,) * len(PARTS[kind]))
+        if kind in (I4, I8, I16):
+            s["cmode"][addr] = self.chroma_pred_mode(addr)
+            self.coverage["chroma", s["cmode"][addr]] += 1
         if kind != I16:
             cbp = self.coded_block_pattern(addr, kind <= PCM)
             if (cbp & 15) and self.t8_mode and kind not in (I4, I8, I16) and not small:
@@ -1550,11 +1693,17 @@ class SliceDecoder:
             return self.ent.ue()
         if self.slice_type == P_SLICE:
             return self.ent.mb_type_p()
+        if self.slice_type == B_SLICE:
+            return self.ent.mb_type_b(self.mb_type_b_inc(addr))
         return self.ent.mb_type_i(self.mb_type_inc(addr))
 
     def mb_type_inc(self, addr):
         return sum(1 for n in (self.mb_a(addr), self.mb_b(addr)) if n >= 0 and
                    self.s["kind"][n] not in (I4, I8))
+
+    def mb_type_b_inc(self, addr):
+        return sum(1 for n in (self.mb_a(addr), self.mb_b(addr)) if n >= 0 and
+                   self.s["kind"][n] not in (BSKIP, BDIRECT))
 
     def transform_8x8(self, addr):
         if not self.cabac:
@@ -1648,94 +1797,141 @@ class SliceDecoder:
                    if n >= 0 and s["kind"][n] in (I4, I8, I16) and s["cmode"][n] != 0)
 
     # inter partitions
-    def mb_pred_inter(self, addr, kind):
-        parts = {P16X16: ((0, 0, 16, 16),), P16X8: ((0, 0, 16, 8), (0, 8, 16, 8)),
-                 P8X16: ((0, 0, 8, 16), (8, 0, 8, 16))}[kind]
-        refs = []
-        for x, y, w, h in parts:
-            refs.append(self.ref_idx(addr, x, y) if self.num_ref > 1 else 0)
-            self.set_ref(addr, x, y, w, h, refs[-1])
-        for p, ((x, y, w, h), ref) in enumerate(zip(parts, refs)):
-            mvp = self.mv_pred(addr, x, y, w, h, ref, kind, p)
-            self.motion_vector(addr, x, y, w, h, mvp)
+    def mb_pred_inter(self, addr, kind, modes):
+        """mb_pred of a 16x16, 16x8 or 8x16 macroblock whose partitions use
+        the lists ``modes`` (1 L0, 2 L1, 3 both): every ref_idx_l0, then
+        ref_idx_l1, mvd_l0 and mvd_l1."""
+        parts = PARTS[kind]
+        refs = ([-1] * len(parts), [-1] * len(parts))
+        for lst in range(2):
+            for p, (x, y, w, h) in enumerate(parts):
+                if modes[p] >> lst & 1:
+                    refs[lst][p] = self.ref_idx(addr, x, y, lst) if self.num_ref[lst] > 1 else 0
+                    self.set_ref(addr, x, y, w, h, refs[lst][p], lst)
+        for lst in range(2):
+            for p, (x, y, w, h) in enumerate(parts):
+                if modes[p] >> lst & 1:
+                    mvp = self.mv_pred(addr, x, y, w, h, refs[lst][p], kind, p, lst)
+                    self.motion_vector(addr, x, y, w, h, mvp, lst)
+                else:
+                    self.store_mv(addr, x, y, w, h, 0, 0, (0, 0), lst)
 
     def sub_mb_pred(self, addr, kind):
+        """sub_mb_pred of a P_8x8, P_8x8ref0 or B_8x8 macroblock; whether a
+        partition is smaller than 8x8 (no 8x8 transform then)."""
+        b = kind == B8X8
+        table = B_SUB_TYPES if b else P_SUB_TYPES
         subs = [self.sub_mb_type() for _ in range(4)]
         for t in subs:
-            if t > 3:
+            if t >= len(table):
                 raise ValueError(f"a sub_mb_type of {t}")
-            self.coverage["sub_mb_type", ("8x8", "8x4", "4x8", "4x4")[t]] += 1
-        refs = []
-        for b8 in range(4):
-            x, y = 8 * (b8 & 1), 8 * (b8 >> 1)
-            refs.append(self.ref_idx(addr, x, y) if self.num_ref > 1 and kind == P8X8 else 0)
-            self.set_ref(addr, x, y, 8, 8, refs[-1])
-        for b8 in range(4):
-            x8, y8 = 8 * (b8 & 1), 8 * (b8 >> 1)
-            w, h = ((8, 8), (8, 4), (4, 8), (4, 4))[subs[b8]]
-            for sub in range(4 if subs[b8] == 3 else 1 if subs[b8] == 0 else 2):
-                if w == 4 and h == 4:
-                    x, y = x8 + 4 * (sub & 1), y8 + 4 * (sub >> 1)
+            if b:
+                self.coverage["sub_mb_type", B_SUB_NAMES[t], self.coder] += 1
+            else:
+                self.coverage["sub_mb_type", ("8x8", "8x4", "4x8", "4x4")[t]] += 1
+        direct = [b and t == 0 for t in subs]
+        if any(direct):
+            self.direct(addr, [b8 for b8 in range(4) if direct[b8]])
+        lists = range(2 if b else 1)
+        refs = ([0] * 4, [0] * 4)
+        for lst in lists:
+            for b8 in range(4):
+                if direct[b8]:
+                    continue
+                x, y = 8 * (b8 & 1), 8 * (b8 >> 1)
+                if table[subs[b8]][2] >> lst & 1:
+                    refs[lst][b8] = self.ref_idx(addr, x, y, lst) if \
+                        self.num_ref[lst] > 1 and kind != P8X8REF0 else 0
                 else:
-                    x, y = x8 + 4 * sub * (w == 4), y8 + 4 * sub * (h == 4)
-                mvp = self.mv_pred(addr, x, y, w, h, refs[b8], P8X8, -1)
-                self.motion_vector(addr, x, y, w, h, mvp)
-        return any(t != 0 for t in subs)
+                    refs[lst][b8] = -1
+                self.set_ref(addr, x, y, 8, 8, refs[lst][b8], lst)
+        for lst in lists:
+            for b8 in range(4):
+                x8, y8 = 8 * (b8 & 1), 8 * (b8 >> 1)
+                if direct[b8]:
+                    for k in range(4):
+                        self.done[lst][BLK_RASTER[4 * b8 + k]] = True
+                    continue
+                w, h, used = table[subs[b8]]
+                if not used >> lst & 1:
+                    self.store_mv(addr, x8, y8, 8, 8, 0, 0, (0, 0), lst)
+                    continue
+                for sub in range(4 if w == h == 4 else 1 if w == h == 8 else 2):
+                    if w == 4 and h == 4:
+                        x, y = x8 + 4 * (sub & 1), y8 + 4 * (sub >> 1)
+                    else:
+                        x, y = x8 + 4 * sub * (w == 4), y8 + 4 * sub * (h == 4)
+                    mvp = self.mv_pred(addr, x, y, w, h, refs[lst][b8], kind, -1, lst)
+                    self.motion_vector(addr, x, y, w, h, mvp, lst)
+        if any(direct) and not self.prm[PR_DIRECT_8X8]:
+            return True
+        return any(not d and table[t][:2] != (8, 8) for d, t in zip(direct, subs))
 
     def sub_mb_type(self):
-        return self.ent.sub_mb_type() if self.cabac else self.ent.ue()
+        if not self.cabac:
+            return self.ent.ue()
+        return self.ent.sub_mb_type_b() if self.slice_type == B_SLICE else \
+            self.ent.sub_mb_type()
 
-    def ref_idx(self, addr, x, y):
-        ref = self.ent.ref_idx(self.ref_inc(addr, x, y)) if self.cabac else \
-            self.ent.te(self.num_ref - 1)
-        if ref >= self.num_ref:
-            raise ValueError(f"a ref_idx of {ref} with {self.num_ref} references")
+    def ref_idx(self, addr, x, y, lst=0):
+        n = self.num_ref[lst]
+        ref = self.ent.ref_idx(self.ref_inc(addr, x, y, lst)) if self.cabac else \
+            self.ent.te(n - 1)
+        if ref >= n:
+            raise ValueError(f"a ref_idx of {ref} with {n} references")
         return ref
 
-    def ref_inc(self, addr, x, y):
+    def ref_inc(self, addr, x, y, lst=0):
+        """ctxIdxInc of ref_idx: a neighbour counts where it is inter, not
+        skipped nor direct, and its reference index in the list is above 0."""
         s = self.s
+        refs = s[LIST_STATE[lst][1]]
         inc = 0
         for k, (nx, ny) in enumerate(((x - 1, y), (x, y - 1))):
             n, i = self.neighbour4(addr, nx, ny)
-            if n >= 0 and s["kind"][n] > PCM and s["kind"][n] != PSKIP and \
-                    s["ref"][16 * n + i] > 0:
+            if n >= 0 and s["kind"][n] > PCM and s["kind"][n] not in SKIPS and \
+                    not s["direct"][16 * n + i] and refs[16 * n + i] > 0:
                 inc += 1 + k
         return inc
 
-    def set_ref(self, addr, x, y, w, h, ref):
+    def set_ref(self, addr, x, y, w, h, ref, lst=0):
         s = self.s
-        pid = self.refs[ref].id if ref < len(self.refs) else -1
+        refs = self.lists.refs[lst]
+        pid = refs[ref].id if 0 <= ref < len(refs) else -1
+        _, ref_a, pic_a, _ = LIST_STATE[lst]
         for by in range(y >> 2, (y + h) >> 2):
             for bx in range(x >> 2, (x + w) >> 2):
                 k = 16 * addr + 4 * by + bx
-                s["ref"][k] = ref
-                s["refpic"][k] = pid
+                s[ref_a][k] = ref
+                s[pic_a][k] = pid
 
-    def mv_neighbour(self, addr, x, y):
-        """(available, ref, mvx, mvy) of the partition covering (x, y); an
-        intra or unavailable one has ref -1 and a zero vector."""
+    def mv_neighbour(self, addr, x, y, lst=0):
+        """(available, ref, mvx, mvy) in list ``lst`` of the partition
+        covering (x, y); an intra one, or one not using the list, has ref
+        -1 and a zero vector."""
         n, i = self.neighbour4(addr, x, y)
-        if n < 0 or (n == addr and not self.done[i]):
+        if n < 0 or (n == addr and not self.done[lst][i]):
             return False, -1, 0, 0
         s = self.s
         k = 16 * n + i
         if s["kind"][n] <= PCM:
             return True, -1, 0, 0
-        return True, s["ref"][k], s["mv"][2 * k], s["mv"][2 * k + 1]
+        mv, ref, _, _ = LIST_STATE[lst]
+        return True, s[ref][k], s[mv][2 * k], s[mv][2 * k + 1]
 
-    def mv_pred(self, addr, x, y, w, h, ref, kind, part):
-        """The luma motion vector prediction (8.4.1.3)."""
-        a = self.mv_neighbour(addr, x - 1, y)
-        b = self.mv_neighbour(addr, x, y - 1)
-        c = self.mv_neighbour(addr, x + w, y - 1)
+    def mv_pred(self, addr, x, y, w, h, ref, kind, part, lst=0):
+        """The luma motion vector prediction (8.4.1.3) in list ``lst``."""
+        a = self.mv_neighbour(addr, x - 1, y, lst)
+        b = self.mv_neighbour(addr, x, y - 1, lst)
+        c = self.mv_neighbour(addr, x + w, y - 1, lst)
         if not c[0]:
-            c = self.mv_neighbour(addr, x - 1, y - 1)
-        if kind == P16X8:
+            c = self.mv_neighbour(addr, x - 1, y - 1, lst)
+        if kind in (P16X8, B16X8):
             if part == 0 and b[1] == ref:
                 return b[2], b[3]
             if part == 1 and a[1] == ref:
                 return a[2], a[3]
-        elif kind == P8X16:
+        elif kind in (P8X16, B8X16):
             if part == 0 and a[1] == ref:
                 return a[2], a[3]
             if part == 1 and c[1] == ref:
@@ -1747,31 +1943,35 @@ class SliceDecoder:
             return match[0][2], match[0][3]
         return (sorted((a[2], b[2], c[2]))[1], sorted((a[3], b[3], c[3]))[1])
 
-    def motion_vector(self, addr, x, y, w, h, mvp):
-        """Read the partition's mvd, store its vector (and |mvd|)."""
-        mvd = [self.ent.mvd(comp, self.mvd_inc(addr, x, y, comp)) if self.cabac else
+    def motion_vector(self, addr, x, y, w, h, mvp, lst=0):
+        """Read the partition's mvd in list ``lst``, store its vector (and
+        |mvd|)."""
+        mvd = [self.ent.mvd(comp, self.mvd_inc(addr, x, y, comp, lst)) if self.cabac else
                self.ent.se() for comp in range(2)]
-        self.store_mv(addr, x, y, w, h, mvp[0] + mvd[0], mvp[1] + mvd[1], mvd)
+        self.store_mv(addr, x, y, w, h, mvp[0] + mvd[0], mvp[1] + mvd[1], mvd, lst)
 
-    def mvd_inc(self, addr, x, y, comp):
+    def mvd_inc(self, addr, x, y, comp, lst=0):
         s = self.s
+        mvds = s[LIST_STATE[lst][3]]
         total = 0
         for nx, ny in ((x - 1, y), (x, y - 1)):
             n, i = self.neighbour4(addr, nx, ny)
             if n >= 0:
-                total += s["mvd"][2 * (16 * n + i) + comp]
+                total += mvds[2 * (16 * n + i) + comp]
         return 0 if total < 3 else 1 if total <= 32 else 2
 
-    def store_mv(self, addr, x, y, w, h, mvx, mvy, mvd):
+    def store_mv(self, addr, x, y, w, h, mvx, mvy, mvd, lst=0):
         s = self.s
         if not -2048 * 4 <= mvx < 2048 * 4 or not -2048 * 4 <= mvy < 2048 * 4:
             raise ValueError(f"a motion vector of ({mvx}, {mvy})")
+        mv, _, _, mvd_a = LIST_STATE[lst]
+        done = self.done[lst]
         for by in range(y >> 2, (y + h) >> 2):
             for bx in range(x >> 2, (x + w) >> 2):
                 k = 16 * addr + 4 * by + bx
-                s["mv"][2 * k], s["mv"][2 * k + 1] = mvx, mvy
-                s["mvd"][2 * k], s["mvd"][2 * k + 1] = abs(mvd[0]), abs(mvd[1])
-                self.done[4 * by + bx] = True
+                s[mv][2 * k], s[mv][2 * k + 1] = mvx, mvy
+                s[mvd_a][2 * k], s[mvd_a][2 * k + 1] = abs(mvd[0]), abs(mvd[1])
+                done[4 * by + bx] = True
 
     def p_skip_mv(self, addr):
         """P_Skip's vector (8.4.1.1)."""
@@ -1783,14 +1983,81 @@ class SliceDecoder:
         return self.mv_pred(addr, 0, 0, 16, 16, 0, P16X16, 0)
 
     def p_skip(self, addr):
-        s = self.s
-        self.coverage["mb", "P_Skip", "cabac" if self.cabac else "cavlc"] += 1
+        self.coverage["mb", "P_Skip", self.coder] += 1
         self.start_mb(addr, PSKIP)
         mvx, mvy = self.p_skip_mv(addr)
         self.set_ref(addr, 0, 0, 16, 16, 0)
         self.store_mv(addr, 0, 0, 16, 16, mvx, mvy, (0, 0))
         self.last_dqp = 0
-        self.inter_pred(addr, P16X16)
+        self.inter_pred(addr)
+
+    def b_skip(self, addr):
+        self.coverage["mb", "B_Skip", self.coder] += 1
+        self.start_mb(addr, BSKIP)
+        self.direct(addr, range(4))
+        self.last_dqp = 0
+        self.inter_pred(addr)
+
+    def direct_spatial_refs(self, addr):
+        """Spatial direct's (refIdxL0, refIdxL1) and each list's predicted
+        vector (8.4.1.2.2): the least non-negative reference index of the
+        neighbours A, B and C (D where C is missing), both 0 with zero
+        vectors where neither list has one."""
+        refs, mvps = [], []
+        for lst in range(2):
+            a = self.mv_neighbour(addr, -1, 0, lst)
+            b = self.mv_neighbour(addr, 0, -1, lst)
+            c = self.mv_neighbour(addr, 16, -1, lst)
+            if not c[0]:
+                c = self.mv_neighbour(addr, -1, -1, lst)
+            found = [n[1] for n in (a, b, c) if n[1] >= 0]
+            ref = min(found) if found else -1
+            refs.append(ref)
+            mvps.append(self.mv_pred(addr, 0, 0, 16, 16, ref, B16X16, 0, lst) if ref >= 0
+                        else (0, 0))
+        if refs[0] < 0 and refs[1] < 0:
+            return [0, 0], [(0, 0), (0, 0)], True
+        return refs, mvps, False
+
+    def direct(self, addr, b8s):
+        """Direct prediction (8.4.1.2) of the 8x8 blocks ``b8s``: each 4x4
+        block's references and vectors in both lists, from the co-located
+        block of RefPicList1[0] (its corner block under
+        direct_8x8_inference)."""
+        s, col, prm = self.s, self.col, self.prm
+        spatial = prm[PR_DIRECT_SPATIAL]
+        infer = prm[PR_DIRECT_8X8]
+        self.coverage["direct", "spatial" if spatial else "temporal", infer, self.coder] += 1
+        if spatial:
+            refs, mvps, zero = self.direct_spatial_refs(addr)
+        col_intra = col["kind"][addr] <= PCM
+        for b8 in b8s:
+            for r in BLK_RASTER[4 * b8:4 * b8 + 4]:
+                bx, by = r & 3, r >> 2
+                ck = 16 * addr + ((by >> 1) * 12 + (bx >> 1) * 3 if infer else r)
+                if col_intra:
+                    col_ref, cmv, col_list = -1, (0, 0), 0
+                elif col["ref"][ck] >= 0:
+                    col_ref, cmv, col_list = col["ref"][ck], col["mv"][2 * ck:2 * ck + 2], 0
+                else:
+                    col_ref, cmv, col_list = col["ref1"][ck], col["mv1"][2 * ck:2 * ck + 2], 1
+                if spatial:
+                    col_zero = prm[PR_COL_SHORT] and col_ref == 0 and abs(cmv[0]) <= 1 and \
+                        abs(cmv[1]) <= 1
+                    block = [(ref, (0, 0) if ref < 0 or zero or (ref == 0 and col_zero)
+                              else mvps[lst]) for lst, ref in enumerate(refs)]
+                else:
+                    ref0 = 0 if col_intra else col["map1" if col_list else "map"][ck]
+                    scale = self.lists.dist_scale[ref0]
+                    mv0 = ((scale * cmv[0] + 128) >> 8, (scale * cmv[1] + 128) >> 8)
+                    block = [(ref0, mv0), (0, (mv0[0] - cmv[0], mv0[1] - cmv[1]))]
+                k = 16 * addr + r
+                s["direct"][k] = 1
+                for lst, (ref, mv) in enumerate(block):
+                    mv_a, ref_a, pic_a, _ = LIST_STATE[lst]
+                    s[ref_a][k] = ref
+                    s[pic_a][k] = self.lists.refs[lst][ref].id if ref >= 0 else -1
+                    s[mv_a][2 * k], s[mv_a][2 * k + 1] = mv
 
     def coded_block_pattern(self, addr, intra):
         if not self.cabac:
@@ -1814,7 +2081,7 @@ class SliceDecoder:
                 conds.append(0 if (luma >> nb8) & 1 else 1)
             elif n < 0 or s["kind"][n] == PCM:
                 conds.append(0)
-            elif s["kind"][n] != PSKIP and (s["cbp"][n] >> nb8) & 1:
+            elif s["kind"][n] not in SKIPS and (s["cbp"][n] >> nb8) & 1:
                 conds.append(0)
             else:
                 conds.append(1)
@@ -1826,7 +2093,8 @@ class SliceDecoder:
         for k, n in enumerate((self.mb_a(addr), self.mb_b(addr))):
             if n < 0:
                 continue
-            chroma = 2 if s["kind"][n] == PCM else 0 if s["kind"][n] == PSKIP else s["cbp"][n] >> 4
+            chroma = 2 if s["kind"][n] == PCM else 0 if s["kind"][n] in SKIPS else \
+                s["cbp"][n] >> 4
             inc[0] += (1 + k) * (chroma != 0)
             inc[1] += (1 + k) * (chroma == 2)
         return inc
@@ -1846,7 +2114,7 @@ class SliceDecoder:
             n, i = self.neighbour4(addr, x, y)
             if n < 0:
                 out.append(None)
-            elif s["kind"][n] == PSKIP:
+            elif s["kind"][n] in SKIPS:
                 out.append(0)
             else:
                 out.append(s["nz"][16 * n + i])
@@ -1864,7 +2132,7 @@ class SliceDecoder:
             n = self.mb_a(addr) if x < 0 else self.mb_b(addr)
             if n < 0:
                 out.append(None)
-            elif s["kind"][n] == PSKIP:
+            elif s["kind"][n] in SKIPS:
                 out.append(0)
             else:
                 out.append(s["nzc"][8 * n + 4 * comp + 2 * (y & 1) + (x & 1)])
@@ -1894,7 +2162,7 @@ class SliceDecoder:
                 cond = 1 if intra else 0
             elif s["kind"][n] == PCM:
                 cond = 1
-            elif s["kind"][n] == PSKIP:
+            elif s["kind"][n] in SKIPS:
                 cond = 0
             elif cat == 0:
                 cond = s["cbfdc"][3 * n] if s["kind"][n] == I16 else 0
@@ -1982,7 +2250,7 @@ class SliceDecoder:
         if kind <= PCM:
             self.intra_pred_residual(addr, kind, t8, coeffs)
         else:
-            self.inter_pred(addr, kind)
+            self.inter_pred(addr)
             self.add_luma_residual(addr, kind, t8, coeffs)
         self.chroma(addr, kind, coeffs)
 
@@ -2115,37 +2383,72 @@ class SliceDecoder:
             return (ty >> 3) * 2 + (tx >> 3) < (by >> 3) * 2 + (bx >> 3)
         return BLK_ORDER[(ty >> 2) * 4 + (tx >> 2)] < BLK_ORDER[(by >> 2) * 4 + (bx >> 2)]
 
-    def inter_pred(self, addr, kind):
-        """Motion-compensated prediction of every partition (4x4 blocks of
-        equal vector and reference merged per 8x8 quarter or partition)."""
+    def inter_pred(self, addr):
+        """Motion-compensated prediction of the macroblock: its 4x4 blocks
+        of equal references and vectors merged into 16x16 or 8x8 blocks
+        (the samples do not depend on the block's size), each predicted
+        from one list or both, weighted as the slice says."""
         s = self.s
         x0, y0 = 16 * (addr % self.mb_w), 16 * (addr // self.mb_w)
         base = 16 * addr
-        blocks = {P16X16: [(0, 0, 16, 16)], P16X8: [(0, 0, 16, 8), (0, 8, 16, 8)],
-                  P8X16: [(0, 0, 8, 16), (8, 0, 8, 16)]}.get(kind)
-        if blocks is None:
-            blocks = [(4 * (r & 3), 4 * (r >> 2), 4, 4) for r in range(16)]
+        keys = [(s["ref"][k], s["ref1"][k], s["mv"][2 * k], s["mv"][2 * k + 1], s["mv1"][2 * k],
+                 s["mv1"][2 * k + 1]) for k in range(base, base + 16)]
+        if keys.count(keys[0]) == 16:
+            blocks = [(0, 0, 16, 16)]
+        else:
+            blocks = []
+            for b8 in range(4):
+                rs = BLK_RASTER[4 * b8:4 * b8 + 4]
+                if all(keys[r] == keys[rs[0]] for r in rs):
+                    blocks.append((8 * (b8 & 1), 8 * (b8 >> 1), 8, 8))
+                else:
+                    blocks += [(4 * (r & 3), 4 * (r >> 2), 4, 4) for r in rs]
         pic = self.pic
         for bx, by, w, h in blocks:
-            k = base + (by >> 2) * 4 + (bx >> 2)
-            ref = s["ref"][k]
-            mvx, mvy = s["mv"][2 * k], s["mv"][2 * k + 1]
-            if ref >= len(self.refs):
-                raise ValueError(f"a reference index {ref} past the list of {len(self.refs)}")
-            rp = self.refs[ref]
-            py = luma_mc(rp.y, x0 + bx, y0 + by, w, h, mvx, mvy)
-            pu = chroma_mc(rp.u, (x0 + bx) >> 1, (y0 + by) >> 1, w >> 1, h >> 1, mvx, mvy)
-            pv = chroma_mc(rp.v, (x0 + bx) >> 1, (y0 + by) >> 1, w >> 1, h >> 1, mvx, mvy)
-            if self.weights is not None:
-                wt = self.weights[ref]
-                ld, cd = self.prm[PR_LUMA_DENOM], self.prm[PR_CHROMA_DENOM]
-                py = weight(py, wt[0], wt[1], ld)
-                pu = weight(pu, wt[2], wt[3], cd)
-                pv = weight(pv, wt[4], wt[5], cd)
+            key = keys[(by >> 2) * 4 + (bx >> 2)]
+            preds = []
+            for lst in range(2):
+                ref, mvx, mvy = key[lst], key[2 + 2 * lst], key[3 + 2 * lst]
+                if ref < 0:
+                    continue
+                refs = self.lists.refs[lst]
+                if ref >= len(refs):
+                    raise ValueError(f"a reference index {ref} past the list of {len(refs)}")
+                rp = refs[ref]
+                cx, cy = (x0 + bx) >> 1, (y0 + by) >> 1
+                preds.append((lst, ref, luma_mc(rp.y, x0 + bx, y0 + by, w, h, mvx, mvy),
+                              chroma_mc(rp.u, cx, cy, w >> 1, h >> 1, mvx, mvy),
+                              chroma_mc(rp.v, cx, cy, w >> 1, h >> 1, mvx, mvy)))
+            if not preds:
+                raise ValueError("an inter block predicted from no list")
+            py, pu, pv = self.weighted(preds)
             pic.y[y0 + by:y0 + by + h, x0 + bx:x0 + bx + w] = py
             cy, cx = (y0 + by) >> 1, (x0 + bx) >> 1
             pic.u[cy:cy + (h >> 1), cx:cx + (w >> 1)] = pu
             pic.v[cy:cy + (h >> 1), cx:cx + (w >> 1)] = pv
+
+    def weighted(self, preds):
+        """The (Y, U, V) prediction of one block from its ``preds`` (list,
+        reference index, Y, U, V) of one list or both (8.4.2.3): the
+        default average, explicit or implicit weights."""
+        mode = self.prm[PR_WEIGHT_MODE]
+        ld, cd = self.prm[PR_LUMA_DENOM], self.prm[PR_CHROMA_DENOM]
+        if len(preds) == 1:
+            lst, ref, py, pu, pv = preds[0]
+            if mode != WEIGHT_EXPLICIT:
+                return py, pu, pv
+            wt = self.lists.weights[lst][ref]
+            return weight(py, wt[0], wt[1], ld), weight(pu, wt[2], wt[3], cd), \
+                weight(pv, wt[4], wt[5], cd)
+        (_, r0, *p0), (_, r1, *p1) = preds
+        if mode == WEIGHT_NONE:
+            return [(a + b + 1) >> 1 for a, b in zip(p0, p1)]
+        if mode == WEIGHT_IMPLICIT:
+            w0 = self.lists.implicit[r0][r1]
+            return [bi_weight(a, b, w0, 64 - w0, 0, 0, 5) for a, b in zip(p0, p1)]
+        w0, w1 = self.lists.weights[0][r0], self.lists.weights[1][r1]
+        return [bi_weight(a, b, w0[2 * c], w1[2 * c], w0[2 * c + 1], w1[2 * c + 1],
+                          ld if c == 0 else cd) for c, (a, b) in enumerate(zip(p0, p1))]
 
     def chroma(self, addr, kind, coeffs):
         s = self.s
@@ -2186,14 +2489,18 @@ def _nc(n):
     return a if a is not None else b if b is not None else 0
 
 
+def _clip8(v):
+    return min(max(v, -128), 127)
+
+
 def chroma_qp(qp, offset):
     return T.CHROMA_QP[min(max(qp + offset, 0), 51)]
 
 
-def decode_slice_py(rbsp, bitpos, prm, pic, refs, weights, level_scale, coverage=None):
+def decode_slice_py(rbsp, bitpos, prm, pic, lists, level_scale, coverage=None):
     """Decode one slice's macroblocks into ``pic`` (planes and state) by
     the plain version; the number of the macroblock after its last."""
-    return SliceDecoder(rbsp, bitpos, prm, pic, refs, weights, level_scale, coverage).decode()
+    return SliceDecoder(rbsp, bitpos, prm, pic, lists, level_scale, coverage).decode()
 
 
 # -- deblocking (8.7) ----------------------------------------------------------------
@@ -2259,11 +2566,19 @@ def _filter_edge(plane, idx_p, idx_q, bs, qp_av, off_a, off_b, chroma):
             plane[r, c] = v
 
 
+def _far(mv, kq, mv2, kp):
+    """Whether two blocks' vectors differ by 4 quarter samples or more."""
+    return abs(mv[2 * kq] - mv2[2 * kp]) >= 4 or abs(mv[2 * kq + 1] - mv2[2 * kp + 1]) >= 4
+
+
 def edge_bs(st, mb_w, addr, n, vertical, edge, mb_edge):
     """bS of the four 4-sample segments of a luma edge (8.7.2.1): macroblock
-    ``addr`` (q) and ``n`` (p, the same for inner edges)."""
-    kind, t8, nz, ref, refpic, mv = (st["kind"], st["t8"], st["nz"], st["ref"], st["refpic"],
-                                     st["mv"])
+    ``addr`` (q) and ``n`` (p, the same for inner edges).  The motion
+    test of a q in a B slice compares both lists' pictures and vectors, in
+    both pairings; of a q in a P slice, list 0's alone (FFmpeg's
+    ``check_mv`` over the q slice's lists)."""
+    kind, t8, nz, refpic, mv = st["kind"], st["t8"], st["nz"], st["refpic"], st["mv"]
+    refpic1, mv1 = st["refpic1"], st["mv1"]
     out = []
     for seg in range(4):
         if vertical:
@@ -2286,11 +2601,12 @@ def edge_bs(st, mb_w, addr, n, vertical, edge, mb_edge):
             out.append(2)
             continue
         kq, kp = 16 * addr + qi, 16 * n + pi
-        if refpic[kq] != refpic[kp] or abs(mv[2 * kq] - mv[2 * kp]) >= 4 or \
-                abs(mv[2 * kq + 1] - mv[2 * kp + 1]) >= 4:
-            out.append(1)
-        else:
-            out.append(0)
+        v = refpic[kq] != refpic[kp] or _far(mv, kq, mv, kp)
+        if st["lists"][addr] == 2:
+            v = v or refpic1[kq] != refpic1[kp] or _far(mv1, kq, mv1, kp)
+            if v and refpic[kq] == refpic1[kp] and refpic1[kq] == refpic[kp]:
+                v = _far(mv, kq, mv1, kp) or _far(mv1, kq, mv, kp)
+        out.append(int(v))
     return out
 
 
@@ -2366,7 +2682,7 @@ def _native_state(pic):
     return np.concatenate([pic.state[name] for name, _, _ in STATE])
 
 
-def decode_slice_native(rbsp, bitpos, prm, pic, refs, weights, level_scale):
+def decode_slice_native(rbsp, bitpos, prm, pic, lists, level_scale):
     """``decode_slice_py`` in C++ (``omh_decode_slice``): the same planes,
     state and end."""
     from .. import kernels
@@ -2374,20 +2690,30 @@ def decode_slice_native(rbsp, bitpos, prm, pic, refs, weights, level_scale):
     lib = kernels.host_library("h264_host")
     prm = np.ascontiguousarray(prm, np.int32)
     buf = np.frombuffer(bytes(rbsp) + bytes(16), np.uint8)
-    n = len(refs)
-    ref_ptrs = (np.array([_ptr(p) for r in refs for p in (r.y, r.u, r.v)] or [0], np.uint64))
+    refs = lists.refs[0] + lists.refs[1]
+    counts = np.array([len(lists.refs[0]), len(lists.refs[1])], np.int32)
+    ref_ptrs = np.array([_ptr(p) for r in refs for p in (r.y, r.u, r.v)] or [0], np.uint64)
     ref_ids = np.array([r.id for r in refs] or [0], np.int32)
-    wt = np.zeros((max(n, 1), 6), np.int32)
-    if weights is not None:
-        wt[:len(weights)] = weights
+    wt = np.zeros((max(len(refs), 1), 6), np.int32)
+    for lst, table in enumerate(lists.weights):
+        if table is not None:
+            at = 0 if lst == 0 else len(lists.refs[0])
+            wt[at:at + len(table)] = table
+    implicit = np.ascontiguousarray(lists.implicit if lists.implicit is not None else [0],
+                                    np.int32)
+    dist = np.ascontiguousarray(lists.dist_scale if lists.dist_scale else [0], np.int32)
+    col = np.concatenate([lists.col[k] for k in ("kind", "ref", "ref1", "mv", "mv1", "map",
+                                                 "map1")]).astype(np.int32) \
+        if lists.col is not None else np.zeros(1, np.int32)
     ls4 = np.ascontiguousarray(level_scale[0], np.int32)
     ls8 = np.ascontiguousarray(level_scale[1], np.int32)
     state = _native_state(pic)
     end = lib.omh_decode_slice(buf.ctypes.data, len(rbsp), bitpos, prm.ctypes.data,
                                _native_tables().ctypes.data, ls4.ctypes.data, ls8.ctypes.data,
-                               ref_ptrs.ctypes.data, ref_ids.ctypes.data, n,
-                               wt.ctypes.data, int(weights is not None), _ptr(pic.y),
-                               _ptr(pic.u), _ptr(pic.v), state.ctypes.data)
+                               ref_ptrs.ctypes.data, ref_ids.ctypes.data, counts.ctypes.data,
+                               wt.ctypes.data, implicit.ctypes.data, dist.ctypes.data,
+                               col.ctypes.data, _ptr(pic.y), _ptr(pic.u), _ptr(pic.v),
+                               state.ctypes.data)
     _unpack_state(pic, state)
     if end < 0:
         raise ValueError(f"a corrupt slice: {lib.omh_error_string(end).decode()}")
@@ -2441,17 +2767,27 @@ def num_reorder_frames(sps):
     return MAX_DPB - 1
 
 
-def probe_delay(packets, extradata=b"", codec_tag=b"", native=True, annexb=False):
+def probe_delay(packets, extradata=b"", codec_tag=b"", native=True, annexb=False, mp4=None):
     """The output delay libavformat's ``avformat_find_stream_info`` leaves
     in the stream's ``video_delay``, which cv2 hands its decoder: the delay
-    of a decoder run over the first packets until FFmpeg takes the delay
-    for guessed (``has_decode_delay_been_guessed``: a delay equal to the
-    SPS's reorder depth, or 7, 18 or 20 frames shown for a delay below 3, 3
-    or more), or to the end of ``packets``."""
-    dec = Decoder(extradata, native=native, codec_tag=codec_tag, annexb=annexb)
+    of a decoder run over the first packets, as far as the probe reads.
+    In AVI: until FFmpeg takes the delay for guessed
+    (``has_decode_delay_been_guessed``: a delay equal to the SPS's reorder
+    depth, or 7, 18 or 20 frames shown for a delay below 3, 3 or more), or
+    to the end of ``packets``.  In MP4, ``mp4`` is (the delay the mov
+    demuxer guesses from the composition offsets, ``mp4.Track.delay``;
+    whether the first packets' offsets show a delay, FFmpeg's
+    ``frame_delay_evidence``): the decoder starts at that delay, and the
+    probe, the rate known from the container, stops once the codec's
+    parameters are (the first packet), or, with that evidence and no delay
+    yet, after three packets or the first that leaves one."""
+    dec = Decoder(extradata, native=native, codec_tag=codec_tag, annexb=annexb,
+                  delay=mp4[0] if mp4 else 0)
     shown = 0
-    for packet in packets:
+    for k, packet in enumerate(packets):
         delay = dec.has_b_frames
+        if mp4 and k and (not mp4[1] or delay or k >= 3):
+            break
         sps = next(iter(dec.sps.values()), None) if dec.cur_header is None else \
             dec.cur_header.sps
         if delay and sps is not None and num_reorder_frames(sps) == delay:
@@ -2499,13 +2835,17 @@ class Decoder:
         self.prev_frame_num_offset = 0
         self.prev_poc_msb, self.prev_poc_lsb = 1 << 16, -1
         self.prev_ref_frame_num = 0
+        self.frame_nums = {}  # each reference picture's frame_num, by pid
         self.max_long_idx = -1  # "no long-term frame indices"
         self.recovery_frame = -1
         self.recovery_frame_cnt = None  # of the last recovery point SEI
         self.frame_recovered = False
         self.colour = (2, False)
         self.pictures = 0
-        self.out = []
+        self.packets = 0  # packets decoded
+        self.out = []  # the frames shown, and the index of each one's packet
+        self.out_packets = []
+        self.shown_packets = []  # of the frames the last decode or flush returned
         if extradata:
             extradata = bytes(extradata)
             if extradata[0] == 1:
@@ -2534,14 +2874,18 @@ class Decoder:
         except (ValueError, EOFError):
             self.cur = None  # a picture cut or damaged inside is not shown
             raise
-        out, self.out = self.out, []
+        finally:
+            self.packets += 1
+        return self._take()
+
+    def _take(self):
+        out, self.shown_packets = self.out, self.out_packets
+        self.out, self.out_packets = [], []
         return out
 
     def flush(self):
         """The frames still held for reordering, in FFmpeg's order."""
         self._finish_picture()
-        out = self.out
-        self.out = []
         while self.delayed:
             pick = 0
             for i in range(1, len(self.delayed)):
@@ -2553,8 +2897,8 @@ class Decoder:
             pic = self.delayed.pop(pick)
             self.frame_recovered |= pic.recovered
             if pic.recovered:
-                out.append(self._planes(pic))
-        return out
+                self._show(pic)
+        return self._take()
 
     def _nal(self, nal):
         if len(nal) < 1 or nal[0] & 0x80:
@@ -2605,15 +2949,14 @@ class Decoder:
     # -- a picture's slices -------------------------------------------------------
     def _slice(self, rbsp, kind, ref_idc):
         h = SliceHeader(rbsp, kind, ref_idc, self.sps, self.pps)
-        self.coverage["slice", "I" if h.type == I_SLICE else "P", "cabac" if h.pps.cabac else
-                 "cavlc"] += 1
+        coder = "cabac" if h.pps.cabac else "cavlc"
+        self.coverage["slice", "IPB"[(I_SLICE, P_SLICE, B_SLICE).index(h.type)], coder] += 1
         if h.first_mb == 0 or self.cur is None:
             self._finish_picture()
             self._start_picture(h)
         elif h.frame_num != self.cur_header.frame_num or h.pps_id != self.cur_header.pps_id:
             raise ValueError("a slice of another picture without first_mb_in_slice 0")
         sps, pps = h.sps, h.pps
-        refs = self._ref_list(h) if h.type == P_SLICE else []
         prm = np.zeros(PR_LEN, np.int32)
         prm[PR_MB_W], prm[PR_MB_H] = sps.mb_w, sps.mb_h
         prm[PR_FIRST_MB], prm[PR_TYPE] = h.first_mb, h.type
@@ -2624,27 +2967,89 @@ class Decoder:
         self.slice_num += 1
         prm[PR_SLICE_NUM] = self.slice_num
         prm[PR_DBK_IDC], prm[PR_DBK_A], prm[PR_DBK_B] = h.deblock_idc, h.alpha_off, h.beta_off
-        weights = None
         if h.weights is not None:
             prm[PR_LUMA_DENOM], prm[PR_CHROMA_DENOM] = h.weights[0], h.weights[1]
-            weights = h.weights[2]
-            self.coverage["weighted P"] += 1
+            prm[PR_WEIGHT_MODE] = WEIGHT_EXPLICIT
+        if h.type == P_SLICE:
+            lists = Lists(self._ref_lists(h)[0], weights=(h.weights and h.weights[2], None))
+            if h.weights is not None:
+                self.coverage["weighted P"] += 1
+        elif h.type == B_SLICE:
+            lists = self._b_lists(h, prm)
+            self.coverage["weighted_bipred_idc", pps.weighted_bipred, coder] += 1
+        else:
+            lists = Lists(())
         self.coverage["deblocking idc", h.deblock_idc] += 1
         if pps.cabac and h.type == P_SLICE:
             self.coverage["cabac_init_idc", h.cabac_init_idc] += 1
+        if pps.cabac and h.type == B_SLICE:
+            self.coverage["cabac_init_idc", "B", h.cabac_init_idc, pps.transform_8x8] += 1
         if self.slice_num > 1:
             self.coverage["several slices a picture"] += 1
-        self.slice_data(rbsp, h, prm, refs, weights)
+        if self.slice_num > 1 and self.cur_header.type != h.type:
+            self.coverage["slice types mixed in a picture"] += 1
+        self.slice_data(rbsp, h, prm, lists)
 
-    def slice_data(self, rbsp, h, prm, refs, weights):
+    def _b_lists(self, h, prm):
+        """A B slice's ``Lists``: both reference lists, its weights (the
+        explicit table, or the implicit weights from the POC distances,
+        8.4.2.3.1), DistScaleFactor (8.4.1.2.3), and the co-located
+        picture (RefPicList1[0]) with its blocks' references mapped to the
+        lowest L0 index of the same picture (FFmpeg's ``map_col_to_list0``,
+        by frame_num; 0 where none is)."""
+        refs0, refs1 = self._ref_lists(h)
+        prm[PR_NUM_REF1] = h.num_ref1
+        prm[PR_WEIGHT_MODE] = h.pps.weighted_bipred
+        prm[PR_DIRECT_SPATIAL] = h.direct_spatial
+        prm[PR_DIRECT_8X8] = h.sps.direct_8x8_inference
+        col = refs1[0]
+        prm[PR_COL_SHORT] = col.ref == "short"
+        cur = self.cur.poc
+
+        def tb_tx(p0, td):
+            """tb * tx (C's division, toward zero)."""
+            return _clip8(cur - p0.poc) * ((16384 + (abs(td) >> 1)) // abs(td)) * \
+                (1 if td > 0 else -1)
+
+        dist = []  # a long-term L0 picture or a td of 0: the vector unscaled
+        for p0 in refs0:
+            td = _clip8(col.poc - p0.poc)
+            dist.append(256 if td == 0 or p0.ref == "long" else
+                        min(max((tb_tx(p0, td) + 32) >> 6, -1024), 1023))
+        implicit = None
+        if h.pps.weighted_bipred == 2:
+            implicit = [[32] * len(refs1) for _ in refs0]
+            for i, p0 in enumerate(refs0):
+                for j, p1 in enumerate(refs1):
+                    td = _clip8(p1.poc - p0.poc)
+                    if td and p0.ref != "long" and p1.ref != "long":
+                        w1 = (tb_tx(p0, td) + 32) >> 8  # DistScaleFactor >> 2
+                        if -64 <= w1 <= 128:
+                            implicit[i][j] = 64 - w1
+        st = col.state
+        arrays = {k: st[k] for k in ("kind", "ref", "ref1", "mv", "mv1")}
+        if h.direct_spatial:
+            arrays["map"] = arrays["map1"] = np.zeros_like(st["ref"])
+        else:
+            pids = np.concatenate([st["refpic"], st["refpic1"]])
+            table = np.zeros(max(int(pids.max()), 0) + 1, np.int32)
+            nums = [p.frame_num for p in refs0]
+            for pid in np.unique(pids[pids >= 0]).tolist():
+                fn = self.frame_nums.get(pid)
+                table[pid] = nums.index(fn) if fn in nums else 0
+            arrays["map"] = table[np.maximum(st["refpic"], 0)]
+            arrays["map1"] = table[np.maximum(st["refpic1"], 0)]
+        weights = (None, None) if h.weights is None else (h.weights[2], h.weights[3])
+        return Lists(refs0, refs1, weights, implicit, dist, arrays)
+
+    def slice_data(self, rbsp, h, prm, lists):
         """Decode the slice's macroblocks into the current picture (the
         fixture writer codes them here instead)."""
         level_scale = (h.pps.level_scale4, h.pps.level_scale8)
         if self.native:
-            decode_slice_native(rbsp, h.bitpos, prm, self.cur, refs, weights, level_scale)
+            decode_slice_native(rbsp, h.bitpos, prm, self.cur, lists, level_scale)
         else:
-            decode_slice_py(rbsp, h.bitpos, prm, self.cur, refs, weights, level_scale,
-                            self.coverage)
+            decode_slice_py(rbsp, h.bitpos, prm, self.cur, lists, level_scale, self.coverage)
 
     def _start_picture(self, h):
         sps = h.sps
@@ -2663,6 +3068,8 @@ class Decoder:
                                   f"{h.frame_num})")
         self.pictures += 1
         pic = Picture(sps.mb_w, sps.mb_h, self.pictures)
+        pic.packet = self.packets
+        pic.b_first = h.type == B_SLICE
         pic.frame_num = h.frame_num
         pic.crop = sps.crop
         pic.full_range = sps.full_range
@@ -2728,19 +3135,46 @@ class Decoder:
         max_frame_num = 1 << h.sps.log2_max_frame_num
         return p.frame_num - max_frame_num if p.frame_num > h.frame_num else p.frame_num
 
-    def _ref_list(self, h):
-        shorts = sorted((p for p in self.dpb if p.ref == "short"),
-                        key=lambda p: -self._pic_num(p, h))
+    def _ref_lists(self, h):
+        """The slice's (RefPicList0, RefPicList1) (8.2.4; L1 empty outside B
+        slices): P's L0 by descending PicNum, B's L0 by POC before the
+        current picture (descending) then after it (ascending), L1 the
+        other way round, swapping L1's first two entries where it equals L0
+        and holds more than one; long-term pictures last; then each list's
+        modifications, cut to its active count."""
+        shorts = [p for p in self.dpb if p.ref == "short"]
         longs = sorted((p for p in self.dpb if p.ref == "long"), key=lambda p: p.long_idx)
-        refs = shorts + longs
-        if h.modifications:
+        if h.type != B_SLICE:
+            init = sorted(shorts, key=lambda p: -self._pic_num(p, h)) + longs
+            return self._modified(h, init, h.modifications, h.num_ref), []
+        cur = self.cur.poc
+        before = sorted((p for p in shorts if p.poc <= cur), key=lambda p: -p.poc)
+        after = sorted((p for p in shorts if p.poc > cur), key=lambda p: p.poc)
+        init0, init1 = before + after + longs, after + before + longs
+        if len(init1) > 1 and all(a is b for a, b in zip(init0, init1)):
+            init1[0], init1[1] = init1[1], init1[0]
+            self.coverage["L1 swapped"] += 1
+        if h.num_ref1 > 1:
+            self.coverage["more than one L1 reference"] += 1
+        for lst, init in enumerate((init0, init1)):
+            if longs and len(init) > len(shorts) and len(shorts) < (h.num_ref, h.num_ref1)[lst]:
+                self.coverage["long-term reference in list", lst] += 1
+        return (self._modified(h, init0, h.modifications, h.num_ref),
+                self._modified(h, init1, h.modifications1, h.num_ref1, 1))
+
+    def _modified(self, h, refs, modifications, num_ref, lst=0):
+        """One list after ``modifications`` (8.2.4.3), cut to ``num_ref``;
+        FFmpeg's "Missing reference picture" fill where it comes short."""
+        if modifications:
             self.coverage["ref list modification"] += 1
+            if lst:
+                self.coverage["modification", "L1"] += 1
             max_pic_num = 1 << h.sps.log2_max_frame_num
             curr = h.frame_num
             pred = curr
-            lst = refs[:h.num_ref] + [None] * max(0, h.num_ref - len(refs))
-            for k, (idc, val) in enumerate(h.modifications):
-                if k >= h.num_ref:
+            lst_ = refs[:num_ref] + [None] * max(0, num_ref - len(refs))
+            for k, (idc, val) in enumerate(modifications):
+                if k >= num_ref:
                     raise ValueError("more reference list modifications than references")
                 if idc in (0, 1):
                     self.coverage["modification", "short"] += 1
@@ -2759,19 +3193,20 @@ class Decoder:
                 if not found:
                     raise ValueError("a reference list modification names no reference")
                 pic = found[0]
-                lst = lst[:k] + [pic] + [p for p in lst[k:] if p is not pic]
-                lst = lst[:h.num_ref]
-            refs = lst
-        refs = refs[:h.num_ref]
-        if len(refs) < h.num_ref or any(p is None for p in refs):
+                lst_ = lst_[:k] + [pic] + [p for p in lst_[k:] if p is not pic]
+                lst_ = lst_[:num_ref]
+            refs = lst_
+        refs = refs[:num_ref]
+        if len(refs) < num_ref or any(p is None for p in refs):
             # FFmpeg: "Missing reference picture": the default fills the gap
             # and the POC history is forgotten
             self.last_pocs = [INT_MIN] * MAX_DPB
             default = next((p for p in refs if p is not None), None)
             if default is None:
-                raise ValueError("a P slice without reference pictures")
+                raise ValueError("an inter slice without reference pictures")
             refs = [p if p is not None else default for p in refs]
-            refs += [default] * (h.num_ref - len(refs))
+            refs += [default] * (num_ref - len(refs))
+            self.coverage["missing reference", lst] += 1
         return refs
 
     # -- the end of a picture -------------------------------------------------------
@@ -2791,6 +3226,7 @@ class Decoder:
         self._select_output(pic, sps)  # FFmpeg selects at the picture's start
         if h.nal_ref_idc:
             self._mark(pic, h)
+            self.frame_nums[pic.id] = pic.frame_num
             if sps.poc_type == 0:
                 self.prev_poc_msb, self.prev_poc_lsb = self.poc_msb, self.poc_lsb
             self.prev_ref_frame_num = pic.frame_num
@@ -2890,7 +3326,7 @@ class Decoder:
                 lp[i - 1] = lp[i]
             i += 1
         out_of_order = MAX_DPB - i
-        if lp[MAX_DPB - 2] > INT_MIN and lp[MAX_DPB - 1] - lp[MAX_DPB - 2] > 2:
+        if cur.b_first or (lp[MAX_DPB - 2] > INT_MIN and lp[MAX_DPB - 1] - lp[MAX_DPB - 2] > 2):
             out_of_order = max(out_of_order, 1)
         if out_of_order == MAX_DPB:
             for k in range(1, MAX_DPB):
@@ -2926,7 +3362,11 @@ class Decoder:
                 self.frame_recovered = True
             out.recovered |= self.frame_recovered
             if out.recovered:
-                self.out.append(self._planes(out))
+                self._show(out)
+
+    def _show(self, pic):
+        self.out.append(self._planes(pic))
+        self.out_packets.append(pic.packet)
 
     def _planes(self, pic):
         left, right, top, bottom = pic.crop

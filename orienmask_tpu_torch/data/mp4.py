@@ -7,9 +7,12 @@ decoder configuration (the VOL headers), or ``avc1``/``avc3`` (H.264), whose
 ``avcC`` record does (``avc3`` may leave it out: its parameter sets travel
 in the samples); its samples come from ``stsz``,
 ``stsc`` and ``stco`` or ``co64`` in decoding order (every sample is
-decoded from the first, so ``stss`` is not read).  One edit of ``elst`` is honoured as FFmpeg honours it:
-samples whose presentation time falls before the edit's media time, or
-past its duration, are decoded but not shown.  The rate is the track's
+decoded from the first, so ``stss`` is not read).  One edit of ``elst`` is
+honoured as FFmpeg's mov demuxer honours it: samples whose presentation
+time (the ``stts`` decoding time plus the ``ctts`` composition offset,
+versions 0 and 1) falls before the edit's media time, or past its
+duration, are decoded but their pictures not shown (``Track.shown``: the
+indices of the samples whose pictures are shown).  The rate is the track's
 time scale times its sample count over the ``stts`` durations, reduced,
 as FFmpeg's demuxer sets the average frame rate that
 ``cv2.CAP_PROP_FPS`` reads; the frame count is the sample count, as
@@ -132,6 +135,8 @@ class Track:
         self.timescale = 0
         self.samples = []
         self.shown = None
+        self.offsets = []  # each sample's composition offset (ctts)
+        self.delay = 0  # the reorder delay the offsets show (FFmpeg's mov_guess_video_delay)
         self.rate = (0, 1)
         self.count = 0
 
@@ -209,6 +214,11 @@ def _track(data, at, size, movie_timescale):
             times.append(clock)
             durations.append(delta)
             clock += delta
+    ctts = _find(data, *stbl, b"ctts")
+    if ctts is not None:  # composition offsets, signed as FFmpeg reads them
+        t.offsets = [off for n, off in _table(data, ctts[0], ">Ii") for _ in range(n)][:count]
+        times = [time + off for time, off in zip(times, t.offsets + [0] * len(times))]
+        t.delay = guess_delay(times)
     total = sum(durations[:count])
     if total and t.timescale:
         f = fractions.Fraction(t.timescale * count, total)
@@ -231,6 +241,23 @@ def _track(data, at, size, movie_timescale):
             t.shown = [i for i, time in enumerate(times[:count])
                        if time >= media_time and (end is None or time < end)]
     return t, fourcc
+
+
+def guess_delay(times):
+    """The most presentation times of earlier samples one sample's time
+    passes, in decoding order, within a window of 17 (FFmpeg's
+    ``mov_guess_video_delay`` for an H.264 track with ``ctts``)."""
+    window, delay = [], 0
+    for time in times:
+        window = window[-16:] + [time]
+        j = len(window) - 1
+        swaps = 0
+        while j > 0 and window[j] < window[j - 1]:
+            window[j], window[j - 1] = window[j - 1], window[j]
+            swaps += 1
+            j -= 1
+        delay = max(delay, swaps)
+    return delay
 
 
 def read(data):

@@ -4,7 +4,7 @@ CLI's ``cv2.VideoCapture`` and ``cv2.VideoWriter(..., "mp4v", ...)``.
 ``VideoReader(path)`` picks the container by the file's first bytes (RIFF
 AVI or ISO BMFF), not by its name, and decodes its MPEG-4 Part 2 Simple or
 Advanced Simple Profile video (``data/mpeg4.py``; XviD's and DivX's
-streams too), its H.264 I and P pictures (``data/h264.py``) or, in AVI, its
+streams too), its H.264 I, P and B pictures (``data/h264.py``) or, in AVI, its
 Motion JPEG (``data/mjpeg.py``) to (H, W, 3) uint8 RGB frames, bit for bit
 as ``cv2.VideoCapture`` reads them after ``cvtColor(BGR2RGB)``
 (``data/yuv.py``; an H.264 frame by its colour matrix and range).  ``fps``
@@ -33,7 +33,7 @@ READABLE = ("MPEG-4 Part 2 Simple and Advanced Simple Profile video (I-, P- and 
             "quarter-pel, MPEG quantisation, resync markers, data partitioning, f_code 1-7; "
             "XviD's and DivX's streams, DivX packed bitstreams) in MP4 ('mp4v') or AVI "
             "('mp4v', 'FMP4', 'XVID', 'XVIX', 'DIVX', 'DX50', 'DIV1', 'MP4S', 'M4S2', 'RMP4', "
-            "'SIPP', 'ZMP4', '3IV2'), H.264 I and P slices of progressive 8-bit 4:2:0 video "
+            "'SIPP', 'ZMP4', '3IV2'), H.264 I, P and B slices of progressive 8-bit 4:2:0 video "
             "(CAVLC and CABAC, Baseline, Main and High profiles) in MP4 ('avc1', 'avc3') or "
             "AVI ('H264', 'h264', 'X264', 'x264', 'avc1', 'AVC1', 'DAVC'), and 4:2:0 or "
             "4:2:2 Motion JPEG in AVI ('MJPG', 'AVI1')")
@@ -64,6 +64,7 @@ class VideoReader:
             self._data = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) if size else b""
         data = self._data
         self.shown = None
+        self.probe = None  # an MP4's (delay, evidence) for cv2's probe (h264.probe_delay)
         self.colour = (2, False)  # an H.264 frame's colour matrix and range
         try:
             self.codec = "mpeg4"
@@ -91,6 +92,7 @@ class VideoReader:
                 self.fps = track.fps
                 self.frame_count = track.count
                 self.shown = None if track.shown is None else set(track.shown)
+                self.probe = (track.delay, any(track.offsets[:3]))
                 self.codec_tag = track.fourcc
                 if track.fourcc != b"mp4v":
                     self.codec = "h264"
@@ -132,7 +134,7 @@ class VideoReader:
         try:
             if self.codec == "h264":  # cv2 starts its decoder at the delay the probe found
                 delay = h264.probe_delay(self.packet_bytes(), self.config, self.codec_tag,
-                                         annexb=self.annexb)
+                                         annexb=self.annexb, mp4=self.probe)
                 decoder = h264.Decoder(self.config, codec_tag=self.codec_tag, delay=delay,
                                        annexb=self.annexb)
             else:
@@ -151,12 +153,18 @@ class VideoReader:
                     break  # a last packet cut inside: the frames before it stand
                 # FFmpeg conceals the damage and goes on; the port stops, naming it
                 raise UnsupportedVideo(self.path, f"a corrupt packet {index} ({e})") from None
-            if self.shown is not None and index not in self.shown:
-                continue
-            for frame in frames:
+            yield from self._shown(decoder, frames, index)
+        yield from self._shown(decoder, decoder.flush(), None)
+
+    def _shown(self, decoder, frames, index):
+        """``frames`` less those an MP4 edit leaves out: an H.264 picture by
+        the packet that held it (FFmpeg's discarded packet drops its
+        picture wherever it lands in output order), an MPEG-4 one by the
+        packet ``index`` it came out after (None: the flush)."""
+        tags = decoder.shown_packets if self.codec == "h264" else [index] * len(frames)
+        for frame, tag in zip(frames, tags):
+            if self.shown is None or tag is None or tag in self.shown:
                 yield self._frame(decoder, frame)
-        for frame in decoder.flush():
-            yield self._frame(decoder, frame)
 
     def _frame(self, decoder, planes):
         if self.codec == "h264":

@@ -132,10 +132,12 @@ HOST_SIGNATURES = {
     },
     "h264_host": {
         # RBSP, its length, bit position, parameters, tables, LevelScale4x4,
-        # LevelScale8x8, the references' (Y, U, V) pointers, their picture
-        # ids, their count, weights, weighted, Y, U, V, state
-        "omh_decode_slice": (_L, [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
-                                  _P]),
+        # LevelScale8x8, the references' (Y, U, V) pointers (L0's, then
+        # L1's), their picture ids, each list's count, explicit weights,
+        # implicit weights, DistScaleFactor, the co-located arrays, Y, U, V,
+        # state
+        "omh_decode_slice": (_L, [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P]),
         "omh_error_string": (ctypes.c_char_p, [_I]),
         # Y, U, V, mb_w, mb_h, Cb and Cr QP offsets, state, tables
         "omh_deblock": (None, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),

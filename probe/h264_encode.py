@@ -1,10 +1,11 @@
 """An H.264 writer for the fixtures of ``make_h264_fixtures.py``: it is not
-a good encoder.  It writes conformant CAVLC and CABAC streams of I and P
-slices whose syntax it chooses, macroblock by macroblock, either from a
+a good encoder.  It writes conformant CAVLC and CABAC streams of I, P and
+B slices whose syntax it chooses, macroblock by macroblock, either from a
 seed (``RandomChooser``: every macroblock and sub-macroblock type, intra
 mode, reference, vector, coefficient and QP change the fixture's tools
 allow) or from pictures (``ContentChooser``: intra 16x16 or motion-searched
-inter macroblocks, skipped ones where the prediction holds).
+inter macroblocks, from one list or both in B slices, skipped or direct
+ones where the prediction holds).
 
 It codes the macroblock layer through the port's own decoder
 (``orienmask_tpu_torch/data/h264.py``): ``SliceWriter`` overrides the
@@ -318,7 +319,7 @@ def sps_rbsp(c):
     w.bit(c.get("frame_mbs_only", 1))
     if not c.get("frame_mbs_only", 1):
         w.bit(0)
-    w.bit(1)  # direct_8x8_inference_flag
+    w.bit(c.get("direct_8x8_inference", 1))
     crop = c.get("crop")
     w.bit(crop is not None)
     if crop is not None:
@@ -375,9 +376,9 @@ def pps_rbsp(c):
         for _ in range(c.num_slice_groups):
             w.ue(0)
     w.ue(c.get("num_ref_idx_default", 1) - 1)
-    w.ue(0)
+    w.ue(c.get("num_ref_idx_default1", 1) - 1)
     w.bit(c.get("weighted_pred", 0))
-    w.u(2, 0)
+    w.u(2, c.get("weighted_bipred", 0))
     w.se(c.get("init_qp", 26) - 26)
     w.se(0)
     w.se(c.get("cb_qp_offset", 0))
@@ -409,32 +410,39 @@ def slice_header(w, c, sps, pps):
         w.se(c.get("delta_poc0", 0))
     if pps.get("redundant_pic_cnt_present", 0):
         w.ue(c.get("redundant_pic_cnt", 0))
-    if c.slice_type == H.P_SLICE:
-        override = c.get("num_ref") is not None
+    b_slice = c.slice_type == H.B_SLICE
+    if b_slice:
+        w.bit(c.get("direct_spatial", 1))
+    if c.slice_type in (H.P_SLICE, H.B_SLICE):
+        override = c.get("num_ref") is not None or c.get("num_ref1") is not None
         w.bit(override)
         if override:
-            w.ue(c.num_ref - 1)
-        mods = c.get("modifications") or []
-        w.bit(bool(mods))
-        if mods:
-            for idc, val in mods:
-                w.ue(idc)
-                w.ue(val)
-            w.ue(3)
-        if pps.get("weighted_pred", 0):
-            ld, cd, table = c.weights
+            w.ue(c.get("num_ref", pps.get("num_ref_idx_default", 1)) - 1)
+            if b_slice:
+                w.ue(c.get("num_ref1", pps.get("num_ref_idx_default1", 1)) - 1)
+        for key in ("modifications", "modifications1") if b_slice else ("modifications",):
+            mods = c.get(key) or []
+            w.bit(bool(mods))
+            if mods:
+                for idc, val in mods:
+                    w.ue(idc)
+                    w.ue(val)
+                w.ue(3)
+        if (pps.get("weighted_pred", 0) and not b_slice) or \
+                (pps.get("weighted_bipred", 0) == 1 and b_slice):
+            ld, cd, *tables = c.weights
             w.ue(ld)
             w.ue(cd)
-            for entry in table:
-                luma, chroma = entry
-                w.bit(luma is not None)
-                if luma is not None:
-                    w.se(luma[0])
-                    w.se(luma[1])
-                w.bit(chroma is not None)
-                if chroma is not None:
-                    for v in chroma:
-                        w.se(v)
+            for table in tables:
+                for luma, chroma in table:
+                    w.bit(luma is not None)
+                    if luma is not None:
+                        w.se(luma[0])
+                        w.se(luma[1])
+                    w.bit(chroma is not None)
+                    if chroma is not None:
+                        for v in chroma:
+                            w.se(v)
     if c.nal_ref_idc:
         if c.idr:
             w.bit(0)
@@ -493,52 +501,37 @@ class SliceWriter(H.SliceDecoder):
     macroblock as ``chooser(writer, addr)`` plans it, reconstructing it as
     the decoder would."""
 
-    def __init__(self, w, prm, pic, refs, weights, level_scale, chooser, last_mb, coverage):
+    def __init__(self, w, prm, pic, lists, level_scale, chooser, last_mb, coverage):
         self.coverage = coverage
-        self.prm = prm
-        self.mb_w, self.mb_h = prm[H.PR_MB_W], prm[H.PR_MB_H]
-        self.pic = pic
-        self.refs = refs
-        self.weights = weights
-        self.ls4, self.ls8 = level_scale
-        self.cabac = bool(prm[H.PR_CABAC])
-        self.slice_type = prm[H.PR_TYPE]
-        self.num_ref = prm[H.PR_NUM_REF]
-        self.slice_num = prm[H.PR_SLICE_NUM]
-        self.constrained = prm[H.PR_CONSTRAINED]
-        self.t8_mode = prm[H.PR_T8_MODE]
-        self.s = {k: v.tolist() for k, v in pic.state.items()}
+        self.setup(prm, pic, lists, level_scale)
         self.w = w
         if self.cabac:
             w.align(1)  # cabac_alignment_one_bit
-            self.ent = CabacWriter(w, prm[H.PR_INIT_IDC] if self.slice_type == H.P_SLICE else -1,
+            self.ent = CabacWriter(w, prm[H.PR_INIT_IDC] if self.slice_type != H.I_SLICE else -1,
                                    prm[H.PR_QP])
         else:
             self.ent = w
-        self.qp = prm[H.PR_QP]
-        self.last_dqp = 0
-        self.done = [False] * 16
         self.chooser = chooser
         self.last_mb = last_mb
 
     def encode(self):
         addr = self.prm[H.PR_FIRST_MB]
-        p_slice = self.slice_type == H.P_SLICE
+        inter = self.slice_type != H.I_SLICE
         run = 0
         while addr <= self.last_mb:
             self.check(addr)
             self.plan = self.chooser(self, addr)
-            if p_slice and self.plan.skip:
+            if inter and self.plan.skip:
                 if self.cabac:
-                    self.ent.mb_skip(self.skip_ctx(addr), 1)
-                self.p_skip(addr)
+                    self.ent.mb_skip(self.skip_ctx(addr), 1, base=self.skip_base())
+                self.skip(addr)
                 run += 1
             else:
-                if p_slice and not self.cabac:
+                if inter and not self.cabac:
                     self.w.ue(run)
                     run = 0
-                if p_slice and self.cabac:
-                    self.ent.mb_skip(self.skip_ctx(addr), 0)
+                if inter and self.cabac:
+                    self.ent.mb_skip(self.skip_ctx(addr), 0, base=self.skip_base())
                 self.macroblock(addr)
             if self.cabac:
                 self.ent.terminate(int(addr == self.last_mb))
@@ -558,6 +551,8 @@ class SliceWriter(H.SliceDecoder):
             self.w.ue(v)
         elif self.slice_type == H.P_SLICE:
             self.ent.mb_type_p(v)
+        elif self.slice_type == H.B_SLICE:
+            self.ent.mb_type_b(self.mb_type_b_inc(addr), v)
         else:
             self.ent.mb_type_i(self.mb_type_inc(addr), v)
         return v
@@ -592,31 +587,33 @@ class SliceWriter(H.SliceDecoder):
 
     def sub_mb_type(self):
         v = next(self.plan.subs)
-        if self.cabac:
-            self.ent.sub_mb_type(v)
-        else:
+        if not self.cabac:
             self.w.ue(v)
+        elif self.slice_type == H.B_SLICE:
+            self.ent.sub_mb_type_b(v)
+        else:
+            self.ent.sub_mb_type(v)
         return v
 
-    def ref_idx(self, addr, x, y):
+    def ref_idx(self, addr, x, y, lst=0):
         v = next(self.plan.refs)
         if self.cabac:
-            self.ent.ref_idx(self.ref_inc(addr, x, y), v)
+            self.ent.ref_idx(self.ref_inc(addr, x, y, lst), v)
         else:
-            self.w.te(self.num_ref - 1, v)
+            self.w.te(self.num_ref[lst] - 1, v)
         return v
 
-    def motion_vector(self, addr, x, y, w, h, mvp):
+    def motion_vector(self, addr, x, y, w, h, mvp, lst=0):
         mv = next(self.plan.mvs)
         if callable(mv):
             mv = mv(mvp)
         mvd = (mv[0] - mvp[0], mv[1] - mvp[1])
         for comp in range(2):
             if self.cabac:
-                self.ent.mvd(comp, self.mvd_inc(addr, x, y, comp), mvd[comp])
+                self.ent.mvd(comp, self.mvd_inc(addr, x, y, comp, lst), mvd[comp])
             else:
                 self.w.se(mvd[comp])
-        self.store_mv(addr, x, y, w, h, mv[0], mv[1], mvd)
+        self.store_mv(addr, x, y, w, h, mv[0], mv[1], mvd, lst)
 
     def coded_block_pattern(self, addr, intra):
         v = self.plan.cbp
@@ -671,9 +668,9 @@ class WriterDecoder(H.Decoder):
         super().__init__(native=False)
         self.job = None  # (writer, chooser, last macroblock)
 
-    def slice_data(self, rbsp, h, prm, refs, weights):
+    def slice_data(self, rbsp, h, prm, lists):
         w, chooser, last_mb = self.job
-        SliceWriter(w, prm, self.cur, refs, weights, (h.pps.level_scale4, h.pps.level_scale8),
+        SliceWriter(w, prm, self.cur, lists, (h.pps.level_scale4, h.pps.level_scale8),
                     chooser, last_mb, self.coverage).encode()
 
 
@@ -721,8 +718,7 @@ class Stream:
             self.dec._slice(w.partial(), 5 if idr else 1, nal_ref_idc)
             nals.append(nal(nal_ref_idc, 5 if idr else 1, w.rbsp()))
         self.dec._finish_picture()
-        self.frames += self.dec.out
-        self.dec.out = []
+        self.frames += self.dec._take()
         self.packets.append(self.wrap(nals))
         self.keys.append(idr)
         self.pictures += 1
@@ -775,14 +771,17 @@ def _valid(need, top, left, corner):
 
 class RandomChooser:
     """Random syntax: ``kinds`` weights of the macroblock kinds allowed
-    (per slice type), coefficient ``density``, ``dqp`` probability, vector
+    (per slice type; B's "direct", "B16x16", "B16x8", "B8x16", "B8x8",
+    "skip", "intra"), coefficient ``density``, ``dqp`` probability, vector
     ``mv_range`` (quarter samples), ``pcm`` weight, ``t8`` probability."""
 
     def __init__(self, seed, i_kinds=None, p_kinds=None, density=0.25, dqp=0.1, mv_range=40,
-                 t8=0.5, big=0.02, max_level=12):
+                 t8=0.5, big=0.02, max_level=12, b_kinds=None):
         self.rng = np.random.default_rng(seed)
         self.i_kinds = i_kinds or {"I4": 3, "I16": 3}
         self.p_kinds = p_kinds or {"P16x16": 3, "skip": 3}
+        self.b_kinds = b_kinds or {"direct": 2, "B16x16": 3, "B16x8": 1.5, "B8x16": 1.5,
+                                   "B8x8": 2, "skip": 2, "intra": 0.5}
         self.density, self.dqp, self.mv_range, self.t8p = density, dqp, mv_range, t8
         self.big, self.max_level = big, max_level
 
@@ -810,14 +809,15 @@ class RandomChooser:
     def __call__(self, w, addr):
         rng = self.rng
         p_slice = w.slice_type == H.P_SLICE
-        kind = self.pick(self.p_kinds if p_slice else self.i_kinds)
+        b_slice = w.slice_type == H.B_SLICE
+        kind = self.pick(self.b_kinds if b_slice else self.p_kinds if p_slice else self.i_kinds)
         if kind == "skip":
             return Plan(skip=True)
         if kind == "intra":
             kind = self.pick(self.i_kinds)
         plan = Plan()
         plan.block = self.block_levels(w, addr)
-        base = 5 if p_slice else 0
+        base = 23 if b_slice else 5 if p_slice else 0
         if kind == "PCM":
             plan.mb_type = base + 25
             plan.pcm = bytes(int(v) for v in rng.integers(1, 256, 384))
@@ -853,10 +853,12 @@ class RandomChooser:
             cmodes = [m for m, need in ((0, ""), (1, "l"), (2, "t"), (3, "tlc"))
                       if _valid(need, top, left, corner)]
             plan.cmode = int(rng.choice(cmodes))
+        elif b_slice:
+            self.b_plan(w, plan, kind)
         else:
             plan.mb_type = {"P16x16": 0, "P16x8": 1, "P8x16": 2, "P8x8": 3, "P8x8ref0": 4}[kind]
             n_parts = {0: 1, 1: 2, 2: 2, 3: 4, 4: 4}[plan.mb_type]
-            refs = [int(rng.integers(0, w.num_ref)) for _ in range(n_parts)]
+            refs = [int(rng.integers(0, w.num_ref[0])) for _ in range(n_parts)]
             if plan.mb_type == 4:
                 refs = [0] * 4
             plan.refs = iter(refs)
@@ -869,19 +871,45 @@ class RandomChooser:
             else:
                 n_mv = n_parts
                 small = False
-            r = self.mv_range
-            for _ in range(n_mv):
-                if rng.random() < 0.3:
-                    mvs.append(lambda mvp: mvp)  # a zero mvd
-                else:
-                    mvs.append((int(rng.integers(-r, r + 1)), int(rng.integers(-r, r + 1))))
-            plan.mvs = iter(mvs)
+            plan.mvs = iter([self.mv() for _ in range(n_mv)])
             plan.cbp = int(rng.integers(0, 48)) if rng.random() < 0.8 else 0
             plan.t8 = int(w.t8_mode and not small and rng.random() < self.t8p)
         if rng.random() < self.dqp:
             plan.dqp = int(rng.integers(-3, 4)) if rng.random() < 0.8 else \
                 int(rng.integers(-26, 26))
         return plan
+
+    def mv(self):
+        """A vector, or a zero mvd (30 %)."""
+        rng, r = self.rng, self.mv_range
+        if rng.random() < 0.3:
+            return lambda mvp: mvp
+        return int(rng.integers(-r, r + 1)), int(rng.integers(-r, r + 1))
+
+    def b_plan(self, w, plan, kind):
+        """A B macroblock of ``kind``: its mb_type (and sub types), and its
+        references and vectors in the order the syntax asks for them (every
+        ref_idx_l0, ref_idx_l1, mvd_l0, mvd_l1; a list of one reference has
+        no ref_idx)."""
+        rng = self.rng
+        if kind == "direct":
+            plan.mb_type, parts = 0, []
+        elif kind == "B8x8":
+            plan.mb_type = 22
+            subs = [int(rng.integers(0, 13)) for _ in range(4)]
+            plan.subs = iter(subs)
+            parts = [(H.B_SUB_TYPES[t][2], 4 // (H.B_SUB_TYPES[t][0] * H.B_SUB_TYPES[t][1] // 16))
+                     for t in subs if t]
+        else:
+            plan.mb_type = int(rng.choice({"B16x16": (1, 2, 3), "B16x8": range(4, 22, 2),
+                                           "B8x16": range(5, 22, 2)}[kind]))
+            parts = [(m, 1) for m in H.B_MB_TYPES[plan.mb_type][1]]
+        plan.refs = iter([int(rng.integers(0, w.num_ref[lst])) for lst in range(2)
+                          if w.num_ref[lst] > 1 for used, _ in parts if used >> lst & 1])
+        plan.mvs = iter([self.mv() for lst in range(2) for used, count in parts
+                         if used >> lst & 1 for _ in range(count)])
+        plan.cbp = int(rng.integers(0, 48)) if rng.random() < 0.8 else 0
+        plan.t8 = int(w.t8_mode and rng.random() < self.t8p)
 
     def block_levels(self, w, addr):
         """The plan's ``block``: random levels, asked for in the order the
@@ -1089,7 +1117,12 @@ class ContentChooser:
             plan = self.inter(w, addr, x0, y0, cur)
             if plan is not None:
                 return plan
-        return self.intra(w, addr, x0, y0, cur, 5 if w.slice_type == H.P_SLICE else 0)
+        if w.slice_type == H.B_SLICE:
+            plan = self.inter_b(w, addr, x0, y0, cur)
+            if plan is not None:
+                return plan
+        return self.intra(w, addr, x0, y0, cur, {H.I_SLICE: 0, H.P_SLICE: 5,
+                                                 H.B_SLICE: 23}[w.slice_type])
 
     def intra(self, w, addr, x0, y0, cur, base):
         Y, U, V = self.frame
@@ -1179,7 +1212,7 @@ class ContentChooser:
     def inter(self, w, addr, x0, y0, cur):
         skip_mv = w.p_skip_mv(addr)
         best = None
-        for ref_idx, ref in enumerate(w.refs[:w.num_ref]):
+        for ref_idx, ref in enumerate(w.lists.refs[0][:w.num_ref[0]]):
             mvp = w.mv_pred(addr, 0, 0, 16, 16, ref_idx, H.P16X16, 0)
             cost, mv = self.search(w, ref, x0, y0, cur, mvp)
             cost += abs(mv[0] - mvp[0]) + abs(mv[1] - mvp[1]) + 8 * ref_idx
@@ -1188,27 +1221,99 @@ class ContentChooser:
         if best is None:
             return None
         _, ref_idx, mv = best
-        ref = w.refs[ref_idx]
+        ref = w.lists.refs[0][ref_idx]
         pred = H.luma_mc(ref.y, x0, y0, 16, 16, mv[0], mv[1])
         sad = int(np.abs(cur - pred).sum())
         if sad > 16 * 16 * 30:  # intra predicts it better
             return None
         self.chroma_pred = [H.chroma_mc(p, x0 // 2, y0 // 2, 8, 8, mv[0], mv[1])
                             for p in (ref.u, ref.v)]
+        blocks, cbp, t8 = self.residual_levels(w, cur - pred)
+        chroma_levels, chroma_cbp = self.chroma(w, x0 // 2, y0 // 2, False)
+        blocks.update(chroma_levels)
+        cbp |= chroma_cbp << 4
+        if cbp == 0 and ref_idx == 0 and tuple(mv) == tuple(skip_mv):
+            return Plan(skip=True)
+        return Plan(mb_type=0, refs=iter([ref_idx]), mvs=iter([mv]), cbp=cbp, t8=t8,
+                    block=lambda cat, comp, r, n: blocks[(cat, comp, r)])
+
+
+    @staticmethod
+    def predicted(w, addr, x0, y0, refs=None, mvs=None):
+        """The decoder's (Y, U, V) prediction of macroblock ``addr``: direct
+        where ``refs`` is None, else from one 16x16 partition of L0 and L1
+        indices ``refs`` (-1: the list unused) and vectors ``mvs``.  The
+        macroblock's state and samples are written again when it is
+        coded."""
+        s = w.s
+        if refs is None:
+            w.direct(addr, range(4))
+        else:
+            for k in range(16 * addr, 16 * addr + 16):
+                for lst in range(2):
+                    mv, ref, _, _ = H.LIST_STATE[lst]
+                    s[ref][k] = refs[lst]
+                    s[mv][2 * k], s[mv][2 * k + 1] = mvs[lst]
+        w.inter_pred(addr)
+        pic = w.pic
+        return (pic.y[y0:y0 + 16, x0:x0 + 16].astype(np.int32),
+                [p[y0 // 2:y0 // 2 + 8, x0 // 2:x0 // 2 + 8].astype(np.int32)
+                 for p in (pic.u, pic.v)])
+
+    def inter_b(self, w, addr, x0, y0, cur, searched=(2, 1)):
+        """A B macroblock: direct (B_Skip where no coefficient survives),
+        or the best of L0, L1 and both from each list's motion search over
+        its first ``searched`` references, as one 16x16 partition."""
+        cands = []
+        pred, _ = self.predicted(w, addr, x0, y0)
+        cands.append((int(np.abs(cur - pred).sum()) - 64, None, None))
+        best = []
+        for lst in range(2):
+            found = None
+            for ref_idx, ref in enumerate(w.lists.refs[lst][:min(w.num_ref[lst], searched[lst])]):
+                mvp = w.mv_pred(addr, 0, 0, 16, 16, ref_idx, H.B16X16, 0, lst)
+                cost, mv = self.search(w, ref, x0, y0, cur, mvp)
+                cost += abs(mv[0] - mvp[0]) + abs(mv[1] - mvp[1]) + 8 * ref_idx
+                if found is None or cost < found[0]:
+                    found = (cost, ref_idx, mv)
+            best.append(found)
+        for mode in (1, 2, 3):
+            refs = [best[lst][1] if mode >> lst & 1 else -1 for lst in range(2)]
+            mvs = [best[lst][2] if mode >> lst & 1 else (0, 0) for lst in range(2)]
+            pred, _ = self.predicted(w, addr, x0, y0, refs, mvs)
+            cands.append((int(np.abs(cur - pred).sum()) + 16 * bin(mode).count("1"), refs, mvs))
+        cost, refs, mvs = min(cands, key=lambda c: c[0])
+        if cost > 16 * 16 * 30:
+            return None
+        pred, self.chroma_pred = self.predicted(w, addr, x0, y0, refs, mvs)
+        blocks, cbp, t8 = self.residual_levels(w, cur - pred, w.prm[H.PR_DIRECT_8X8] or refs)
+        chroma_levels, chroma_cbp = self.chroma(w, x0 // 2, y0 // 2, False)
+        blocks.update(chroma_levels)
+        cbp |= chroma_cbp << 4
+        block = lambda cat, comp, r, n: blocks[(cat, comp, r)]  # noqa: E731
+        if refs is None:
+            return Plan(skip=True) if cbp == 0 else Plan(mb_type=0, cbp=cbp, t8=t8, block=block)
+        mode = (refs[0] >= 0) | (refs[1] >= 0) << 1
+        return Plan(mb_type=mode, refs=iter([refs[lst] for lst in range(2)
+                                             if refs[lst] >= 0 and w.num_ref[lst] > 1]),
+                    mvs=iter([mvs[lst] for lst in range(2) if refs[lst] >= 0]), cbp=cbp,
+                    t8=t8, block=block)
+
+    def residual_levels(self, w, res, t8_allowed=True):
+        """The luma levels of an inter residual keyed as ``block`` asks for
+        them, its luma coded_block_pattern, and transform_size_8x8_flag."""
         qp = w.qp
-        res = cur - pred
         blocks = {}
-        t8 = w.t8_mode
+        t8 = int(bool(w.t8_mode and t8_allowed))
         cbp = 0
         if t8:
             ls = w.ls8[1][qp % 6]
             for b8 in range(4):
                 bx, by = 8 * (b8 & 1), 8 * (b8 >> 1)
                 lv = self.q.levels("8x8", ls, qp, res[by:by + 8, bx:bx + 8], 0.2)
-                r0 = H.BLK_RASTER[4 * b8]
                 if np.any(lv):
                     cbp |= 1 << b8
-                blocks[(5, 0, r0)] = list(lv)
+                blocks[(5, 0, H.BLK_RASTER[4 * b8])] = list(lv)
                 for k in range(4):  # CAVLC's four interleaved 4x4 blocks
                     blocks[(2, 0, H.BLK_RASTER[4 * b8 + k])] = list(lv[k::4])
         else:
@@ -1219,20 +1324,18 @@ class ContentChooser:
                 if np.any(lv):
                     cbp |= 1 << ((r >> 3) * 2 + ((r & 3) >> 1))
                 blocks[(2, 0, r)] = list(lv)
-        chroma_levels, chroma_cbp = self.chroma(w, x0 // 2, y0 // 2, False)
-        blocks.update(chroma_levels)
-        cbp |= chroma_cbp << 4
-        if cbp == 0 and ref_idx == 0 and tuple(mv) == tuple(skip_mv):
-            return Plan(skip=True)
-        return Plan(mb_type=0, refs=iter([ref_idx]), mvs=iter([mv]), cbp=cbp, t8=int(t8),
-                    block=lambda cat, comp, r, n: blocks[(cat, comp, r)])
+        return blocks, cbp, t8
 
 
 # -- containers -------------------------------------------------------------------------
 
-def write_mp4(path, packets, keys, width, height, rate, avcc, entry=b"avc1"):
+def write_mp4(path, packets, keys, width, height, rate, avcc, entry=b"avc1", offsets=None,
+              media_time=None):
     """An MP4 of ``packets`` whose sample entry is ``entry`` with ``avcC``
-    (the port's writer, its ``mp4v`` entry and ``esds`` replaced)."""
+    (the port's writer, its ``mp4v`` entry and ``esds`` replaced); with
+    ``offsets`` (each sample's composition offset, in frames) a ``ctts``
+    box after ``stts``, and the edit's media time ``media_time`` frames
+    (FFmpeg's mov muxer writes the first sample's offset there)."""
     class AvcWriter(mp4.Writer):
         def _esds(self):
             return mp4._box(b"avcC", self.config) if self.config is not None else b""
@@ -1244,7 +1347,46 @@ def write_mp4(path, packets, keys, width, height, rate, avcc, entry=b"avc1"):
     writer.close()
     data = buf.getvalue()
     at = data.index(b"mp4v", data.index(b"stsd"))
-    Path(path).write_bytes(data[:at] + entry + data[at + 4:])
+    data = data[:at] + entry + data[at + 4:]
+    if offsets is not None:
+        runs = []
+        for off in offsets:
+            if runs and runs[-1][1] == off * writer.delta:
+                runs[-1][0] += 1
+            else:
+                runs.append([1, off * writer.delta])
+        ctts = mp4._full_box(b"ctts", 0, 0, struct.pack(">I", len(runs)) + b"".join(
+            struct.pack(">II", n, v) for n, v in runs))
+
+        def edit(kind, payload):
+            if kind == b"stbl":
+                stts = next(a + n for k, a, n in mp4.boxes(payload, 0, len(payload))
+                            if k == b"stts")
+                return payload[:stts] + ctts + payload[stts:]
+            if kind == b"elst":
+                return payload[:12] + struct.pack(">i", (media_time or 0) * writer.delta) + \
+                    payload[16:]
+            return payload
+
+        moov = data.rindex(b"moov") - 4
+        data = data[:moov] + _rewrite(data[moov:], edit)
+    Path(path).write_bytes(data)
+
+
+_CONTAINERS = (b"moov", b"trak", b"edts", b"mdia", b"minf", b"stbl")
+
+
+def _rewrite(buf, edit):
+    """The boxes of ``buf``, each container's boxes rewritten first, each
+    payload through ``edit(kind, payload)``, the sizes set anew."""
+    out = b""
+    for kind, at, size in mp4.boxes(buf, 0, len(buf)):
+        payload = buf[at:at + size]
+        if kind in _CONTAINERS:
+            payload = _rewrite(payload, edit)
+        payload = edit(kind, payload)
+        out += struct.pack(">I4s", 8 + len(payload), kind) + payload
+    return out
 
 
 def write_avi(path, packets, keys, width, height, rate, fourcc=b"H264", extradata=b""):

@@ -31,15 +31,31 @@ each aimed at a group of tools, together cover every one the port reads:
   ``h264_recovery_sei.avi`` (a non-IDR I picture first, with a recovery
   point SEI), ``h264_params_strf.avi`` (two SPS and PPS ids, CAVLC and
   CABAC pictures, the parameter sets only in ``strf``'s extradata);
-* ``h264_clip_96x128.mp4``: a pan coded from pictures, for both CLIs.
+* ``h264_clip_96x128.mp4``: a pan coded from pictures, for both CLIs;
+* ``h264_cabac_idc1_8x8.avi``: CABAC P and B slices of cabac_init_idc 1
+  under the 8x8 transform.
 
-Two files as devices write them, for ``chip_smoke.py`` phase 27: the
+B slices (``h264_b_*``): ``h264_b_{cavlc,cabac}_inf{0,1}``: every B
+macroblock and sub type, B_Skip, spatial and temporal direct under
+direct_8x8_inference 0 and 1, weighted_bipred_idc 0-2 (one PPS each), a
+pyramid, under both coders; ``h264_b_lists.avi`` and
+``h264_b_lists_cabac.mp4``: long-term pictures in both lists, L0 and L1
+modifications, L1 equal to L0 (swapped), more than one L1 reference, an L1
+longer than the references, MMCO 1 in a reference B picture;
+``h264_b_mixed.avi``: P and B slices in one picture; ``h264_b_pyramid_*``:
+the delay cv2 finds for a pyramid without VUI, with VUI and with
+``bitstream_restriction``, in AVI and in MP4 with and without ``ctts``;
+``h264_b_ctts.mp4`` and ``h264_b_ctts_late.mp4``: composition times and an
+edit at the first offset, and a frame later (cv2 drops a picture).
+
+Files as devices write them, for ``chip_smoke.py`` phases 27 and 28: the
 24-frame 720x1280 pan of phase 25 as High-profile CABAC MP4 (motion search,
-8x8 transform, three references, deblocking), and a 480x640 Constrained
-Baseline CAVLC AVI.  Refused, made by hand: B, SP and data-partitioned
-slices, field coding, 4:2:2, 10 bits, slice groups, redundant pictures,
-HEVC's ``hvc1`` and ``hev1``, and CABAC's cabac_init_idc 1 with the 8x8
-transform.
+8x8 transform, three references, deblocking) and in x264's default GOP (3 B
+frames under a pyramid, spatial direct, implicit weights, ``ctts``), and
+480x640 AVIs: Constrained Baseline CAVLC, and Main CAVLC with two B frames
+(temporal direct, explicit weights).  Refused, made by hand: SP and
+data-partitioned slices, field coding, 4:2:2, 10 bits, slice groups,
+redundant pictures, HEVC's ``hvc1`` and ``hev1``.
 
 Each readable fixture is also decoded by the port's plain loop and by the
 bundled libavcodec (``tests/mpeg4_oracle.py``); the script stops if they
@@ -65,7 +81,7 @@ from make_video_fixtures import pan  # noqa: E402
 from orienmask_tpu_torch.data import h264 as H  # noqa: E402
 from orienmask_tpu_torch.data import video, yuv  # noqa: E402
 
-I, P = H.I_SLICE, H.P_SLICE
+I, P, B = H.I_SLICE, H.P_SLICE, H.B_SLICE
 ALL_I = {"I4": 2, "I16": 2, "PCM": 0.15}
 ALL_P = {"P16x16": 2, "P16x8": 1, "P8x16": 1, "P8x8": 1.5, "skip": 2, "intra": 0.6}
 CHIP_MP4 = "h264_high_cabac_720x1280.mp4"
@@ -98,11 +114,13 @@ class Seq:
             c = dict(kw)
             if per is not None:
                 c.update(per(self.count, k))
-            if typ == P and "num_ref" not in c:
-                have = len(self.st.dec.dpb)
-                if have < default:
-                    c["num_ref"] = have
-            out.append(E.Cfg(first_mb=bounds[k], last_mb=bounds[k + 1] - 1, slice_type=typ,
+            have = len(self.st.dec.dpb)
+            if typ in (P, B) and "num_ref" not in c and have < default:
+                c["num_ref"] = have
+            if typ == B and "num_ref1" not in c and have < pps.get("num_ref_idx_default1", 1):
+                c["num_ref1"] = have
+            out.append(E.Cfg(first_mb=bounds[k], last_mb=bounds[k + 1] - 1,
+                             slice_type=c.pop("slice_type", typ),
                              frame_num=self.frame_num % (1 << sps.get("log2_max_frame_num", 4)),
                              poc_lsb=poc % (1 << sps.get("log2_max_poc_lsb", 6)),
                              qp=c.pop("qp", 26), **c))
@@ -125,14 +143,15 @@ def avi(name, st, fps=25, fourcc=b"H264", extradata=b""):
     return packets
 
 
-def mp4_file(name, st, fps=25, entry=b"avc1", length_size=4):
+def mp4_file(name, st, fps=25, entry=b"avc1", length_size=4, offsets=None, media_time=None):
     packets = st.finish()
     if length_size != 4:
         packets = [_relength(p, length_size) for p in packets]
     avcc = st.avcc()
     avcc = avcc[:4] + bytes([0xFC | (length_size - 1)]) + avcc[5:]
     E.write_mp4(OUT / name, packets, st.keys, 16 * st.sps.mb_w - _crop_w(st.sps),
-                16 * st.sps.mb_h - _crop_h(st.sps), E.rate_of(fps), avcc, entry)
+                16 * st.sps.mb_h - _crop_h(st.sps), E.rate_of(fps), avcc, entry, offsets,
+                media_time)
     return packets
 
 
@@ -379,6 +398,174 @@ def params_strf():
     avi("h264_params_strf.avi", st, extradata=extradata)
 
 
+# -- B slices ----------------------------------------------------------------------
+
+ALL_B = {"direct": 2, "B16x16": 3, "B16x8": 2, "B8x16": 2, "B8x8": 3, "skip": 2, "intra": 0.5}
+
+
+def random_weights(rng, n0, n1):
+    """A B slice's pred_weight_table: denominators below 7 and weights of
+    -20..63, so that each pair's sum stays within -128..128 (7.4.3.2);
+    about a third of the entries left at their defaults."""
+    def entry():
+        luma = None if rng.random() < 0.3 else (int(rng.integers(-20, 64)),
+                                                int(rng.integers(-20, 21)))
+        chroma = None if rng.random() < 0.3 else tuple(
+            int(v) for _ in range(2) for v in (rng.integers(-20, 64), rng.integers(-20, 21)))
+        return luma, chroma
+    return (int(rng.integers(0, 7)), int(rng.integers(0, 7)), [entry() for _ in range(n0)],
+            [entry() for _ in range(n1)])
+
+
+def b_pictures(st, s, ch, rng, gops, pps_ids=(0,), spatial=(1, 0), idcs=(0,), refs=2):
+    """An IDR picture, then ``gops`` mini-GOPs of a P and three B pictures
+    (a pyramid: the middle B a reference, coded first), each B picture
+    taking the next of ``pps_ids``, direct modes (``spatial``) and
+    cabac_init_idc values, with up to ``refs`` references in each list
+    (random explicit weights under a PPS of weighted_bipred_idc 1)."""
+    s.pic(I, ch, idr=True, poc=0)
+    k = 0
+    for g in range(gops):
+        base = 4 * g
+        s.pic(P, ch, poc=2 * (base + 4), cabac_init_idc=idcs[g % len(idcs)],
+              pps_id=pps_ids[g % len(pps_ids)])
+        for disp, ref in ((base + 2, 1), (base + 1, 0), (base + 3, 0)):
+            pps_id = pps_ids[k % len(pps_ids)]
+            have = len(st.dec.dpb)
+            kw = dict(direct_spatial=spatial[k % len(spatial)], cabac_init_idc=idcs[k % len(idcs)],
+                      num_ref=min(refs, have), num_ref1=min(refs, have))
+            if st.ppss[pps_id].get("weighted_bipred") == 1:
+                kw["weights"] = random_weights(rng, kw["num_ref"], kw["num_ref1"])
+            s.pic(B, ch, ref=ref, poc=2 * disp, pps_id=pps_id, **kw)
+            k += 1
+
+
+def _b_ppss(cabac, t8=None, **kw):
+    """Three PPSs, ids 0-2, of weighted_bipred_idc 0, 1 and 2."""
+    return [dict(id=w, cabac=cabac, num_ref_idx_default=2, num_ref_idx_default1=2,
+                 weighted_bipred=w, transform_8x8=t8, **kw) for w in range(3)]
+
+
+def b_coverage(name, cabac, infer, t8, seed):
+    """Every B macroblock and sub type, B_Skip, spatial and temporal direct
+    (alternating by picture) under ``infer`` (direct_8x8_inference), the
+    three weighted_bipred_idc (by PPS), cabac_init_idc 0-2, a pyramid."""
+    ch = E.RandomChooser(seed, i_kinds=ALL_I, p_kinds=ALL_P, b_kinds=ALL_B, density=0.12,
+                         dqp=0.15, t8=0.6)
+    st, s = _cfg_stream(8, 6, dict(profile_idc=100 if t8 else 77, poc_type=0,
+                                   max_num_ref_frames=4, direct_8x8_inference=infer,
+                                   log2_max_poc_lsb=8),
+                        _b_ppss(cabac, t8), annexb=not name.endswith(".mp4"))
+    b_pictures(st, s, ch, np.random.default_rng(seed), 2, pps_ids=(0, 1, 2, 1, 2, 0),
+               idcs=(0, 1, 2))
+    if name.endswith(".mp4"):
+        mp4_file(name, st)
+    else:
+        avi(name, st)
+
+
+def b_lists(name, cabac, seed):
+    """The reference lists of B slices: a long-term picture in both lists
+    (with temporal direct's unscaled vector and implicit weights' 32/32),
+    an L1 whose first entry is long-term, L0 and L1 modifications, L1
+    equal to L0 (swapped), more than one L1 reference, an L1 longer than
+    the references (FFmpeg's default fill), a reference B picture with
+    MMCO 1, a co-located block whose reference is not in L0."""
+    ch = E.RandomChooser(seed, i_kinds=ALL_I, p_kinds=ALL_P, b_kinds=ALL_B, density=0.1,
+                         dqp=0.1)
+    ppss = [dict(id=0, cabac=cabac, num_ref_idx_default=3, num_ref_idx_default1=3,
+                 weighted_bipred=2),
+            dict(id=1, cabac=cabac, num_ref_idx_default=2, num_ref_idx_default1=2)]
+    st, s = _cfg_stream(5, 3, dict(profile_idc=77, poc_type=0, max_num_ref_frames=5,
+                                   log2_max_poc_lsb=8), ppss, annexb=not name.endswith(".mp4"))
+    s.pic(I, ch, idr=True, poc=0, long_term_reference=1)
+    s.pic(P, ch, poc=8)
+    s.pic(B, ch, ref=0, poc=4, num_ref=2, num_ref1=3, direct_spatial=1, pps_id=1)  # filled
+    s.pic(P, ch, poc=16, num_ref=2)
+    s.pic(B, ch, ref=1, poc=12, num_ref=3, num_ref1=3, direct_spatial=0)
+    s.pic(B, ch, ref=0, poc=10, num_ref=3, num_ref1=2, modifications1=[(2, 0)],
+          direct_spatial=1)
+    s.pic(B, ch, ref=0, poc=14, num_ref=1, num_ref1=2, modifications=[(0, 0)],
+          modifications1=[(0, 1), (0, 0)], direct_spatial=0, pps_id=1)
+    target = min((p for p in st.dec.dpb if p.ref == "short"), key=lambda p: p.poc).frame_num
+    s.pic(B, ch, ref=1, poc=20, num_ref=2, num_ref1=2, direct_spatial=0,
+          mmcos=[(1, s.frame_num - target - 1)])
+    s.pic(B, ch, ref=0, poc=24, num_ref=3, num_ref1=3, direct_spatial=1)  # L1 = L0: swapped
+    s.pic(B, ch, ref=0, poc=26, num_ref=3, num_ref1=1, direct_spatial=0, pps_id=1)
+    if name.endswith(".mp4"):
+        mp4_file(name, st)
+    else:
+        avi(name, st)
+
+
+def b_mixed():
+    """P and B slices in one picture (three slices a picture, deblocking
+    across them), reference and not, the B pictures after them spatial."""
+    ch = E.RandomChooser(131, i_kinds=ALL_I, p_kinds=ALL_P, b_kinds=ALL_B, density=0.12)
+    st, s = _cfg_stream(6, 4, dict(profile_idc=77, poc_type=0, max_num_ref_frames=3,
+                                   log2_max_poc_lsb=8),
+                        [dict(id=0, cabac=0, num_ref_idx_default=2, num_ref_idx_default1=2),
+                         dict(id=1, cabac=1, num_ref_idx_default=2, num_ref_idx_default1=2,
+                              weighted_bipred=2)])
+    s.pic(I, ch, idr=True, poc=0)
+    s.pic(P, ch, poc=12)
+
+    def mixed(types):
+        return lambda f, k: dict(slice_type=types[k], direct_spatial=1, num_ref=2,
+                                 num_ref1=2, deblock_idc=0, qp=24 + 3 * k)
+
+    for pps_id in (0, 1):
+        base = 12 * pps_id
+        s.pic(P, ch, poc=2 * base + 8, ref=1, slices=3, per=mixed((B, P, B)), pps_id=pps_id)
+        s.pic(P, ch, poc=2 * base + 4, ref=0, slices=3, per=mixed((P, B, P)), pps_id=pps_id)
+        s.pic(B, ch, poc=2 * base + 16, ref=0, num_ref=2, num_ref1=2, pps_id=pps_id)
+        s.pic(P, ch, poc=2 * base + 24, num_ref=2, pps_id=pps_id)
+    avi("h264_b_mixed.avi", st)
+
+
+def b_pyramid(name, vui, offsets=False):
+    """A B pyramid whose delay cv2 finds without VUI (guessed), with VUI but
+    no bitstream_restriction, and with max_num_reorder_frames; in MP4 with
+    or without composition offsets (cv2's probe reads further with)."""
+    ch = E.RandomChooser(140 + len(name), i_kinds=ALL_I, p_kinds=ALL_P, b_kinds=ALL_B,
+                         density=0.1)
+    st, s = _cfg_stream(5, 3, dict(profile_idc=77, poc_type=0, max_num_ref_frames=3,
+                                   log2_max_poc_lsb=8, vui=vui),
+                        [dict(cabac=int(name.endswith(".mp4")), num_ref_idx_default=2,
+                              num_ref_idx_default1=1)], annexb=not name.endswith(".mp4"))
+    b_pictures(st, s, ch, None, 3)
+    if name.endswith(".mp4"):
+        cts = [d + 2 - i for i, (d, _, _) in enumerate(b_order(13, 3, True))] if offsets else None
+        mp4_file(name, st, offsets=cts, media_time=cts and cts[0])
+    else:
+        avi(name, st)
+
+
+def b_ctts(name, late):
+    """A B-frame MP4 as FFmpeg's mov muxer writes one: ctts, and the edit at
+    the first composition offset (``late`` frames after it: cv2 drops the
+    pictures shown before the edit)."""
+    content_stream_b(pan(26, 96, 128, 8, 2, 1),  # h264_clip_96x128.mp4's scene
+                     dict(profile_idc=100, poc_type=0, max_num_ref_frames=4,
+                          log2_max_poc_lsb=8, vui=dict(num_reorder_frames=2,
+                                                       max_dec_frame_buffering=4)),
+                     dict(cabac=1, transform_8x8=1, num_ref_idx_default=2, weighted_bipred=2),
+                     name, 25, qp=28, window=4, b_kw=dict(direct_spatial=1), late=late)
+
+
+def cabac_idc1_8x8():
+    """CABAC P and B slices of cabac_init_idc 1 under the 8x8 transform
+    (ctxIdx 417-435 of that column)."""
+    ch = E.RandomChooser(150, i_kinds={**ALL_I, "I8": 2}, p_kinds=ALL_P, b_kinds=ALL_B,
+                         density=0.15, t8=0.8)
+    st, s = _cfg_stream(5, 3, dict(profile_idc=100, poc_type=0, max_num_ref_frames=3,
+                                   log2_max_poc_lsb=8),
+                        [dict(cabac=1, transform_8x8=1, num_ref_idx_default=2,
+                              num_ref_idx_default1=2)])
+    b_pictures(st, s, ch, None, 2, idcs=(1,))
+    avi("h264_cabac_idc1_8x8.avi", st)
+
+
 def content_stream(frames, sps_kw, pps_kw, name, fps, slices_qp=26, container="mp4",
                    window=8, fourcc=b"H264", gop=None):
     """A stream coded from RGB ``frames`` (ContentChooser)."""
@@ -403,6 +590,55 @@ def content_stream(frames, sps_kw, pps_kw, name, fps, slices_qp=26, container="m
     return avi(name, st, fps=fps, fourcc=fourcc)
 
 
+def b_order(n, bframes, pyramid):
+    """(display index, slice type, nal_ref_idc) of ``n`` frames in decoding
+    order: the I frame, then each P frame and the B frames shown before it
+    (under a pyramid the middle one first, a reference, as x264's default
+    b-pyramid codes three)."""
+    out = [(0, I, 1)]
+    d = 0
+    while d < n - 1:
+        p = min(d + bframes + 1, n - 1)
+        out.append((p, P, 1))
+        bs = list(range(d + 1, p))
+        mid = bs[len(bs) // 2] if pyramid and len(bs) >= 3 else None
+        if mid is not None:
+            out.append((mid, B, 1))
+        out += [(b, B, 0) for b in bs if b != mid]
+        d = p
+    return out
+
+
+def content_stream_b(frames, sps_kw, pps_kw, name, fps, qp=26, container="mp4", window=8,
+                     bframes=3, pyramid=True, b_kw=None, late=0):
+    """A stream of I, P and B frames coded from RGB ``frames``
+    (ContentChooser) in ``b_order``; in MP4 with each sample's composition
+    offset (``ctts``) and the edit at the first one, ``late`` frames
+    later."""
+    h, w = frames[0].shape[:2]
+    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    sps_kw = dict(sps_kw)
+    crop = (0, 16 * mb_w - w, 0, 16 * mb_h - h)
+    if any(crop):
+        sps_kw["crop"] = crop
+    st, s = _cfg_stream(mb_w, mb_h, sps_kw, [pps_kw], annexb=(container == "avi"))
+    ch = E.ContentChooser(window=window)
+    order = b_order(len(frames), bframes, pyramid)
+    for k, (display, typ, ref) in enumerate(order):
+        padded = np.pad(frames[display], ((0, 16 * mb_h - h), (0, 16 * mb_w - w), (0, 0)),
+                        mode="edge")
+        ch.frame = yuv.rgb_to_yuv420_py(padded)
+        s.pic(typ, ch, idr=display == 0, ref=ref, poc=2 * display,
+              qp=qp - 2 if typ == I else qp + 2 * (typ == B), **(b_kw or {} if typ == B else {}))
+        print(f"  {name}: picture {k} (frame {display}, {'IPB'[(I, P, B).index(typ)]}) coded",
+              flush=True)
+    delay = max(i - d for i, (d, _, _) in enumerate(order))
+    offsets = [d + delay - i for i, (d, _, _) in enumerate(order)]
+    if container == "avi":
+        return avi(name, st, fps=fps)
+    return mp4_file(name, st, fps=fps, offsets=offsets, media_time=offsets[0] + late)
+
+
 def clip():
     content_stream(pan(26, 96, 128, 8, 2, 1), dict(profile_idc=100, poc_type=0,
                                                    max_num_ref_frames=2),
@@ -423,6 +659,34 @@ def chip_avi():
                    dict(profile_idc=66, constraint_flags=0xC0, level_idc=30, poc_type=2,
                         max_num_ref_frames=1), dict(cabac=0), CHIP_AVI, 30, slices_qp=30,
                    container="avi", window=6)
+
+
+CHIP_B_MP4 = "h264_b_cabac_720x1280.mp4"
+CHIP_B_AVI = "h264_b_cavlc_480x640.avi"
+
+
+def chip_b_mp4():
+    """x264's default GOP shape: 3 B frames under a pyramid, spatial direct,
+    implicit weighted bi-prediction, the 8x8 transform, High CABAC; in MP4
+    with ctts and the edit at the first composition offset."""
+    content_stream_b(pan(25, 720, 1280, 24, 6, 2),
+                     dict(profile_idc=100, level_idc=31, poc_type=0, max_num_ref_frames=4,
+                          log2_max_poc_lsb=8, vui=dict(num_reorder_frames=2,
+                                                       max_dec_frame_buffering=4)),
+                     dict(cabac=1, transform_8x8=1, num_ref_idx_default=2, weighted_bipred=2),
+                     CHIP_B_MP4, 25, qp=30, window=6, b_kw=dict(direct_spatial=1))
+
+
+def chip_b_avi():
+    """Main CAVLC, two B frames between P frames, temporal direct, explicit
+    weighted bi-prediction, in the scene of phase 26's MJPEG file."""
+    content_stream_b(pan(37, 480, 640, CHIP_AVI_FRAMES, 4, 2),
+                     dict(profile_idc=77, level_idc=30, poc_type=0, max_num_ref_frames=2,
+                          vui=dict(num_reorder_frames=1, max_dec_frame_buffering=2)),
+                     dict(cabac=0, weighted_bipred=1), CHIP_B_AVI, 30, qp=30, container="avi",
+                     window=6, bframes=2, pyramid=False,
+                     b_kw=dict(direct_spatial=0, weights=(5, 3, [((34, -3), (8, 1, 8, -1))],
+                                                          [((30, 2), None)])))
 
 
 # -- refused ---------------------------------------------------------------------------
@@ -489,9 +753,6 @@ def refused():
             E.write_mp4(OUT / name, packets, keys, *size, (25, 1), avcc, tag)
 
     st = good_stream()
-    b_slice = b"\0\0\0\1" + _slice_nal(1, 1, extra=lambda w: w.bit(1))
-    write("h264_b_slice.avi", st.finish() + [b_slice])
-    st = good_stream()
     write("h264_sp_slice.avi", st.finish() + [b"\0\0\0\1" + _slice_nal(1, 3)])
     st = good_stream()
     write("h264_partitioned.avi", st.finish() + [b"\0\0\0\1" + E.nal(1, 2, b"\x88\x80" +
@@ -508,10 +769,6 @@ def refused():
     st = good_stream(E.Cfg(cabac=0, redundant_pic_cnt_present=1))
     redundant = _slice_nal(1, 2, extra=lambda w: w.ue(1))
     write("h264_redundant.avi", st.finish() + [b"\0\0\0\1" + redundant])
-    st = good_stream(E.Cfg(cabac=1, transform_8x8=1), E.Cfg(profile_idc=100, mb_w=2, mb_h=2,
-                                                           poc_type=2, max_num_ref_frames=1))
-    idc1 = _slice_nal(1, 0, extra=lambda w: (w.bit(0), w.bit(0), w.bit(0), w.ue(1)))
-    write("h264_cabac_idc1_8x8.avi", st.finish() + [b"\0\0\0\1" + idc1])
     for tag in (b"hvc1", b"hev1"):
         write(f"hevc_{tag.decode()}.mp4", [b"\0\0\0\x02\x26\x01"], container="mp4", tag=tag)
 
@@ -526,14 +783,30 @@ FIXTURES = {
     "crop": crop, "full_range": full_range, "vui_timing": vui_timing,
     "recovery_sei": recovery_sei, "params_strf": params_strf, "clip": clip,
     "chip_avi": chip_avi, "chip_mp4": chip_mp4, "refused": refused,
+    "chip_b_mp4": chip_b_mp4, "chip_b_avi": chip_b_avi,
+    "b_cavlc_inf1": lambda: b_coverage("h264_b_cavlc_inf1.avi", 0, 1, None, 161),
+    "b_cavlc_inf0": lambda: b_coverage("h264_b_cavlc_inf0.avi", 0, 0, 1, 162),
+    "b_cabac_inf1": lambda: b_coverage("h264_b_cabac_inf1.mp4", 1, 1, 1, 163),
+    "b_cabac_inf0": lambda: b_coverage("h264_b_cabac_inf0.mp4", 1, 0, None, 164),
+    "b_lists": lambda: b_lists("h264_b_lists.avi", 0, 171),
+    "b_lists_cabac": lambda: b_lists("h264_b_lists_cabac.mp4", 1, 172),
+    "b_mixed": b_mixed,
+    "b_pyramid_novui": lambda: b_pyramid("h264_b_pyramid_novui.avi", None),
+    "b_pyramid_vui": lambda: b_pyramid("h264_b_pyramid_vui.mp4", dict(timing=(1, 50, 1))),
+    "b_pyramid_ctts": lambda: b_pyramid("h264_b_pyramid_ctts.mp4", None, offsets=True),
+    "b_pyramid_restrict": lambda: b_pyramid("h264_b_pyramid_restrict.avi",
+                                            dict(num_reorder_frames=2,
+                                                 max_dec_frame_buffering=3)),
+    "b_ctts": lambda: b_ctts("h264_b_ctts.mp4", 0),
+    "b_ctts_late": lambda: b_ctts("h264_b_ctts_late.mp4", 1),
+    "cabac_idc1_8x8": cabac_idc1_8x8,
 }
 # the refused fixtures and the form each is refused as
 REFUSED = {
-    "h264_b_slice.avi": "B slices", "h264_sp_slice.avi": "SP and SI slices",
+    "h264_sp_slice.avi": "SP and SI slices",
     "h264_partitioned.avi": "data partitioning", "h264_field.avi": "field pictures and MBAFF",
     "h264_422.avi": "chroma_format_idc 2", "h264_10bit.avi": "10-bit video",
     "h264_fmo.avi": "slice groups", "h264_redundant.avi": "redundant pictures",
-    "h264_cabac_idc1_8x8.avi": "cabac_init_idc 1 with the 8x8 transform",
     "hevc_hvc1.mp4": "'hvc1'", "hevc_hev1.mp4": "'hev1'",
     "video_h264_tag.avi": "an 'H264' stream without a sequence parameter set",
     "video_avc1.mp4": "an 'avc1' track without avcC",
@@ -548,23 +821,28 @@ def names():
 def check(name, cv2_frames):
     """The port's plain loop (the C++ one for the chip-phase files, which
     the tests hold to the plain one on their first pictures) gives
-    libavcodec's planes and cv2's frames."""
+    libavcodec's planes and, the pictures of the packets an MP4 edit leaves
+    out dropped, cv2's frames."""
     reader = video.VideoReader(OUT / name)
     packets = list(reader.packet_bytes())
-    native = name in (CHIP_MP4, CHIP_AVI)
+    native = name in (CHIP_MP4, CHIP_AVI, CHIP_B_MP4, CHIP_B_AVI)
     delay = H.probe_delay(packets, reader.config, reader.codec_tag, native=native,
-                          annexb=reader.annexb)
+                          annexb=reader.annexb, mp4=reader.probe)
     dec = H.Decoder(reader.config, native=native, codec_tag=reader.codec_tag, delay=delay,
                     annexb=reader.annexb)
-    mine = []
+    mine, tags = [], []
     for packet in packets:
         mine += dec.decode(packet)
+        tags += dec.shown_packets
     mine += dec.flush()
+    tags += dec.shown_packets
     want = mpeg4_oracle.decode(packets, b"" if reader.annexb else reader.config, codec=b"h264",
                                delay=delay)
     if len(mine) != len(want) or not all(np.array_equal(a, b) for x, y in zip(mine, want)
                                          for a, b in zip(x, y)):
         raise AssertionError(f"{name}: the plain loop differs from libavcodec")
+    if reader.shown is not None:
+        mine = [m for m, t in zip(mine, tags) if t in reader.shown]
     rgb = [yuv.yuv_to_rgb(*p, yuv.coefficients(*dec.colour)) for p in mine]
     if len(rgb) != len(cv2_frames) or not all(np.array_equal(a, b)
                                               for a, b in zip(rgb, cv2_frames)):

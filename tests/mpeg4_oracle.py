@@ -27,10 +27,10 @@ LIBS = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_pyth
 _P = ctypes.c_void_p
 _LIBS = {}
 AV_PIX_FMT_YUV420P, AV_PIX_FMT_BGR24, SWS_BICUBIC = 0, 3, 4
-# AVPacket: data at 24, size at 32; AVFrame: data[8] at 0, linesize[8] at 64,
-# width and height at 104, format at 116
-PACKET_DATA, PACKET_SIZE = 24, 32
-FRAME_LINESIZE, FRAME_SIZE, FRAME_FORMAT = 64, 104, 116
+# AVPacket: pts at 8, data at 24, size at 32; AVFrame: data[8] at 0,
+# linesize[8] at 64, width and height at 104, format at 116, pts at 136
+PACKET_PTS, PACKET_DATA, PACKET_SIZE = 8, 24, 32
+FRAME_LINESIZE, FRAME_SIZE, FRAME_FORMAT, FRAME_PTS = 64, 104, 116, 136
 CONTEXT_CODEC_TAG = 28  # AVCodecContext.codec_tag
 CONTEXT_EXTRADATA = 72  # AVCodecContext.extradata, extradata_size after it
 CONTEXT_HAS_B_FRAMES = 172  # AVCodecContext.has_b_frames (after refs)
@@ -84,7 +84,8 @@ def _ints(address, n):
     return list((ctypes.c_int * n).from_address(address))
 
 
-def decode(packets, extradata=b"", codec_tag=b"", codec=b"mpeg4", formats=None, delay=0):
+def decode(packets, extradata=b"", codec_tag=b"", codec=b"mpeg4", formats=None, delay=0,
+           sources=None):
     """libavcodec's ``mpeg4`` (or ``codec``) decoder on ``packets``
     (``extradata``, a container's VOL, leads the first; for ``h264`` it is
     the codec context's extradata, an ``avcC`` record or Annex B parameter
@@ -92,7 +93,9 @@ def decode(packets, extradata=b"", codec_tag=b"", codec=b"mpeg4", formats=None, 
     each frame's (Y, U, V) planes, the chroma planes at the frame's chroma
     size.  ``formats``, a list, receives each frame's pixel format;
     ``delay`` is the context's ``has_b_frames`` at its opening (the
-    ``video_delay`` a demuxer's probe hands the decoder)."""
+    ``video_delay`` a demuxer's probe hands the decoder); ``sources``, a
+    list, receives the index of the packet each frame came from (its pts,
+    set to the packet's index)."""
     avcodec, avutil = _avcodec(), _avutil()
     decoder = avcodec.avcodec_find_decoder_by_name(codec)
     ctx = avcodec.avcodec_alloc_context3(decoder)
@@ -121,6 +124,8 @@ def decode(packets, extradata=b"", codec_tag=b"", codec=b"mpeg4", formats=None, 
             fmt = _ints(frame + FRAME_FORMAT, 1)[0]
             if formats is not None:
                 formats.append(fmt)
+            if sources is not None:
+                sources.append(ctypes.c_int64.from_address(frame + FRAME_PTS).value)
             cw, ch = (w + 1) // 2, (h + 1) // 2 if fmt not in PLANAR_422 else h
             planes = []
             for i, (pw, ph) in enumerate(((w, h), (cw, ch), (cw, ch))):
@@ -133,6 +138,7 @@ def decode(packets, extradata=b"", codec_tag=b"", codec=b"mpeg4", formats=None, 
         if avcodec.av_new_packet(pkt, len(packet)) != 0:
             raise MemoryError("av_new_packet")
         ctypes.memmove(_P.from_address(pkt + PACKET_DATA).value, packet, len(packet))
+        ctypes.c_int64.from_address(pkt + PACKET_PTS).value = i
         avcodec.avcodec_send_packet(ctx, pkt)
         avcodec.av_packet_unref(pkt)
         drain()

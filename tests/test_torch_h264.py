@@ -34,7 +34,9 @@ from test_torch_video import CLI_MEAN_ABS_DIFF
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "image_fixtures"
 DIGESTS = json.loads((FIXTURES / "digests.json").read_text())
-H264 = sorted(n for n in DIGESTS if n.startswith(("h264_", "hevc_")))
+# the B-slice fixtures (h264_b_*) are tests/test_torch_h264_b.py's
+H264 = sorted(n for n in DIGESTS if n.startswith(("h264_", "hevc_")) and
+              not n.startswith("h264_b_"))
 READABLE = [n for n in H264 if "refused" not in DIGESTS[n]]
 CHIP = ("h264_high_cabac_720x1280.mp4", "h264_baseline_480x640.avi")
 SMALL = [n for n in READABLE if n not in CHIP]
@@ -56,7 +58,7 @@ def _plain(name, limit=None):
     reader = video.VideoReader(FIXTURES / name)
     packets = list(reader.packet_bytes())[:limit]
     delay = h264.probe_delay(packets, reader.config, reader.codec_tag, native=False,
-                             annexb=reader.annexb)
+                             annexb=reader.annexb, mp4=reader.probe)
     dec = h264.Decoder(reader.config, native=False, codec_tag=reader.codec_tag, delay=delay,
                        annexb=reader.annexb)
     planes = []
@@ -116,7 +118,7 @@ def test_the_chip_phase_files_read_to_cv2s_frames(name):
     planes = list(reader.planes())
     packets = list(reader.packet_bytes())
     lavc = _lavc(reader, packets, h264.probe_delay(packets, reader.config, reader.codec_tag,
-                                                  annexb=reader.annexb))
+                                                  annexb=reader.annexb, mp4=reader.probe))
     assert len(lavc) == len(planes)
     assert all(np.array_equal(a, b) for x, y in zip(planes, lavc) for a, b in zip(x, y))
     first, _, _, _ = _plain(name, limit=2)
@@ -194,8 +196,7 @@ TABLES = {
     "8x8 last_significant_coeff_flag ctxIdxInc": (h264_tables.LAST_8X8, np.uint8),
     "CABAC (m, n), I slices": (h264_tables.CABAC_INIT[0], np.int8),
     "CABAC (m, n), cabac_init_idc 0": (h264_tables.CABAC_INIT[1], np.int8),
-    "CABAC (m, n), cabac_init_idc 1 (ctxIdx 0-416)": (
-        h264_tables.CABAC_INIT[2][:h264_tables.UNKNOWN_IDC1[0]], np.int8),
+    "CABAC (m, n), cabac_init_idc 1": (h264_tables.CABAC_INIT[2], np.int8),
     "CABAC (m, n), cabac_init_idc 2": (h264_tables.CABAC_INIT[3], np.int8),
 }
 
@@ -216,10 +217,19 @@ def test_each_table_is_a_run_of_libavcodecs_bytes(libavcodec, name):
 
 
 def test_the_tables_left_out_are_refused_not_guessed():
-    """cabac_init_idc 1's ctxIdx 417-435 are not held: a slice that would
-    read them is refused, and the table holds None there."""
-    assert all(v is None for v in h264_tables.CABAC_INIT[2][417:436])
-    assert "h264_cabac_idc1_8x8.avi" in REFUSED
+    """No table is left out any more: cabac_init_idc 1's ctxIdx 417-435,
+    written from Table 9-24, are whole (their run of libavcodec's bytes is
+    ``test_each_table_is_a_run_of_libavcodecs_bytes``), and the fixture of
+    CABAC P and B slices of cabac_init_idc 1 under the 8x8 transform,
+    refused before, reads by the plain loop to cv2's frames and
+    libavcodec's planes."""
+    assert all(mn is not None for mn in h264_tables.CABAC_INIT[2])
+    name = "h264_cabac_idc1_8x8.avi"
+    assert name in SMALL and name not in REFUSED
+    planes, dec, packets, delay = _plain(name)
+    frames = [yuv.yuv_to_rgb_py(*p, yuv.coefficients(*dec.colour)) for p in planes]
+    assert _sha(frames) == DIGESTS[name]["frame_sha256"]
+    assert dec.coverage["cabac_init_idc", 1] and dec.coverage["transform 8x8", "inter"]
 
 
 COVERAGE = (
@@ -285,12 +295,10 @@ def test_the_colour_coefficients_are_libswscales():
     assert np.array_equal(yuv.yuv_to_rgb_py(y, u, v, c), yuv.yuv_to_rgb_native(y, u, v, c))
 
 
-@pytest.fixture(scope="module")
-def h264_cli(inputs, tmp_path_factory):  # noqa: F811
-    """Both CLIs' --video over the committed 96x128 H.264 clip (the size
-    ``CLI_MEAN_ABS_DIFF`` was measured at), each -o out.avi, random colours
-    seeded alike."""
-    root = tmp_path_factory.mktemp("h264_cli")
+def both_clis(inputs, root, clip):  # noqa: F811
+    """Both CLIs' --video over committed fixture ``clip`` (at 96x128, the
+    size ``CLI_MEAN_ABS_DIFF`` was measured at), each -o out.avi, random
+    colours seeded alike: {"jax" or "port": (stdout, output path)}."""
     config = dict(_config(), visualizer={"type": "InferenceVisualizer", "dataset": "COCO",
                                          "with_mask": True, "conf_thresh": 0.3, "alpha": 0.6,
                                          "line_thickness": 1})
@@ -298,7 +306,7 @@ def h264_cli(inputs, tmp_path_factory):  # noqa: F811
     env = dict(cpu_subprocess_env(), OMP_NUM_THREADS="1")
     seeded = "import random, runpy, sys; random.seed(0); sys.argv = sys.argv[1:]; "
     args = ["-c", str(root / "config.json"), "-w", str(inputs / "weights.ckpt"), "--video",
-            str(FIXTURES / "h264_clip_96x128.mp4")]
+            str(FIXTURES / clip)]
     out = {}
     for name, cmd in (
             ("jax", [sys.executable, "-c", seeded + "runpy.run_path(sys.argv[0], "
@@ -313,15 +321,16 @@ def h264_cli(inputs, tmp_path_factory):  # noqa: F811
     return out
 
 
-def test_both_clis_read_an_h264_clip_alike_and_write_close_videos(h264_cli):
-    """The two CLIs read the same frames (the port's reader equals cv2's)
-    and write outputs within ``CLI_MEAN_ABS_DIFF``."""
-    n, shape = 8, (96, 128, 3)
-    port_frames = list(video.VideoReader(FIXTURES / "h264_clip_96x128.mp4"))
-    cv2_frames, _, _ = mpeg4_oracle.cv2_frames(FIXTURES / "h264_clip_96x128.mp4")
+def check_both_clis(out, clip, n):
+    """The two CLIs of ``both_clis`` read the same ``n`` frames of ``clip``
+    (the port's reader equals cv2's) and write outputs within
+    ``CLI_MEAN_ABS_DIFF``."""
+    shape = (96, 128, 3)
+    port_frames = list(video.VideoReader(FIXTURES / clip))
+    cv2_frames, _, _ = mpeg4_oracle.cv2_frames(FIXTURES / clip)
     assert len(port_frames) == len(cv2_frames) == n
     assert all(np.array_equal(a, b) for a, b in zip(port_frames, cv2_frames))
-    (jax_out, jax_file), (port_out, port_file) = h264_cli["jax"], h264_cli["port"]
+    (jax_out, jax_file), (port_out, port_file) = out["jax"], out["port"]
     assert f"Streamed {n} frames" in jax_out and f"Streamed {n} frames" in port_out
     want, want_fps, want_count = mpeg4_oracle.cv2_frames(jax_file)
     got, got_fps, got_count = mpeg4_oracle.cv2_frames(port_file)
@@ -330,3 +339,15 @@ def test_both_clis_read_an_h264_clip_alike_and_write_close_videos(h264_cli):
     diff = np.mean([np.abs(a.astype(float) - b).mean() for a, b in zip(got, want)])
     print(f"mean absolute difference of the two CLIs' videos: {diff:.3f}")
     assert diff < CLI_MEAN_ABS_DIFF
+
+
+@pytest.fixture(scope="module")
+def h264_cli(inputs, tmp_path_factory):  # noqa: F811
+    """Both CLIs over the committed 96x128 H.264 clip."""
+    return both_clis(inputs, tmp_path_factory.mktemp("h264_cli"), "h264_clip_96x128.mp4")
+
+
+def test_both_clis_read_an_h264_clip_alike_and_write_close_videos(h264_cli):
+    """The two CLIs read the same frames (the port's reader equals cv2's)
+    and write outputs within ``CLI_MEAN_ABS_DIFF``."""
+    check_both_clis(h264_cli, "h264_clip_96x128.mp4", 8)

@@ -85,13 +85,18 @@ def _scene(h, w, n, dx, dy, seed=0):
 def test_planes_equal_libavcodecs(name):
     """libavcodec's ``mpeg4`` (with the AVI's codec tag, as FFmpeg's
     demuxer sets it), ``mjpeg`` or ``h264`` decoder (opened at the delay
-    cv2's probe finds; Annex B packets carry their parameter sets)."""
+    cv2's probe finds; Annex B packets carry their parameter sets; the
+    pictures of the packets an MP4 edit leaves out dropped)."""
     reader = video.VideoReader(FIXTURES / name)
     if reader.codec == "h264":
         packets = list(reader.packet_bytes())
-        delay = h264.probe_delay(packets, reader.config, reader.codec_tag, annexb=reader.annexb)
+        delay = h264.probe_delay(packets, reader.config, reader.codec_tag, annexb=reader.annexb,
+                                 mp4=reader.probe)
+        sources = []
         want = mpeg4_oracle.decode(packets, b"" if reader.annexb else reader.config,
-                                   codec=b"h264", delay=delay)
+                                   codec=b"h264", delay=delay, sources=sources)
+        if reader.shown is not None:  # the pictures of the packets an MP4 edit leaves out
+            want = [w for w, src in zip(want, sources) if src in reader.shown]
         assert _equal_planes(list(reader.planes()), want)
         return
     codec = b"mjpeg" if reader.codec == "mjpeg" else b"mpeg4"
